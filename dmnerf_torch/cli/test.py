@@ -1,0 +1,131 @@
+"""Test CLI of the port: `python -m dmnerf_torch.cli.test --config ... --render`.
+
+Mirrors dmnerf_tpu/cli/test.py for the render mode. Flags and config files are
+the JAX package's (dmnerf_tpu.config), plus --device (default cuda; a CUDA
+device that is not there is an error, never a silent move to the CPU). The
+weights come from {basedir}/{expname}/{log_time}/NNNNNN.tar in the reference
+DM-NeRF layout: the latest one, or the one --test_model names. A JAX orbax
+checkpoint becomes such a file through tools/export_torch_ckpt.py.
+
+--mani_eval, --mani_demo and --mesh are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import re
+
+import torch
+
+from dmnerf_torch.eval.renderer import make_image_renderer
+from dmnerf_torch.eval.tester import render_test
+from dmnerf_torch.models.convert import load_tar
+from dmnerf_torch.models.fields import DMNeRFField, FieldConfig
+from dmnerf_tpu.config import initial, log_dir
+from dmnerf_tpu.data.base import dataset_name_from_dir, load_dataset
+
+_NOT_PORTED = {
+    "mani_eval": "ROADMAP.md queue 1, item 7 (edit)",
+    "mani_demo": "ROADMAP.md queue 1, item 7 (edit)",
+    "mesh": "ROADMAP.md queue 1, item 8 (mesh)",
+}
+
+
+def _resolve_test_model(ldir: str, test_model: str):
+    """--test_model ('200000.tar' or '200000') -> the .tar path, or None when
+    unset ('000000.tar' is the reference's default and means unset). A named
+    checkpoint that does not exist is an error."""
+    if not test_model or test_model == "000000.tar":
+        return None
+    name = test_model[:-len(".tar")] if test_model.endswith(".tar") else test_model
+    if not name.isdigit():
+        raise ValueError(f"--test_model {test_model!r}: expected 'NNNNNN(.tar)'")
+    cand = os.path.join(ldir, f"{int(name):06d}.tar")
+    if not os.path.isfile(cand):
+        raise FileNotFoundError(f"--test_model {test_model!r}: {cand} does not exist")
+    return cand
+
+
+def latest_tar(ldir: str):
+    """The highest-numbered NNNNNN.tar under ldir, or None."""
+    steps = [int(m.group(1)) for f in (os.listdir(ldir) if os.path.isdir(ldir) else [])
+             if (m := re.fullmatch(r"(\d+)\.tar", f))]
+    return os.path.join(ldir, f"{max(steps):06d}.tar") if steps else None
+
+
+def load_fields(path: str, cfg: FieldConfig, device):
+    """-> ({"coarse": DMNeRFField, "fine": DMNeRFField} on device, iteration)."""
+    coarse_sd, fine_sd, iteration = load_tar(path)
+    params = {}
+    for key, sd in (("coarse", coarse_sd), ("fine", fine_sd)):
+        field = DMNeRFField(cfg)
+        field.load_state_dict(sd)
+        params[key] = field.to(device).eval()
+    return params, iteration
+
+
+def resolve_device(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: CUDA is not available here "
+                           "(pass --device cpu to run the plain PyTorch path)")
+    return device
+
+
+def _color_dict(args):
+    """GT-label -> palette-index map for this scene from data/color_dict.json,
+    or None for scenes it does not list (e.g. the synthetic fixture)."""
+    from dmnerf_tpu.utils.viz import load_color_dict
+    repo_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    for path in (os.path.join("data", "color_dict.json"),
+                 os.path.join(repo_root, "data", "color_dict.json")):
+        if os.path.exists(path):
+            try:
+                parts = [p for p in args.datadir.replace("\\", "/").split("/") if p]
+                return load_color_dict(path, dataset_name_from_dir(args.datadir),
+                                       parts[-1])
+            except KeyError:
+                continue
+    return None
+
+
+def main(argv=None):
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--device", default="cuda")
+    ns, rest = pre.parse_known_args(argv)
+    device = resolve_device(ns.device)
+    args = initial(rest)
+    for flag, item in _NOT_PORTED.items():
+        if getattr(args, flag):
+            raise NotImplementedError(f"--{flag} is not ported to dmnerf_torch yet: {item}")
+    args.is_train = False
+    args.perturb = 0.0
+
+    scene = load_dataset(args)
+    args.ins_num = scene.ins_num
+
+    ldir = log_dir(args)
+    ckpt = _resolve_test_model(ldir, args.test_model) or latest_tar(ldir)
+    if ckpt is None:
+        raise FileNotFoundError(f"no NNNNNN.tar checkpoint under {ldir}")
+    cfg = FieldConfig.from_args(args)
+    params, iteration = load_fields(ckpt, cfg, device)
+
+    if args.render:
+        savedir = os.path.join(ldir, f"render_test_{iteration:06d}")
+        os.makedirs(savedir, exist_ok=True)
+        i_test = scene.i_test
+        render_im = make_image_renderer(cfg, args, scene.H, scene.W, device=device,
+                                        use_pallas=args.use_pallas)
+        render_test(render_im, params, scene.poses[i_test], scene.hwk, args,
+                    gt_imgs=scene.images[i_test], gt_labels=scene.gt_labels[i_test],
+                    ins_rgbs=scene.ins_rgbs, savedir=savedir,
+                    crop_mask=scene.crop_mask, color_dict=_color_dict(args))
+        print("Rendering Done", savedir)
+        return savedir
+    return None
+
+
+if __name__ == "__main__":
+    main()

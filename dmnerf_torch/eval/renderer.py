@@ -1,0 +1,181 @@
+"""Tiled full-image renderer (port of dmnerf_tpu/eval/renderer.py).
+
+Every chunk has the same size (the ray list is edge-padded to a multiple of
+the chunk and cropped after), and the chunks run in a Python loop: PyTorch
+runs eagerly, so there is nothing to compile once. With fused=True (the
+default when use_pallas is on) each chunk goes through the fused
+field+composite kernels of kernels/render_field.py; the unfused path is
+core/rendering.render_rays on the field modules. The chunk is N_test rays.
+
+params is {"coarse": DMNeRFField, "fine": DMNeRFField} on `device`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from dmnerf_torch.core.rays import get_rays
+from dmnerf_torch.core.rendering import render_rays
+from dmnerf_torch.core.sampling import z_val_sample
+from dmnerf_torch.kernels.render_field import make_fused_chunk_renderer, pack_params
+from dmnerf_torch.models.fields import FieldConfig
+
+_UNFUSED_KERNEL_TODO = (
+    "use_pallas=True with fused=False needs the field kernel K1, still to be "
+    "ported (ROADMAP.md queue 2, K1); use fused=True or use_pallas=False")
+
+
+def make_chunk_renderer(cfg: FieldConfig, n_samples: int, n_importance: int,
+                        near: float, far: float, chunk: int, *, device,
+                        use_pallas: bool = False):
+    """render_chunk(params, rays_o [chunk,3], rays_d [chunk,3])
+    -> (rgb [chunk,3], ins [chunk,K], depth [chunk]) on the unfused path."""
+    if use_pallas:
+        raise NotImplementedError(_UNFUSED_KERNEL_TODO)
+    device = torch.device(device)
+
+    @torch.no_grad()
+    def render_chunk(params, rays_o, rays_d):
+        z = z_val_sample(chunk, near, far, n_samples, device=device)
+        out = render_rays(params["coarse"], params["fine"], rays_o, rays_d, z,
+                          n_importance, generator=None, perturb=False)
+        return out["rgb_fine"], out["ins_fine"], out["depth_fine"]
+
+    return render_chunk
+
+
+def make_batch_renderer(cfg: FieldConfig, n_samples: int, n_importance: int,
+                        near: float, far: float, chunk: int, n_rays: int, *,
+                        device, use_pallas: bool = False, fused=None):
+    """render_all(params, rays_o [n_rays,3], rays_d [n_rays,3]) -> (rgb, ins,
+    depth) over the whole ray set, one fixed-size chunk at a time. n_rays must
+    be a multiple of chunk (callers pad). fused defaults to use_pallas."""
+    if n_rays % chunk:
+        raise ValueError(f"n_rays {n_rays} is not a multiple of chunk {chunk}")
+    if fused is None:
+        fused = use_pallas
+    device = torch.device(device)
+
+    if fused:
+        render_chunk_fused = make_fused_chunk_renderer(cfg, n_importance)
+    else:
+        render_chunk = make_chunk_renderer(cfg, n_samples, n_importance, near, far,
+                                           chunk, device=device, use_pallas=use_pallas)
+
+    @torch.no_grad()
+    def render_all(params, rays_o, rays_d):
+        if fused:
+            packed = pack_params(params)
+            z = z_val_sample(chunk, near, far, n_samples, device=device).contiguous()
+        outs = []
+        for s in range(0, n_rays, chunk):
+            ro, rd = rays_o[s:s + chunk], rays_d[s:s + chunk]
+            outs.append(render_chunk_fused(packed, ro, rd, z) if fused
+                        else render_chunk(params, ro, rd))
+        rgb, ins, depth = (torch.cat(x, dim=0) for x in zip(*outs))
+        return rgb, ins, depth
+
+    return render_all
+
+
+def render_rays_chunked(render_chunk, params, rays_o: np.ndarray,
+                        rays_d: np.ndarray, chunk: int, *, device):
+    """Render an arbitrary ray list with a fixed-size chunk renderer -> numpy."""
+    n = rays_o.shape[0]
+    n_pad = (-n) % chunk
+    ro = np.concatenate([rays_o, np.repeat(rays_o[-1:], n_pad, 0)], 0) if n_pad else rays_o
+    rd = np.concatenate([rays_d, np.repeat(rays_d[-1:], n_pad, 0)], 0) if n_pad else rays_d
+    rgbs, inss, depths = [], [], []
+    for s in range(0, n + n_pad, chunk):
+        rgb, ins, depth = render_chunk(
+            params,
+            torch.as_tensor(ro[s:s + chunk], dtype=torch.float32, device=device),
+            torch.as_tensor(rd[s:s + chunk], dtype=torch.float32, device=device))
+        rgbs.append(rgb.cpu().numpy())
+        inss.append(ins.cpu().numpy())
+        depths.append(depth.cpu().numpy())
+    return (np.concatenate(rgbs, 0)[:n], np.concatenate(inss, 0)[:n],
+            np.concatenate(depths, 0)[:n])
+
+
+def render_image(render_chunk, params, H: int, W: int, K: np.ndarray,
+                 c2w: np.ndarray, chunk: int, *, device):
+    """Render one full image -> numpy (rgb [H,W,3], ins [H,W,Kc], depth [H,W])."""
+    rays_o, rays_d = get_rays(H, W, torch.as_tensor(K, dtype=torch.float32),
+                              torch.as_tensor(c2w, dtype=torch.float32))
+    rgb, ins, depth = render_rays_chunked(
+        render_chunk, params, rays_o.reshape(-1, 3).numpy(),
+        rays_d.reshape(-1, 3).numpy(), chunk, device=device)
+    return rgb.reshape(H, W, 3), ins.reshape(H, W, -1), depth.reshape(H, W)
+
+
+def make_image_renderer(cfg: FieldConfig, args, H: int, W: int, *, device,
+                        use_pallas: bool = False, fused=None):
+    """render_im(params, K, c2w) -> numpy (rgb [H,W,3] f32, label [H,W] i32,
+    conf [H,W] f32, depth [H,W] f32). Rays are made on the device, and the
+    instance map is reduced to its argmax label and max-prob confidence there,
+    before the copy to the host.
+
+    render_im.many(params, K, c2ws) yields one such tuple per pose, launching
+    view i+1 before it waits for view i's copy, so host work on view i
+    (metrics, pngs) overlaps the device's work on view i+1."""
+    chunk = int(args.N_test)
+    device = torch.device(device)
+    n = H * W
+    n_pad = (-n) % chunk
+    render_all = make_batch_renderer(cfg, args.N_samples, args.N_importance,
+                                     args.near, args.far, chunk, n + n_pad,
+                                     device=device, use_pallas=use_pallas, fused=fused)
+
+    @torch.no_grad()
+    def render_im_dev(params, K, c2w):
+        K = torch.as_tensor(np.asarray(K), dtype=torch.float32, device=device)
+        c2w = torch.as_tensor(np.asarray(c2w), dtype=torch.float32, device=device)
+        rays_o, rays_d = get_rays(H, W, K, c2w)
+        rays_o, rays_d = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
+        if n_pad:
+            # edge-pad (repeat the last ray): works even when n_pad > n
+            rays_o = torch.cat([rays_o, rays_o[-1:].expand(n_pad, 3)])
+            rays_d = torch.cat([rays_d, rays_d[-1:].expand(n_pad, 3)])
+        rgb, ins, depth = render_all(params, rays_o, rays_d)
+        label = torch.argmax(ins[:n], dim=-1).to(torch.int32)
+        conf = torch.amax(ins[:n], dim=-1)
+        out = (rgb[:n].reshape(H, W, 3), label.reshape(H, W),
+               conf.reshape(H, W), depth[:n].reshape(H, W))
+        return _copy_to_host(out, device)
+
+    def render_im(params, K, c2w):
+        return _wait(render_im_dev(params, K, c2w))
+
+    def render_many(params, K, c2ws):
+        pending = None
+        for c2w in c2ws:
+            cur = render_im_dev(params, K, c2w)
+            if pending is not None:
+                yield _wait(pending)
+            pending = cur
+        if pending is not None:
+            yield _wait(pending)
+
+    render_im.many = render_many
+    return render_im
+
+
+def _copy_to_host(tensors, device: torch.device):
+    """Start the device->host copies; on CUDA they go to pinned memory on the
+    current stream and an event marks their end."""
+    if device.type != "cuda":
+        return tensors, None
+    host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                 .copy_(t, non_blocking=True) for t in tensors)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def _wait(pending):
+    host, done = pending
+    if done is not None:
+        done.synchronize()
+    return tuple(t.numpy() for t in host)

@@ -1,0 +1,306 @@
+"""Fused field + composite for the eval render path: CUDA kernels K3 and K4.
+
+Port of dmnerf_tpu/ops/pallas/render_field.py. Two kernels in
+csrc/render_field.cu replace the TPU kernel `_composite_kernel`:
+
+- render_field_sigma (K4, heads="sigma"): trunk + density head, then the
+  compositing weights [R, S]. The coarse pass needs nothing else: at eval its
+  weights only drive importance sampling.
+- render_field_all (K3, heads="all"): the whole field, then per ray rgb [R,3],
+  depth [R] and instance logits [R,K+1]. The raw [R,S,C] tensor never reaches
+  device memory.
+
+Beside each kernel is its plain PyTorch version (render_field_sigma_ref /
+render_field_all_ref): the field module plus core/rendering's compositing,
+with bf16 operands upcast to fp32 for every matmul, so the products are exact
+and only the order of summation differs from the kernel. A wrapper takes the
+plain version for CPU tensors only; for a CUDA tensor it launches the kernel or
+raises. LAUNCHES counts the launches of each kernel.
+
+Only bf16 (the deployed precision) has a kernel; precision f32 on CUDA raises.
+heads="ins" (K5, the edit path) is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from dmnerf_torch.core.rendering import alpha_weights, composite, sample_dists
+from dmnerf_torch.core.sampling import sample_pdf
+from dmnerf_torch.models.fields import DMNeRFField, FieldConfig
+
+# launches of each kernel since the last reset (the CPU plain path adds none)
+LAUNCHES: Dict[str, int] = {"render_field_sigma": 0, "render_field_all": 0}
+
+MAX_DEPTH = 16          # trunk layers the kernel's Meta block describes
+_ALIGN = 128            # bf16 elements between packed matrices (256 bytes)
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _ru(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+class PackedField(NamedTuple):
+    """A field's weights laid out for the kernel.
+
+    w: bf16 [n] — every matrix as [in, out] row-major, in-widths padded with
+       zero rows to a multiple of 16:
+         t0 [XP, W]; t_i [W, W], except t_{skip+1} [W + XP, W] (rows W: face
+         the skip input x); rgb_feat [W, W]; rgb_hidden [W + DP, W/2] (rows W:
+         face the view encoding); ins_feat [W, W]; ins_hidden [W, W/2];
+         out [2W, CP]: rows 0:W/2 rgb_out -> cols 0:3, rows W/2:W ins_out ->
+         cols 4:C, rows W:2W density -> col 3.
+    b: fp32 [n] — trunk biases [D, W], rgb_feat [W], rgb_hidden [W/2],
+       ins_feat [W], ins_hidden [W/2], out [CP] = [rgb_out, density, ins_out, 0].
+    meta: int32, the kernel's `Meta` struct (dims, then element offsets).
+    field: the module the weights came from (the CPU path runs it).
+    """
+    field: DMNeRFField
+    w: torch.Tensor
+    b: torch.Tensor
+    meta: np.ndarray
+
+
+def pack_field(field: DMNeRFField) -> PackedField:
+    cfg = field.cfg
+    D, W, K1 = cfg.netdepth, cfg.netwidth, cfg.ins_num + 1
+    if D > MAX_DEPTH:
+        raise ValueError(f"netdepth {D} > {MAX_DEPTH}: the kernel's layout has no room")
+    XP, DP = _ru(cfg.pos_ch, 16), _ru(cfg.view_ch, 16)
+    C = 4 + K1
+    CP = _ru(C, 16)
+
+    def wt(lin):                       # nn.Linear [out, in] -> [in, out] fp32
+        return lin.weight.detach().float().T
+
+    def pad_rows(m, rows):
+        return F.pad(m, (0, 0, 0, rows - m.shape[0]))
+
+    with torch.no_grad():
+        trunk = [pad_rows(wt(field.mlps[0]), XP)]
+        for i in range(1, D):
+            m = wt(field.mlps[i])
+            if i == cfg.skip + 1:
+                m = torch.cat([m[:W], pad_rows(m[W:], XP)])
+            trunk.append(m)
+        rh = wt(field.rgb_feature_linears[0])
+        rh = torch.cat([rh[:W], pad_rows(rh[W:], DP)])
+        out = torch.zeros(2 * W, CP, device=rh.device)
+        out[0:W // 2, 0:3] = wt(field.rgb_linear)
+        out[W // 2:W, 4:C] = wt(field.ins_linear)
+        out[W:2 * W, 3:4] = wt(field.density_linear)
+        mats = trunk + [wt(field.rgb_feature_linear), rh, wt(field.ins_feature_linear),
+                        wt(field.ins_feature_linears[0]), out]
+
+        offs, n = [], 0
+        for m in mats:
+            offs.append(n)
+            n = _ru(n + m.numel(), _ALIGN)
+        w = torch.zeros(n, dtype=torch.bfloat16, device=rh.device)
+        for o, m in zip(offs, mats):
+            w[o:o + m.numel()] = m.reshape(-1).to(torch.bfloat16)
+
+        bo = torch.zeros(CP, device=rh.device)
+        bo[0:3] = field.rgb_linear.bias.detach().float()
+        bo[3:4] = field.density_linear.bias.detach().float()
+        bo[4:C] = field.ins_linear.bias.detach().float()
+        biases = ([torch.cat([l.bias.detach().float() for l in field.mlps])]
+                  + [l.bias.detach().float() for l in (
+                      field.rgb_feature_linear, field.rgb_feature_linears[0],
+                      field.ins_feature_linear, field.ins_feature_linears[0])]
+                  + [bo])
+        boffs = np.cumsum([0] + [x.numel() for x in biases[:-1]]).tolist()
+        b = torch.cat(biases)
+
+    meta = ([D, W, cfg.skip, XP, DP, CP, C, cfg.multires, cfg.multires_views]
+            + offs[:D] + [0] * (MAX_DEPTH - D) + offs[D:] + boffs)
+    return PackedField(field, w, b, np.asarray(meta, np.int32))
+
+
+Params = Union[DMNeRFField, PackedField]
+
+
+def pack_params(params: Dict[str, Params]) -> Dict[str, PackedField]:
+    """{"coarse": field, "fine": field} -> the same keys, packed once."""
+    return {k: v if isinstance(v, PackedField) else pack_field(v)
+            for k, v in params.items()}
+
+
+def _as_field(params: Params) -> DMNeRFField:
+    return params.field if isinstance(params, PackedField) else params
+
+
+# ---- plain PyTorch versions -------------------------------------------------
+
+def render_field_sigma_ref(field: DMNeRFField, pts: torch.Tensor, z: torch.Tensor,
+                           rays_d: torch.Tensor) -> torch.Tensor:
+    """weights [R, S] from pts [R,S,3], z [R,S], rays_d [R,3]."""
+    sigma = field.density(pts)[..., 0]
+    return alpha_weights(sigma, sample_dists(z, rays_d))
+
+
+def render_field_all_ref(field: DMNeRFField, pts: torch.Tensor, viewdirs: torch.Tensor,
+                         z: torch.Tensor, rays_d: torch.Tensor):
+    """(rgb [R,3], depth [R], ins_logits [R,K+1]) from pts [R,S,3],
+    viewdirs [R,1,3], z [R,S], rays_d [R,3]."""
+    out = composite(field(pts, viewdirs), z, rays_d, keep_air=True)
+    return out.rgb, out.depth, out.ins_logits
+
+
+# ---- kernel wrappers ----------------------------------------------------------
+
+def _check(packed: PackedField, pts, z, rays_d, viewdirs=None):
+    cfg = packed.field.cfg
+    if cfg.compute_dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"render_field: precision {cfg.compute_dtype} has no CUDA kernel; only "
+            "bf16 does (use precision bf16, or --use_pallas False for the plain path)")
+    dev = pts.device
+    R, S = z.shape
+
+    def need(name, t, shape):
+        if t.device != dev or packed.w.device != dev:
+            raise ValueError(f"render_field: {name} on {t.device}, pts on {dev}, "
+                             f"weights on {packed.w.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"render_field: {name} must be float32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"render_field: {name} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"render_field: {name} must be contiguous")
+
+    need("pts", pts, (R, S, 3))
+    need("z", z, (R, S))
+    need("rays_d", rays_d, (R, 3))
+    if viewdirs is not None:
+        need("viewdirs", viewdirs, (R, 1, 3))
+    if R < 1 or S < 1:
+        raise ValueError(f"render_field: empty input (R={R}, S={S})")
+    W = cfg.netwidth
+    if (W % 32 or _ru(cfg.pos_ch, 16) > W or _ru(cfg.view_ch, 16) > W // 2
+            or _ru(cfg.ins_num + 5, 16) > W // 2):
+        raise ValueError(f"render_field: netwidth {W} must be a multiple of 32, at "
+                         "least the padded position encoding, and twice the padded "
+                         "view encoding and output columns")
+
+
+def _device_kind(t: torch.Tensor) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"render_field: no path for device {t.device}")
+    return t.device.type
+
+
+def _raise_on(rc: int, lib, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} "
+                           f"({lib.render_field_error_string(rc).decode()})")
+
+
+def render_field_sigma(params: Params, pts: torch.Tensor, z: torch.Tensor,
+                       rays_d: torch.Tensor) -> torch.Tensor:
+    """K4: compositing weights [R, S] (heads="sigma")."""
+    if _device_kind(pts) == "cpu":
+        return render_field_sigma_ref(_as_field(params), pts, z, rays_d)
+    from dmnerf_torch.kernels.build import load_render_field
+    packed = params if isinstance(params, PackedField) else pack_field(params)
+    _check(packed, pts, z, rays_d)
+    R, S = z.shape
+    dists = sample_dists(z, rays_d).contiguous()
+    weights = torch.empty((R, S), dtype=torch.float32, device=pts.device)
+    lib = load_render_field()
+    rc = lib.render_field_sigma(
+        pts.data_ptr(), z.data_ptr(), dists.data_ptr(), R, S,
+        packed.w.data_ptr(), packed.b.data_ptr(), packed.meta.ctypes.data,
+        len(packed.meta), weights.data_ptr(),
+        torch.cuda.current_stream(pts.device).cuda_stream)
+    _raise_on(rc, lib, "render_field_sigma")
+    LAUNCHES["render_field_sigma"] += 1
+    return weights
+
+
+def render_field_all(params: Params, pts: torch.Tensor, viewdirs: torch.Tensor,
+                     z: torch.Tensor, rays_d: torch.Tensor):
+    """K3: (rgb [R,3], depth [R], ins_logits [R,K+1]) (heads="all")."""
+    if _device_kind(pts) == "cpu":
+        return render_field_all_ref(_as_field(params), pts, viewdirs, z, rays_d)
+    from dmnerf_torch.kernels.build import load_render_field
+    packed = params if isinstance(params, PackedField) else pack_field(params)
+    _check(packed, pts, z, rays_d, viewdirs)
+    R, S = z.shape
+    K1 = packed.field.cfg.ins_num + 1
+    dists = sample_dists(z, rays_d).contiguous()
+    out = dict(device=pts.device, dtype=torch.float32)
+    rgb, depth = torch.empty((R, 3), **out), torch.empty((R,), **out)
+    ins = torch.empty((R, K1), **out)
+    lib = load_render_field()
+    rc = lib.render_field_all(
+        pts.data_ptr(), viewdirs.data_ptr(), z.data_ptr(), dists.data_ptr(), R, S,
+        packed.w.data_ptr(), packed.b.data_ptr(), packed.meta.ctypes.data,
+        len(packed.meta), rgb.data_ptr(), depth.data_ptr(), ins.data_ptr(),
+        torch.cuda.current_stream(pts.device).cuda_stream)
+    _raise_on(rc, lib, "render_field_all")
+    LAUNCHES["render_field_all"] += 1
+    return rgb, depth, ins
+
+
+# ---- the JAX package's entry points -------------------------------------------
+
+def make_render_field(cfg: FieldConfig, heads: str = "all"):
+    """heads="all":   rf(params, pts [R,S,3], viewdirs [R,1,3], z [R,S],
+                         rays_d [R,3]) -> (rgb [R,3], depth [R], ins_logits [R,K+1])
+    heads="sigma": rf(params, pts, z, rays_d) -> weights [R,S]
+    params: a DMNeRFField built with `cfg`, or its PackedField."""
+    if heads == "ins":
+        raise NotImplementedError("heads='ins' is kernel K5 (the edit path), still "
+                                  "to be ported: ROADMAP.md queue 2")
+    if heads not in ("all", "sigma"):
+        raise ValueError(f"unknown heads {heads!r}")
+
+    def checked(params):
+        if _as_field(params).cfg != cfg:
+            raise ValueError("render_field: params were built for another FieldConfig")
+        return params
+
+    if heads == "sigma":
+        return lambda params, pts, z, rays_d: render_field_sigma(
+            checked(params), pts, z, rays_d)
+    return lambda params, pts, viewdirs, z, rays_d: render_field_all(
+        checked(params), pts, viewdirs, z, rays_d)
+
+
+def make_fused_chunk_renderer(cfg: FieldConfig, n_importance: int):
+    """render_chunk(params, rays_o [R,3], rays_d [R,3], z_vals_coarse [R,S])
+    -> (rgb [R,3], ins [R,K] sigmoid with the air channel dropped, depth [R]).
+
+    The deterministic coarse->fine eval pipeline with both field evaluations
+    fused with their composites: K4 for the coarse weights, det sample_pdf and
+    the sorted z-union in PyTorch, then K3."""
+    coarse_rf = make_render_field(cfg, heads="sigma")
+    fine_rf = make_render_field(cfg, heads="all")
+
+    def render_chunk(params, rays_o, rays_d, z_vals_coarse):
+        z_c = z_vals_coarse.contiguous()
+        viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+        pts_c = rays_o[:, None, :] + rays_d[:, None, :] * z_c[:, :, None]
+        w_c = coarse_rf(params["coarse"], pts_c, z_c, rays_d)
+
+        z_mid = 0.5 * (z_c[:, 1:] + z_c[:, :-1])
+        z_samples = sample_pdf(z_mid, w_c[:, 1:-1], n_importance, det=True)
+        z_fine, _ = torch.sort(torch.cat([z_c, z_samples], dim=-1), dim=-1)
+
+        pts_f = rays_o[:, None, :] + rays_d[:, None, :] * z_fine[:, :, None]
+        rgb, depth, ins_logits = fine_rf(params["fine"], pts_f, viewdirs[:, None, :],
+                                         z_fine, rays_d)
+        return rgb, torch.sigmoid(ins_logits)[:, :-1], depth
+
+    return render_chunk

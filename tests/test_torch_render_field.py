@@ -1,0 +1,186 @@
+"""dmnerf_torch/kernels/render_field: the plain versions of kernels K3/K4 vs
+the JAX package's Pallas kernel (interpret mode on the CPU) and vs
+apply_field + composite; the kernel's weight packing, checked by an
+emulation that reads the packed buffers at the offsets the CUDA source reads;
+and the wrappers' dispatch and validation. The kernels themselves run on a
+card only: tests/test_torch_cuda.py."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dmnerf_tpu.core import rendering as jrend
+from dmnerf_tpu.models import fields as jf
+from dmnerf_tpu.ops.pallas import render_field as jrf
+from dmnerf_torch.core.encoding import positional_encoding
+from dmnerf_torch.core.rendering import alpha_weights, sample_dists
+from dmnerf_torch.kernels import render_field as krf
+from dmnerf_torch.models import fields as tf
+from dmnerf_torch.models.convert import state_dict_from_jax
+
+SMALL = dict(netdepth=3, netwidth=32, multires=4, multires_views=2, ins_num=4, skip=1)
+
+
+def _field(dtype_t, seed=0, dtype_j=jnp.float32, **over):
+    kw = {**SMALL, **over}
+    cfg_j = jf.FieldConfig(**kw, compute_dtype=dtype_j)
+    params = jf.init_field_params(jax.random.PRNGKey(seed), cfg_j)
+    field = tf.DMNeRFField(tf.FieldConfig(**kw, compute_dtype=dtype_t))
+    field.load_state_dict(state_dict_from_jax(jax.tree.map(np.asarray, params)))
+    return cfg_j, params, field
+
+
+def _rays(R=16, S=8, seed=3):
+    rng = np.random.default_rng(seed)
+    ro = (rng.normal(size=(R, 3)) * 0.1).astype(np.float32)
+    rd = rng.normal(size=(R, 3)).astype(np.float32)
+    rd = rd / np.linalg.norm(rd, axis=-1, keepdims=True) \
+        * rng.uniform(0.8, 1.2, (R, 1)).astype(np.float32)
+    z = np.sort(rng.uniform(1.0, 6.0, (R, S)), -1).astype(np.float32)
+    pts = ro[:, None, :] + rd[:, None, :] * z[:, :, None]
+    vd = (rd / np.linalg.norm(rd, axis=-1, keepdims=True))[:, None, :]
+    return pts, vd, z, rd
+
+
+def _t(*xs):
+    return [torch.from_numpy(np.array(x)) for x in xs]
+
+
+def test_sigma_ref_matches_jax_kernel_and_composite():
+    """K4's plain version vs the Pallas heads='sigma' kernel (interpret,
+    f32) and vs apply_field + composite.weights. The Pallas transmittance is
+    exp(log(max(1-a, 1e-10)) @ tri): f32 exp/log rounding, 1e-5 abs."""
+    cfg_j, params, field = _field(torch.float32)
+    pts, vd, z, rd = _rays()
+    got = krf.render_field_sigma_ref(field, *_t(pts, z, rd)).detach().numpy()
+    kern = np.asarray(jrf.make_render_field(cfg_j, heads="sigma")(
+        params, jnp.asarray(pts), jnp.asarray(z), jnp.asarray(rd)))
+    raw = jf.apply_field(params, cfg_j, jnp.asarray(pts), jnp.asarray(vd))
+    comp = np.asarray(jrend.composite(raw, jnp.asarray(z), jnp.asarray(rd)).weights)
+    assert got.shape == (16, 8)
+    np.testing.assert_allclose(got, kern, atol=1e-5, rtol=1e-4)
+    np.testing.assert_allclose(got, comp, atol=1e-5, rtol=1e-4)
+
+
+def test_all_ref_matches_jax_kernel_and_composite():
+    """K3's plain version vs the Pallas heads='all' kernel (interpret, f32)
+    and vs apply_field + composite(keep_air): 1e-5 abs (rgb, logits; f32
+    summation order and the Pallas exp/log transmittance), 1e-4 on depth
+    (world units up to 6)."""
+    cfg_j, params, field = _field(torch.float32, seed=1)
+    pts, vd, z, rd = _rays()
+    got = [x.detach().numpy() for x in krf.render_field_all_ref(field, *_t(pts, vd, z, rd))]
+    kern = jrf.make_render_field(cfg_j, heads="all")(
+        params, jnp.asarray(pts), jnp.asarray(vd), jnp.asarray(z), jnp.asarray(rd))
+    raw = jf.apply_field(params, cfg_j, jnp.asarray(pts), jnp.asarray(vd))
+    comp = jrend.composite(raw, jnp.asarray(z), jnp.asarray(rd), keep_air=True)
+    K1 = SMALL["ins_num"] + 1
+    assert [g.shape for g in got] == [(16, 3), (16,), (16, K1)]
+    for want in (kern, (comp.rgb, comp.depth, comp.ins_logits)):
+        for g, w, tol in zip(got, want, (1e-5, 1e-4, 1e-5)):
+            np.testing.assert_allclose(g, np.asarray(w), atol=tol, rtol=1e-4)
+
+
+def _emulate(packed, pts, vd, z, rd, heads):
+    """The CUDA kernel's math on the packed buffers, with the offsets read
+    from packed.meta exactly as csrc/render_field.cu's Meta struct does."""
+    m = [int(v) for v in packed.meta]
+    D, W, skip, XP, DP, CP, C, F, FV = m[:9]
+    off_t = m[9:9 + D]
+    off_rgbf, off_rh, off_insf, off_ih, off_out = m[25:30]
+    bt, brgbf, brh, binsf, bih, bo = m[30:36]
+    w, b = packed.w.float(), packed.b
+
+    def mat(off, k, n):
+        return w[off:off + k * n].reshape(k, n)
+
+    def bf(t):
+        return t.bfloat16().float()
+
+    def pe(x, f, width):
+        e = positional_encoding(x, f)
+        return bf(torch.nn.functional.pad(e, (0, width - e.shape[-1])))
+
+    R, S = z.shape
+    x = pe(pts.reshape(-1, 3), F, XP)
+    h = bf(torch.relu(x @ mat(off_t[0], XP, W) + b[bt:bt + W]))
+    for i in range(1, D):
+        a = torch.cat([h, x], -1) if i == skip + 1 else h
+        h = bf(torch.relu(a @ mat(off_t[i], a.shape[1], W) + b[bt + i * W:bt + (i + 1) * W]))
+    dists = sample_dists(z, rd)
+    if heads == "sigma":
+        sigma = (h @ mat(off_out, 2 * W, CP)[W:])[:, 3] + b[bo + 3]
+        return alpha_weights(sigma.reshape(R, S), dists)
+    d = pe(vd.expand(R, S, 3).reshape(-1, 3), FV, DP)
+    rgb_f = bf(h @ mat(off_rgbf, W, W) + b[brgbf:brgbf + W])
+    rgb_h = bf(torch.relu(torch.cat([rgb_f, d], -1) @ mat(off_rh, W + DP, W // 2)
+                          + b[brh:brh + W // 2]))
+    ins_f = bf(h @ mat(off_insf, W, W) + b[binsf:binsf + W])
+    ins_h = bf(torch.relu(ins_f @ mat(off_ih, W, W // 2) + b[bih:bih + W // 2]))
+    raw = (torch.cat([rgb_h, ins_h, h], -1) @ mat(off_out, 2 * W, CP)
+           + b[bo:bo + CP])[:, :C].reshape(R, S, C)
+    wts = alpha_weights(raw[..., 3], dists)
+    rgb = (wts[..., None] * torch.sigmoid(raw[..., :3])).sum(1)
+    return rgb, (wts * z).sum(1), (wts[..., None] * raw[..., 4:]).sum(1)
+
+
+@pytest.mark.parametrize("over", [{}, {"netdepth": 4, "skip": 2, "ins_num": 11}])
+def test_packing_emulation_matches_plain_version(over):
+    """pack_field's layout + the kernel's offsets reproduce the plain bf16
+    path. Both round at the same places; zero padding adds exact zeros, but a
+    different f32 summation order can flip one bf16 ulp of an activation
+    (2^-8 relative) that later layers carry: 2e-2 abs at most, and the median
+    error at f32 rounding level."""
+    _, _, field = _field(torch.bfloat16, seed=2, **over)
+    packed = krf.pack_field(field)
+    assert packed.w.dtype == torch.bfloat16 and packed.b.dtype == torch.float32
+    assert len(packed.meta) == 36
+    pts, vd, z, rd = _t(*_rays(R=8, S=70))   # S spans two of the kernel's 64-point tiles
+    with torch.no_grad():
+        pairs = [(_emulate(packed, pts, vd, z, rd, "sigma"),
+                  krf.render_field_sigma_ref(field, pts, z, rd))]
+        pairs += list(zip(_emulate(packed, pts, vd, z, rd, "all"),
+                          krf.render_field_all_ref(field, pts, vd, z, rd)))
+    for got, want in pairs:
+        err = (got - want).abs()
+        assert err.max() <= 2e-2 and err.median() <= 1e-6, (err.max(), err.median())
+
+
+def test_cpu_wrappers_take_the_plain_version_without_launching():
+    cfg_j, params, field = _field(torch.bfloat16)
+    pts, vd, z, rd = _t(*_rays())
+    krf.reset_launches()
+    with torch.no_grad():
+        for p in (field, krf.pack_field(field)):
+            torch.testing.assert_close(krf.render_field_sigma(p, pts, z, rd),
+                                       krf.render_field_sigma_ref(field, pts, z, rd))
+            for a, b in zip(krf.render_field_all(p, pts, vd, z, rd),
+                            krf.render_field_all_ref(field, pts, vd, z, rd)):
+                torch.testing.assert_close(a, b)
+    assert krf.LAUNCHES == {"render_field_sigma": 0, "render_field_all": 0}
+
+
+def test_wrapper_validation_rejects_what_the_kernel_does_not_take():
+    _, _, f32_field = _field(torch.float32)
+    _, _, field = _field(torch.bfloat16)
+    packed = krf.pack_field(field)
+    pts, vd, z, rd = _t(*_rays())
+    krf._check(packed, pts, z, rd, vd)            # the accepted form
+    with pytest.raises(NotImplementedError):      # only bf16 has a kernel
+        krf._check(krf.pack_field(f32_field), pts, z, rd, vd)
+    with pytest.raises(ValueError):
+        krf._check(packed, pts[:, :4], z, rd)
+    with pytest.raises(ValueError):
+        krf._check(packed, pts.transpose(0, 1).contiguous().transpose(0, 1), z, rd)
+    with pytest.raises(TypeError):
+        krf._check(packed, pts.double(), z, rd)
+    with pytest.raises(ValueError):
+        krf._check(packed, pts, z, rd, vd[:, 0])
+    with pytest.raises(ValueError):
+        krf.render_field_sigma(packed, pts.to("meta"), z, rd)
+    with pytest.raises(NotImplementedError):
+        krf.make_render_field(field.cfg, heads="ins")
+    with pytest.raises(ValueError):
+        krf.make_render_field(f32_field.cfg, heads="sigma")(field, pts, z, rd)
