@@ -1,11 +1,13 @@
-"""Smoke run of the PyTorch port's render path on one NVIDIA card (H100, sm_90a).
+"""Smoke run of the PyTorch port on one NVIDIA card (H100, sm_90a): the render
+path (kernels K3/K4) and the training step (kernels K1/K2).
 
     python3 chip_smoke.py
 
 Phases (each fails the run by raising; nothing is caught):
 1. the card: CUDA must be available; prints nvidia-smi's name and power limit.
-2. build: compiles dmnerf_torch/kernels/csrc/render_field.cu with nvcc into
-   build/kernels/ and prints the seconds and the compiler's register report.
+2. build: compiles dmnerf_torch/kernels/csrc/{render_field,field}.cu with one
+   nvcc each, started together, into build/kernels/ and prints the seconds
+   and the compiler's register report.
 3. kernels vs their plain PyTorch versions at the flagship field (8x256,
    PE 10/4, K=32, bf16) on 4096 rays: K4 (render_field_sigma) at S=64, K3
    (render_field_all) at S=192 on the z-union that the coarse pass and
@@ -18,6 +20,24 @@ Phases (each fails the run by raising; nothing is caught):
    a 32x32 render through the kernels is held against the plain unfused path.
 5. throughput at bench.py's render workload: 128x128 views, 4 poses x 3,
    K=32, N_test 4096, through make_image_renderer(...).many.
+6. K1 (field_forward) and K2 (field_backward) vs their plain versions at the
+   flagship field (K=32, bf16) on the train step's shapes, 3072 rays x 64
+   (coarse) and x 192 (fine) points: the error of raw per column (and that
+   the check rejects raw with the rgb bias off by 10%), relative L2 error of
+   every parameter's gradient, K2 bit-identical across two launches, an
+   instance-logit loss giving the trunk exactly zero gradient, and the median
+   time of each kernel and its plain version (K1; K2; both).
+7. the training slice through its entry point: dmnerf_torch.cli.train on
+   boxroom128x8 at flagship width (N_train 3072, 64+128 samples, penalizer,
+   bf16) for 30 steps with one in-train eval; every printed loss finite, K1
+   and K2 launched twice per step each, the final NNNNNN.tar rendered by
+   dmnerf_torch.cli.test --render, and two 3-step runs from one seed ending
+   with bit-identical parameters.
+8. training throughput at bench.py's train workload (bench.py:56-82: K=32 on
+   the subdivided boxroom labels, penalizer on; flags and scene through
+   dmnerf_torch.cli.train's loader): ms/step and rays/s over 20
+   steps after warm-up, and the split of the step into K1, K2, the LAP's host
+   solve, pack_field and the rest.
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -36,6 +56,9 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 SRC = "dmnerf_torch/kernels/csrc/render_field.cu"
 REPLACES = "dmnerf_tpu/ops/pallas/render_field.py:118"
+FIELD_SRC = "dmnerf_torch/kernels/csrc/field.cu"
+K1_REPLACES = "dmnerf_tpu/ops/pallas/field_kernels.py:320"
+K2_REPLACES = "dmnerf_tpu/ops/pallas/field_kernels.py:345"
 FLAGSHIP = dict(netdepth=8, netwidth=256, multires=10, multires_views=4)
 SYNTHETIC_INS_NUM = 4     # the synthetic boxroom scene's object slots
 
@@ -51,6 +74,23 @@ TOL = {"weights": 1e-2, "rgb": 5e-3, "depth": 5e-2, "ins_logits": 2e-2}
 # MAX_STEP_RAYS of them.
 SIGMA_STEP = 0.05
 MAX_STEP_RAYS = 8
+# K1 vs its plain version, per point (no compositing averages the raw): the
+# same one-ulp bf16 flips of an activation, carried by the later layers, so
+# most values agree exactly and a few points move. Each of the 4+K+1 columns
+# is held on its own: its max error within RAW_COL_TOL of its max |raw|, and
+# its relative L2 error within RAW_L2_TOL, so a fault in the small rgb
+# columns cannot hide under the largest logits. On an NVIDIA H100 (700 W) at
+# the flagship K=32 on 196,608 and 589,824 points the worst column measured
+# 1.3e-2 and 1.5e-2 of its scale and 1.7e-3 relative L2; an rgb bias off by
+# 10% measured 1.0e-2 relative L2, and the check must reject it.
+RAW_COL_TOL = 3e-2
+RAW_L2_TOL = 5e-3
+# K2 vs its plain version, relative L2 error per parameter's gradient. The
+# flips above cascade through the layers (ReLU masks included), so the
+# gradient moves with the order of fp32 summation: the plain version run
+# with f64 in place of f32 accumulation differs from itself by 1.1e-2 at the
+# flagship width (CPU, 3700 points); an NVIDIA H100 (700 W) measured 1.2e-2-1.7e-2.
+GRAD_TOL = 3e-2
 
 
 def check(name, out, got, want, sigma_last):
@@ -130,11 +170,14 @@ def main():
     from dmnerf_torch.models.fields import FieldConfig, init_field_params
 
     phase("2 build")
-    so, seconds = build.build("render_field")
-    print(f"built {os.path.relpath(so, REPO)} in {seconds:.1f} s")
-    print("\n".join(l for l in so.with_suffix(".log").read_text().splitlines()
-                    if "registers" in l or "spill" in l))
+    t0 = time.perf_counter()
+    for name, (so, seconds) in build.build_all(["render_field", "field"]).items():
+        print(f"built {os.path.relpath(so, REPO)} in {seconds:.1f} s")
+        print("\n".join(l for l in so.with_suffix(".log").read_text().splitlines()
+                        if "registers" in l or "spill" in l))
+    print(f"build wall time {time.perf_counter() - t0:.1f} s (one nvcc per source, in parallel)")
     build.load_render_field()
+    build.load_field()
 
     phase("3 kernels vs plain versions (flagship 8x256, K=32, bf16, 4096 rays)")
     cfg = FieldConfig(**FLAGSHIP, ins_num=32)
@@ -254,6 +297,13 @@ def main():
     print(f"render: {n * 128 * 128 / secs:.1f} rays/s, {secs / n * 1e3:.2f} ms/view "
           f"({n} views; {card})")
 
+    kernels += field_kernels_vs_plain(dev, card)
+    train_launches = train_slice(dev)
+    for k in kernels:
+        if k["name"] in train_launches:
+            k["launches"] = train_launches[k["name"]]
+    train_throughput(dev, card)
+
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     print(json.dumps({"kernels": kernels}))
@@ -261,6 +311,319 @@ def main():
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def raw_errors(got, want):
+    """(worst column's max abs error over its max |raw|, worst column's
+    relative L2 error) of raw [..., C]."""
+    got, want = got.reshape(-1, got.shape[-1]), want.reshape(-1, want.shape[-1])
+    err = (got - want).abs()
+    worst = float((err.amax(0) / want.abs().amax(0).clamp_min(1e-30)).max())
+    l2 = float(((got - want).norm(dim=0) / want.norm(dim=0).clamp_min(1e-30)).max())
+    return worst, l2
+
+
+def grad_errors(field, packed, got, want):
+    """({parameter: relative L2 error}, max abs error) of two FieldGrads, in
+    the module layout."""
+    from dmnerf_torch.kernels import field as kf
+    pairs = list(zip(field.named_parameters(), kf.unpack_grads(packed, got.dw, got.db),
+                     kf.unpack_grads(packed, want.dw, want.db)))
+    rel = {n: float((a - b).norm() / b.norm().clamp_min(1e-30)) for (n, _), a, b in pairs}
+    return rel, max(float((a - b).abs().max()) for _, a, b in pairs)
+
+
+def field_kernels_vs_plain(dev, card):
+    """Phase 6: K1 and K2 vs their plain versions at the train step's shapes."""
+    from dmnerf_torch.kernels import field as kf
+    from dmnerf_torch.kernels.render_field import pack_field
+    from dmnerf_torch.models.fields import FieldConfig, init_field_params
+
+    phase("6 K1/K2 vs plain versions (flagship 8x256, K=32, bf16, 3072 rays x 64 / x 192)")
+    cfg = FieldConfig(**FLAGSHIP, ins_num=32)
+    field = init_field_params(torch.Generator().manual_seed(2), cfg, device=dev)
+    packed = pack_field(field)
+    rng = np.random.default_rng(2)
+    R, C = 3072, cfg.ins_num + 5
+    ro = rng.normal(size=(R, 3)) * 0.3
+    rd = rng.normal(size=(R, 3))
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    out, worst_raw, worst_grad = {}, 0.0, 0.0
+    for S in (64, 192):
+        z = np.sort(rng.uniform(1.0, 12.0, (R, S)), -1)
+        pts = torch.tensor(ro[:, None] + rd[:, None] * z[..., None], dtype=torch.float32,
+                           device=dev)
+        vd = torch.tensor(rd[:, None], dtype=torch.float32, device=dev)
+        pf, dirs, ppd = kf.flatten_inputs(pts, vd)
+        g = torch.tensor(rng.normal(size=(R * S, C)) * 1e-3, dtype=torch.float32, device=dev)
+        with torch.no_grad():
+            raw_k, raw_p = kf.field_forward(packed, pts, vd), kf.field_forward_ref(field, pts, vd)
+        gk = kf.field_backward(packed, pf, dirs, ppd, g)
+        gk2 = kf.field_backward(packed, pf, dirs, ppd, g)
+        gp = kf.field_backward_ref(packed, pf, dirs, ppd, g)
+        g_ins = g.clone()
+        g_ins[:, :4] = 0.0                      # a loss on the instance logits alone
+        gz = kf.unpack_grads(packed, *kf.field_backward(packed, pf, dirs, ppd, g_ins)[:2])
+        torch.cuda.synchronize()
+        err = (raw_k - raw_p).abs()
+        if raw_k.shape != raw_p.shape or not bool(torch.isfinite(raw_k).all()):
+            raise AssertionError("K1: wrong shape or non-finite raw")
+        col, l2 = raw_errors(raw_k, raw_p)
+        # the check must see a fault confined to the rgb columns
+        faulty = raw_k.clone()
+        faulty[..., :3] -= 0.1 * field.rgb_linear.bias.detach()
+        _, l2_faulty = raw_errors(faulty, raw_p)
+        print(f"K1 P={R * S}: raw max abs err {err.max().item():.3e} (median "
+              f"{err.median().item():.3e}); worst column {col:.3e} of its max|raw| "
+              f"(tolerance {RAW_COL_TOL:.0e}), relative L2 {l2:.3e} (tolerance "
+              f"{RAW_L2_TOL:.0e}); with the rgb bias off by 10%: {l2_faulty:.3e}")
+        if col > RAW_COL_TOL or l2 > RAW_L2_TOL:
+            raise AssertionError("K1 disagrees with its plain version")
+        if l2_faulty <= RAW_L2_TOL:
+            raise AssertionError("the K1 check passes raw with the rgb bias off by 10%")
+        errs, abs_err = grad_errors(field, packed, gk, gp)
+        name, e = max(errs.items(), key=lambda kv: kv[1])
+        print(f"K2 P={R * S}: worst gradient relative L2 err {e:.3e} ({name}; tolerance "
+              f"{GRAD_TOL:.0e}); median over parameters {np.median(list(errs.values())):.3e}; "
+              f"max abs err {abs_err:.3e}")
+        if e > GRAD_TOL or not all(bool(torch.isfinite(t).all()) for t in gk[:2]):
+            raise AssertionError("K2 disagrees with its plain version")
+        if not (torch.equal(gk.dw, gk2.dw) and torch.equal(gk.db, gk2.db)):
+            raise AssertionError("K2: two launches on the same inputs differ")
+        trunk = sum(float(t.abs().sum()) for (n, _), t in zip(field.named_parameters(), gz)
+                    if n.startswith("mlps."))
+        ins_out = float(gz[[n for n, _ in field.named_parameters()].index(
+            "ins_linear.weight")].abs().sum())
+        print(f"K2: bit-identical across two launches; instance-only loss: trunk "
+              f"|grad| sum {trunk}, ins_linear {ins_out:.3e}")
+        if trunk != 0.0 or ins_out == 0.0:
+            raise AssertionError("K2 passes the instance branch's cotangent into the trunk")
+        worst_raw, worst_grad = max(worst_raw, err.max().item()), max(worst_grad, abs_err)
+        out[S] = (packed, field, pts, vd, pf, dirs, ppd, g)
+
+    packed, field, pts, vd, pf, dirs, ppd, g = out[192]
+
+    def fwd_k():
+        with torch.no_grad():
+            kf.field_forward(packed, pts, vd)
+
+    def fwd_p():
+        with torch.no_grad():
+            kf.field_forward_ref(field, pts, vd)
+
+    def fb_k():
+        fwd_k()
+        kf.field_backward(packed, pf, dirs, ppd, g)
+
+    def fb_p():
+        fwd_p()
+        kf.field_backward_ref(packed, pf, dirs, ppd, g)
+
+    def bwd_k():
+        kf.field_backward(packed, pf, dirs, ppd, g)
+
+    def bwd_p():
+        kf.field_backward_ref(packed, pf, dirs, ppd, g)
+
+    # plain, kernel, kernel, plain: both see the same slice of the run
+    def pair(k_fn, p_fn, reps=10):
+        p1, k1, k2, p2 = (cuda_ms(p_fn, reps), cuda_ms(k_fn, reps), cuda_ms(k_fn, reps),
+                          cuda_ms(p_fn, reps))
+        return min(k1, k2), min(p1, p2)
+
+    ms1, plain1 = pair(fwd_k, fwd_p)
+    ms2, plain2 = pair(bwd_k, bwd_p, reps=5)
+    ms12, plain12 = pair(fb_k, fb_p, reps=5)
+    print(f"K1 field_forward: kernel {ms1:.3f} ms, plain {plain1:.3f} ms (P=589824; {card})")
+    print(f"K2 field_backward (its forward recompute and dW pass included): kernel "
+          f"{ms2:.3f} ms, plain {plain2:.3f} ms (P=589824; {card})")
+    print(f"K1+K2 forward+backward: kernels {ms12:.3f} ms, plain {plain12:.3f} ms "
+          f"(P=589824; {card})")
+    return [{"name": "field_forward", "route": "cuda", "source": FIELD_SRC,
+             "replaces": K1_REPLACES, "launches": 0, "max_abs_err": worst_raw,
+             "ms": ms1, "plain_ms": plain1},
+            {"name": "field_backward", "route": "cuda", "source": FIELD_SRC,
+             "replaces": K2_REPLACES, "launches": 0, "max_abs_err": worst_grad,
+             "ms": ms2, "plain_ms": plain2}]
+
+
+def train_cfg(tmp, name, n_iters, extra=()):
+    path = os.path.join(tmp, f"{name}.txt")
+    with open(path, "w") as f:
+        f.write("\n".join([
+            f"expname = {name}", f"basedir = {tmp}", "log_time = run",
+            "datadir = ./data/synthetic/boxroom128x8", "N_train = 3072", "N_samples = 64",
+            "N_importance = 128", "N_test = 4096", "near = 1.0", "far = 12.0",
+            "precision = bf16", "penalize", "tolerance = 0.05", "deta_w = 0.05",
+            "lrate = 5e-4", f"n_iters = {n_iters}", "seed = 3", *extra]
+            + [f"{k} = {v}" for k, v in FLAGSHIP.items()]) + "\n")
+    return path
+
+
+def train_slice(dev):
+    """Phase 7: dmnerf_torch.cli.train at flagship width, then cli.test."""
+    from dmnerf_torch.cli import test as cli_test
+    from dmnerf_torch.cli import train as cli_train
+    from dmnerf_torch.kernels import field as kf
+    from dmnerf_torch.models.convert import load_tar
+
+    phase("7 slice: dmnerf_torch.cli.train (boxroom128x8, flagship, N_train 3072, "
+          "64+128 samples, penalizer, bf16, 30 steps)")
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = train_cfg(tmp, "smoke", 29, ["i_print = 5", "i_save = 30", "i_test = 15"])
+        kf.reset_launches()
+        t0 = time.perf_counter()
+        cli_train.main(["--config", cfg, "--device", "cuda"])
+        torch.cuda.synchronize()
+        launches = dict(kf.LAUNCHES)
+        print(f"cli train, 30 steps + 1 eval (scene generation included): "
+              f"{time.perf_counter() - t0:.1f} s; launches {launches}")
+        ldir = os.path.join(tmp, "smoke", "run")
+        lines = [json.loads(l) for l in open(os.path.join(ldir, "metrics.jsonl"))]
+        losses = [l[k] for l in lines for k in ("total_loss", "rgb_loss", "ins_loss",
+                                                "psnr_fine", "psnr_coarse")]
+        print(f"metrics.jsonl: {len(lines)} lines, last {lines[-1]}")
+        if len(lines) != 6 or not np.isfinite(losses).all():
+            raise AssertionError("train: a printed loss is not finite, or lines are missing")
+        if launches != {"field_forward": 60, "field_backward": 60}:
+            raise AssertionError(f"launches {launches}, expected 60 of each (2 per step)")
+        if not os.path.isdir(os.path.join(ldir, "testset_000015")):
+            raise AssertionError("train: no in-train eval at step 15")
+        savedir = cli_test.main(["--config", cfg, "--render", "--device", "cuda"])
+        table = np.loadtxt(os.path.join(savedir, "test_results.txt"))
+        print(f"cli test --render from {os.path.basename(savedir)}: PSNR {table[:, 0]}")
+        if not savedir.endswith("render_test_000030") or not np.isfinite(table[:, 0]).all():
+            raise AssertionError("test CLI did not render the trained 000030.tar")
+
+        runs = []
+        for name in ("replay_a", "replay_b"):
+            cli_train.main(["--config", train_cfg(tmp, name, 2, ["i_print = 3", "i_save = 3",
+                                                                 "i_test = 0"]),
+                            "--device", "cuda"])
+            runs.append(load_tar(os.path.join(tmp, name, "run", "000003.tar")))
+        same = all(torch.equal(a[k], b[k]) for a, b in zip(runs[0][:2], runs[1][:2]) for k in a)
+        print(f"two 3-step runs from seed 3: parameters bit-identical: {same}")
+        if not same:
+            raise AssertionError("train: two runs from one seed differ")
+    return launches
+
+
+def train_throughput(dev, card):
+    """Phase 8: bench.py's train workload through the port's train step."""
+    from dmnerf_torch.cli import train as cli_train
+    from dmnerf_torch.kernels import field as kf
+    from dmnerf_torch.models.fields import FieldConfig
+    from dmnerf_torch.ops import lap
+    from dmnerf_torch.train.step import create_train_state, make_train_scan_step, scene_arrays
+
+    phase("8 train throughput: bench.py's workload (3072 rays, 64+128, 8x256 x2, K=32, "
+          "penalizer, bf16)")
+    ins_num = 32
+    with tempfile.TemporaryDirectory() as tmp:
+        # the flags and the scene through the train CLI's loader (perturb 1
+        # and lrate_decay 500 are the defaults): bench.py's 128x128 scene is
+        # these 8 views, of which it trains on the first 4
+        args, scene, _ = cli_train.load(["--config", train_cfg(tmp, "bench", 1),
+                                         "--device", "cuda"])
+    per = ins_num // 4                        # bench.py:76-81: labels subdivided
+    yy, xx = np.meshgrid(np.arange(scene.H), np.arange(scene.W), indexing="ij")
+    sub = ((yy * (per // 4)) // scene.H) * 4 + (xx * 4) // scene.W
+    scene.gt_labels = (scene.gt_labels * per + sub[None]).astype(scene.gt_labels.dtype)
+    args.ins_num = ins_num
+    cfg = FieldConfig.from_args(args)
+    state = create_train_state(0, cfg, args.lrate, args.lrate_decay, device=dev)
+    step = make_train_scan_step(args, cfg)
+    arrs = scene_arrays(scene, dev)
+    i_train = np.arange(4)
+    m = step(state, arrs, 1, i_train, 3)                      # warm-up
+    torch.cuda.synchronize()
+    n = 20
+    t0 = time.perf_counter()
+    m = step(state, arrs, 1, i_train, n)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n * 1e3
+    if not all(np.isfinite(float(v)) for v in m.values()):
+        raise AssertionError(f"train throughput: non-finite metrics {m}")
+    print(f"train: {ms:.2f} ms/step, {args.N_train / ms * 1e3:.1f} rays/s over {n} steps "
+          f"(ins_loss {float(m['ins_loss']):.4f}; {card})")
+
+    # the split: CUDA events around each wrapper, the LAP's host solve on the
+    # host clock, over n more steps
+    events = {"K1 field_forward": [], "K2 field_backward": [], "pack_field": []}
+    originals = {}
+
+    def timed(name, attr):
+        fn = originals.setdefault(attr, getattr(kf, attr))
+
+        def wrapper(*a, **k):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **k)
+            e1.record()
+            events[name].append((e0, e1))
+            return out
+        setattr(kf, attr, wrapper)
+
+    timed("K1 field_forward", "field_forward")
+    timed("K2 field_backward", "field_backward")
+    timed("pack_field", "pack_field")
+    solve, host_s = lap.linear_sum_assignment, [0.0]
+
+    def timed_solve(*a, **k):
+        t = time.perf_counter()
+        out = solve(*a, **k)
+        host_s[0] += time.perf_counter() - t
+        return out
+    lap.linear_sum_assignment = timed_solve
+    try:
+        t0 = time.perf_counter()
+        step(state, arrs, 1, i_train, n)
+        torch.cuda.synchronize()
+        ms_split = (time.perf_counter() - t0) / n * 1e3
+    finally:
+        for attr, fn in originals.items():
+            setattr(kf, attr, fn)
+        lap.linear_sum_assignment = solve
+    split = {k: sum(a.elapsed_time(b) for a, b in v) / n for k, v in events.items()}
+    split["LAP host solve"] = host_s[0] / n * 1e3
+    split["rest"] = ms_split - sum(split.values())
+    print(f"step split over {n} steps ({ms_split:.2f} ms/step with the events on; {card}):")
+    for k, v in split.items():
+        print(f"  {k}: {v:.3f} ms/step ({100 * v / ms_split:.1f}%)")
+    profile_steps(step, state, arrs, i_train, card)
+
+
+def profile_steps(step, state, arrs, i_train, card, n=3):
+    """Device time by kernel over n steps (torch.profiler), and the device's
+    busy share of the wall time. A measurement only: a profiler that sees no
+    device time prints "not measured" and the run goes on."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, arrs, 1, i_train, n)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        # device kernels only: a CPU op also carries the device time of the
+        # kernels it launched, which would count them twice
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            rows.append((dev_us / 1e3 / n, e.count // n, e.key))
+    if not rows:
+        print("profiler: no device time recorded; kernel split not measured")
+        return
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    print(f"profiler, {n} steps ({wall_ms / n:.2f} ms/step wall under the profiler; {card}): "
+          f"device busy {busy:.2f} ms/step, idle share {100 * (1 - busy * n / wall_ms):.1f}%")
+    for ms, count, key in rows[:16]:
+        print(f"  {ms:8.3f} ms/step  x{count:<4d} {key[:90]}")
 
 
 if __name__ == "__main__":

@@ -5,7 +5,9 @@ the chunk and cropped after), and the chunks run in a Python loop: PyTorch
 runs eagerly, so there is nothing to compile once. With fused=True (the
 default when use_pallas is on) each chunk goes through the fused
 field+composite kernels of kernels/render_field.py; the unfused path is
-core/rendering.render_rays on the field modules. The chunk is N_test rays.
+core/rendering.render_rays, with the field through kernel K1
+(kernels/field.make_pallas_field) when use_pallas is on and the field modules
+otherwise. The chunk is N_test rays.
 
 params is {"coarse": DMNeRFField, "fine": DMNeRFField} on `device`.
 """
@@ -18,27 +20,30 @@ import torch
 from dmnerf_torch.core.rays import get_rays
 from dmnerf_torch.core.rendering import render_rays
 from dmnerf_torch.core.sampling import z_val_sample
+from dmnerf_torch.kernels.field import make_pallas_field
 from dmnerf_torch.kernels.render_field import make_fused_chunk_renderer, pack_params
 from dmnerf_torch.models.fields import FieldConfig
-
-_UNFUSED_KERNEL_TODO = (
-    "use_pallas=True with fused=False needs the field kernel K1, still to be "
-    "ported (ROADMAP.md queue 2, K1); use fused=True or use_pallas=False")
 
 
 def make_chunk_renderer(cfg: FieldConfig, n_samples: int, n_importance: int,
                         near: float, far: float, chunk: int, *, device,
                         use_pallas: bool = False):
     """render_chunk(params, rays_o [chunk,3], rays_d [chunk,3])
-    -> (rgb [chunk,3], ins [chunk,K], depth [chunk]) on the unfused path."""
-    if use_pallas:
-        raise NotImplementedError(_UNFUSED_KERNEL_TODO)
+    -> (rgb [chunk,3], ins [chunk,K], depth [chunk]) on the unfused path:
+    the field through K1 when use_pallas, else the field modules."""
     device = torch.device(device)
+    field = make_pallas_field(cfg) if use_pallas else None
 
     @torch.no_grad()
     def render_chunk(params, rays_o, rays_d):
+        if use_pallas:
+            params = pack_params(params)
+            coarse_fn = lambda pts, vd: field(params["coarse"], pts, vd)
+            fine_fn = lambda pts, vd: field(params["fine"], pts, vd)
+        else:
+            coarse_fn, fine_fn = params["coarse"], params["fine"]
         z = z_val_sample(chunk, near, far, n_samples, device=device)
-        out = render_rays(params["coarse"], params["fine"], rays_o, rays_d, z,
+        out = render_rays(coarse_fn, fine_fn, rays_o, rays_d, z,
                           n_importance, generator=None, perturb=False)
         return out["rgb_fine"], out["ins_fine"], out["depth_fine"]
 
@@ -65,13 +70,14 @@ def make_batch_renderer(cfg: FieldConfig, n_samples: int, n_importance: int,
 
     @torch.no_grad()
     def render_all(params, rays_o, rays_d):
+        if fused or use_pallas:
+            params = pack_params(params)          # once per image
         if fused:
-            packed = pack_params(params)
             z = z_val_sample(chunk, near, far, n_samples, device=device).contiguous()
         outs = []
         for s in range(0, n_rays, chunk):
             ro, rd = rays_o[s:s + chunk], rays_d[s:s + chunk]
-            outs.append(render_chunk_fused(packed, ro, rd, z) if fused
+            outs.append(render_chunk_fused(params, ro, rd, z) if fused
                         else render_chunk(params, ro, rd))
         rgb, ins, depth = (torch.cat(x, dim=0) for x in zip(*outs))
         return rgb, ins, depth

@@ -2,9 +2,10 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled, at first
 use, into `build/kernels/lib<name>_<hash>.so` at the repo root, where the hash
-covers the source and the flags: an edited source rebuilds, an unchanged one
-loads what is there. The compiler's report (`-Xptxas -v`: registers, shared
-memory, spills per kernel) is kept beside the library as `.log`.
+covers the source, the shared headers (`csrc/*.cuh`) and the flags: an edited
+source rebuilds, an unchanged one loads what is there. The compiler's report
+(`-Xptxas -v`: registers, shared memory, spills per kernel) is kept beside
+the library as `.log`. `build_all` starts one nvcc per source at once.
 
 Nothing is compiled at import time; this machine may have no nvcc.
 """
@@ -34,26 +35,48 @@ def _nvcc() -> str:
                        "CUDA kernels are built on the machine with the card")
 
 
+def library_path(name: str) -> Path:
+    """build/kernels/lib<name>_<hash>.so for the current sources and flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+
+
+def build_all(names) -> dict:
+    """Compile every csrc/<name>.cu whose library is not current, one nvcc
+    process per source, all started together.
+    Returns {name: (library path, seconds spent compiling: 0.0 if current)}."""
+    out, procs = {}, {}
+    for name in names:
+        so = library_path(name)
+        if so.exists():
+            out[name] = (so, 0.0)
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        procs[name] = (so, tmp, time.perf_counter(), subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (so, tmp, t0, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{log}")
+            continue
+        so.with_suffix(".log").write_text(log)
+        os.replace(tmp, so)
+        out[name] = (so, time.perf_counter() - t0)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
+
+
 def build(name: str) -> tuple[Path, float]:
     """Compile csrc/<name>.cu unless its library is current.
     Returns (library path, seconds spent compiling: 0.0 if it was current)."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    so = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
-    if so.exists():
-        return so, 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, so)
-    return so, seconds
+    return build_all([name])[name]
 
 
 @functools.lru_cache(maxsize=None)
@@ -68,4 +91,24 @@ def load_render_field() -> ctypes.CDLL:
     lib.render_field_all.restype = i
     lib.render_field_error_string.argtypes = [i]
     lib.render_field_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_field() -> ctypes.CDLL:
+    """csrc/field.cu (K1, K2), built if needed, with its argument types set."""
+    so, _ = build("field")
+    lib = ctypes.CDLL(str(so))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.field_scratch_widths.argtypes = [p, i, p, p]
+    lib.field_scratch_widths.restype = i
+    lib.field_forward.argtypes = [p, p, i, i, p, p, p, i, p, p]
+    lib.field_forward.restype = i
+    lib.field_backward.argtypes = [p, p, i, i, p, p, p, i, p,
+                                   p, i, p, i, p, p,
+                                   p, i, p, i, i,
+                                   p, p, p]
+    lib.field_backward.restype = i
+    lib.field_error_string.argtypes = [i]
+    lib.field_error_string.restype = ctypes.c_char_p
     return lib

@@ -52,7 +52,8 @@ def _ru(x: int, m: int) -> int:
 class PackedField(NamedTuple):
     """A field's weights laid out for the kernel.
 
-    w: bf16 [n] — every matrix as [in, out] row-major, in-widths padded with
+    w: [n] in the compute dtype (bf16, the only one with kernels) — every
+       matrix as [in, out] row-major, in-widths padded with
        zero rows to a multiple of 16:
          t0 [XP, W]; t_i [W, W], except t_{skip+1} [W + XP, W] (rows W: face
          the skip input x); rgb_feat [W, W]; rgb_hidden [W + DP, W/2] (rows W:
@@ -105,9 +106,9 @@ def pack_field(field: DMNeRFField) -> PackedField:
         for m in mats:
             offs.append(n)
             n = _ru(n + m.numel(), _ALIGN)
-        w = torch.zeros(n, dtype=torch.bfloat16, device=rh.device)
+        w = torch.zeros(n, dtype=cfg.compute_dtype, device=rh.device)
         for o, m in zip(offs, mats):
-            w[o:o + m.numel()] = m.reshape(-1).to(torch.bfloat16)
+            w[o:o + m.numel()] = m.reshape(-1).to(cfg.compute_dtype)
 
         bo = torch.zeros(CP, device=rh.device)
         bo[0:3] = field.rgb_linear.bias.detach().float()

@@ -1,4 +1,5 @@
-"""The render kernels K3/K4 on an NVIDIA card against their plain versions.
+"""The port's CUDA kernels on an NVIDIA card against their plain versions:
+the render kernels K3/K4 and the training kernels K1/K2.
 
 Imports no jax, so the machine with the card runs it without the JAX package's
 conftest:  python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -9,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from dmnerf_torch.kernels import field as kf
 from dmnerf_torch.kernels import render_field as krf
 from dmnerf_torch.models.fields import FieldConfig, init_field_params
 
@@ -70,3 +72,89 @@ def test_f32_precision_has_no_kernel():
     pts, vd, z, rd = _rays(4, 8)
     with pytest.raises(NotImplementedError):
         krf.render_field_sigma(field, pts, z, rd)
+    with pytest.raises(NotImplementedError):
+        kf.field_forward(field, pts, vd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,ins_num,R,S", [(64, 11, 37, 100), (256, 32, 16, 70)])
+def test_field_kernels_match_plain_versions_on_the_card(width, ins_num, R, S):
+    """K1 vs DMNeRFField.forward and K2 vs field_backward_ref on the same
+    card (TF32 off). Both round to bf16 at the same places; the order of fp32
+    sums differs and can flip an activation by one bf16 ulp, which later
+    layers (and ReLU masks) carry. Each raw column is held on its own, so the
+    small rgb columns are not judged by the largest logits: its max error
+    within 3% of its max |raw| and its relative L2 error within 5e-3
+    (chip_smoke.py's bars; measured on an H100 at these shapes: 1.1e-2 and
+    2.3e-3 at width 256, an rgb bias off by 10% 5.6e-3). Every
+    parameter's gradient and the encoding cotangents within 3e-2 relative L2
+    (the plain version moves by 1.1e-2 with f64 in place of f32 accumulation
+    at width 256). K2 is bit-identical across launches, and an
+    instance-logit loss gives the trunk exactly zero. R*S is not a multiple
+    of the 64-point tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = FieldConfig(netdepth=8, netwidth=width, multires=10, multires_views=4,
+                      ins_num=ins_num)
+    field = init_field_params(torch.Generator().manual_seed(4), cfg, device="cuda")
+    packed = krf.pack_field(field)
+    pts, vd, _, _ = _rays(R, S)
+    pf, dirs, ppd = kf.flatten_inputs(pts, vd)
+    g = torch.randn(R * S, ins_num + 5, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(0)) * 1e-3
+    kf.reset_launches()
+    with torch.no_grad():
+        raw, want = kf.field_forward(packed, pts, vd), kf.field_forward_ref(field, pts, vd)
+    got = kf.field_backward(packed, pf, dirs, ppd, g, True, True)
+    again = kf.field_backward(packed, pf, dirs, ppd, g, True, True)
+    ref = kf.field_backward_ref(packed, pf, dirs, ppd, g, True, True)
+    g_ins = g.clone()
+    g_ins[:, :4] = 0.0
+    zero = kf.unpack_grads(packed, *kf.field_backward(packed, pf, dirs, ppd, g_ins)[:2])
+    torch.cuda.synchronize()
+    assert kf.LAUNCHES == {"field_forward": 1, "field_backward": 3}
+    assert raw.shape == want.shape and torch.isfinite(raw).all()
+    raw, want = raw.reshape(-1, ins_num + 5), want.reshape(-1, ins_num + 5)
+    err = (raw - want).abs()
+    assert (err.amax(0) <= 3e-2 * want.abs().amax(0)).all()
+    assert ((raw - want).norm(dim=0) <= 5e-3 * want.norm(dim=0)).all()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    pairs = list(zip(kf.unpack_grads(packed, got.dw, got.db),
+                     kf.unpack_grads(packed, ref.dw, ref.db))) + [(got.gx, ref.gx),
+                                                                  (got.gd, ref.gd)]
+    for a, b in pairs:
+        assert (a - b).norm() <= 3e-2 * b.norm(), float((a - b).norm() / b.norm())
+    names = [n for n, _ in field.named_parameters()]
+    assert all(not t.any() for n, t in zip(names, zero) if n.startswith("mlps."))
+    assert zero[names.index("ins_linear.weight")].abs().sum() > 0
+
+
+@pytest.mark.cuda
+def test_train_steps_run_through_the_kernels():
+    """Three train steps on the card: finite metrics, K1 and K2 twice per
+    step (coarse and fine), and the same seed giving bit-identical weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from dmnerf_torch.train.step import create_train_state, make_train_scan_step, scene_arrays
+    from dmnerf_tpu.config import default_config
+    from dmnerf_tpu.data.synthetic import make_scene
+
+    scene = make_scene(H=16, W=16, n_train=2, n_test=1)
+    args = default_config(N_train=256, N_samples=16, N_importance=16, near=1.0, far=12.0,
+                          penalize=True, tolerance=0.05, deta_w=0.05, netdepth=8,
+                          netwidth=64, multires=10, multires_views=4)
+    args.ins_num = scene.ins_num
+    cfg = FieldConfig.from_args(args)
+    arrs = scene_arrays(scene, "cuda")
+    runs = []
+    for _ in range(2):
+        kf.reset_launches()
+        state = create_train_state(0, cfg, device="cuda")
+        m = make_train_scan_step(args, cfg)(state, arrs, 1, scene.i_train, 3)
+        torch.cuda.synchronize()
+        assert all(torch.isfinite(v) for v in m.values())
+        assert kf.LAUNCHES == {"field_forward": 6, "field_backward": 6}
+        runs.append([p.detach().clone() for p in state.opt.param_groups[0]["params"]])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))

@@ -44,3 +44,35 @@ def test_import_and_cli_render_load_no_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out == {"loaded": [], "results": True}
+
+
+def test_cli_train_loads_no_jax(tmp_path):
+    """A tiny CPU run of dmnerf_torch.cli.train (boxroom8x4, 3 steps, a
+    checkpoint and an in-train eval) in a fresh interpreter loads none of
+    jax, orbax or imageio."""
+    script = textwrap.dedent(f"""
+        import json, os, sys
+        import dmnerf_torch.cli.train as cli
+
+        with open(os.path.join({str(tmp_path)!r}, "c.txt"), "w") as f:
+            f.write("expname = nj\\nbasedir = {tmp_path / 'logs'}\\nlog_time = run\\n"
+                    "datadir = ./data/synthetic/boxroom8x4\\nN_train = 32\\nN_test = 64\\n"
+                    "N_samples = 4\\nN_importance = 4\\nnear = 1.0\\nfar = 12.0\\n"
+                    "netdepth = 2\\nnetwidth = 32\\nmultires = 2\\nmultires_views = 2\\n"
+                    "penalize\\ntolerance = 0.05\\ndeta_w = 0.05\\nn_iters = 2\\n"
+                    "i_print = 1\\ni_save = 3\\ni_test = 2\\neval_views = 1\\n")
+        state = cli.main(["--config", os.path.join({str(tmp_path)!r}, "c.txt"),
+                          "--device", "cpu"])
+        print(json.dumps({{
+            "loaded": sorted(m for m in sys.modules
+                             if m.split(".")[0] in ("jax", "jaxlib", "orbax", "imageio")),
+            "step": state.step,
+            "tar": os.path.exists(os.path.join({str(tmp_path)!r}, "logs", "nj", "run",
+                                               "000003.tar")),
+        }}))
+    """)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"loaded": [], "step": 3, "tar": True}

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from dmnerf_tpu.config import default_config
+from dmnerf_tpu.core.rays import get_rays as get_rays_np
 from dmnerf_tpu.data.synthetic import make_scene
 from dmnerf_tpu.eval.renderer import make_image_renderer as jax_image_renderer
 from dmnerf_tpu.eval.tester import render_test as jax_render_test
@@ -18,6 +19,7 @@ from dmnerf_tpu.models import fields as jf
 from dmnerf_torch.eval.renderer import (make_batch_renderer, make_chunk_renderer,
                                         make_image_renderer, render_image)
 from dmnerf_torch.eval.tester import render_test
+from dmnerf_torch.kernels import field as kf
 from dmnerf_torch.kernels import render_field as krf
 from dmnerf_torch.models import fields as tf
 from dmnerf_torch.models.convert import save_tar, state_dict_from_jax
@@ -107,10 +109,21 @@ def test_render_many_matches_single_views():
 
 
 def test_unported_combinations_raise():
-    _, args, _, _, cfg_t, _, _ = _setup()
-    with pytest.raises(NotImplementedError, match="K1"):
-        make_batch_renderer(cfg_t, 8, 8, 1.0, 12.0, 32, 64, device="cpu",
-                            use_pallas=True, fused=False)
+    """use_pallas with fused=False renders through K1's wrapper (on the CPU
+    its plain version, DMNeRFField.forward: the module path's numbers
+    exactly, and no launch); a ray count that is not a multiple of the chunk
+    and --lpips_weights raise."""
+    scene, args, _, _, cfg_t, pt, _ = _setup()
+    rays = [torch.from_numpy(np.ascontiguousarray(np.asarray(r).reshape(-1, 3)))
+            for r in get_rays_np(8, 8, scene.K, scene.poses[0])]
+    krf.reset_launches()
+    kf.reset_launches()
+    got = make_batch_renderer(cfg_t, 8, 8, 1.0, 12.0, 32, 64, device="cpu",
+                              use_pallas=True, fused=False)(pt, *rays)
+    want = make_batch_renderer(cfg_t, 8, 8, 1.0, 12.0, 32, 64, device="cpu")(pt, *rays)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert sum(kf.LAUNCHES.values()) == sum(krf.LAUNCHES.values()) == 0
     with pytest.raises(ValueError):
         make_batch_renderer(cfg_t, 8, 8, 1.0, 12.0, 32, 48, device="cpu")
     args.lpips_weights = "vgg.npz"
