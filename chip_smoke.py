@@ -1,5 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA card (H100, sm_90a): the render
-path (kernels K3/K4) and the training step (kernels K1/K2).
+path (kernels K3/K4), the training step (kernels K1/K2) and the edit path
+(kernels K1/K5).
 
     python3 chip_smoke.py
 
@@ -38,6 +39,25 @@ Phases (each fails the run by raising; nothing is caught):
    dmnerf_torch.cli.train's loader): ms/step and rays/s over 20
    steps after warm-up, and the split of the step into K1, K2, the LAP's host
    solve, pack_field and the rest.
+9. K5 (render_field_ins) vs its plain version at the flagship field (K=32) on
+   phase 3's 4096 rays x 192 samples, the z-union of an accumulated-label
+   pass (the det linspace and 128 det sample_pdf samples): per-ray max error
+   of the logits, and the median times of K5, its plain version and K3 at
+   that shape.
+10. the edit slice through its entry points, dmnerf_torch.edit.runner's
+   manipulator_eval (boxroom128x8's test views, a rigid translation of label
+   1) and manipulator_demo (a rigid translation and a 'sin' deform, 2 views),
+   flagship width, K=4, N_test 4096: every artifact written, finite PSNR,
+   and per 4096-ray chunk 2 * (1 + n_obj) launches of K1, 1 + n_obj of K5
+   and none of K3/K4. Then a 32x32 edit through the kernels is held against
+   the plain path (use_pallas False), and the same bars must reject two
+   broken edits (the move label off by one; the second exchange skipped).
+11. edit throughput at bench.py's edit workload (bench.py:234-288: K=32, one
+   rigid object, N_test 4096): ms/image over 12 poses at 128x128 and 3 at
+   640x480, one view launched ahead as the runners do; the split of one
+   128x128 view into K1, K5, sample_pdf, the sorts, the exchanger, the
+   composites and the rest (CUDA events); and the chunk over {1024, 2048,
+   4096, 8192} at 128x128 with its peak device memory.
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -85,6 +105,19 @@ MAX_STEP_RAYS = 8
 # 10% measured 1.0e-2 relative L2, and the check must reject it.
 RAW_COL_TOL = 3e-2
 RAW_L2_TOL = 5e-3
+# An edit through the kernels vs the plain path (use_pallas False), per
+# pixel: a one-ulp bf16 flip can move a point's instance argmax and with it an
+# exchange decision, so single pixels may differ by a lot while the image
+# agrees. Held: the mean abs rgb error within EDIT_MEAN_TOL, and the share of
+# pixels whose rgb moves by more than EDIT_RGB_STEP (any channel) or whose
+# label differs within EDIT_FRAC_TOL. Both bars must also reject a broken
+# edit (phase 10). On an NVIDIA H100 (700 W) at 32x32 the kernel edit
+# measured 3.9e-4 and 3.0% (2.6% relabelled) against the plain edit, and
+# 1.09e-2 / 39% and more against the unedited image and the broken edits:
+# each bar sits about midway between, on a log scale.
+EDIT_RGB_STEP = 2e-2
+EDIT_MEAN_TOL = 2e-3
+EDIT_FRAC_TOL = 1e-1
 # K2 vs its plain version, relative L2 error per parameter's gradient. The
 # flips above cascade through the layers (ReLU masks included), so the
 # gradient moves with the order of fp32 summation: the plain version run
@@ -224,7 +257,8 @@ def main():
             print(f"{name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
                   f"(median of 10; R=4096, S={z_c.shape[1] if 'sigma' in name else 192}; {card})")
             kernels.append({"name": name, "route": "cuda", "source": SRC,
-                            "replaces": REPLACES, "launches": 0, "max_abs_err": worst,
+                            "replaces": REPLACES, "heads": name.split("_")[-1],
+                            "launches": 0, "max_abs_err": worst,
                             "ms": ms, "plain_ms": plain_ms})
 
     phase("4 slice: dmnerf_torch.cli.test --render (boxroom128x8, flagship, bf16)")
@@ -255,8 +289,9 @@ def main():
         expected = 2 * (128 * 128 // 4096)          # 2 test views x 4 chunks
         if table.shape != (3, 9) or not np.isfinite(table[:, 0]).all():
             raise AssertionError(f"test_results.txt: shape {table.shape}, PSNR {table[:, 0]}")
-        if launches != {"render_field_sigma": expected, "render_field_all": expected}:
-            raise AssertionError(f"launches {launches}, expected {expected} of each")
+        if launches != {"render_field_sigma": expected, "render_field_all": expected,
+                        "render_field_ins": 0}:
+            raise AssertionError(f"launches {launches}, expected {expected} of K4 and K3")
         for k in kernels:
             k["launches"] = launches[k["name"]]
 
@@ -303,6 +338,10 @@ def main():
         if k["name"] in train_launches:
             k["launches"] = train_launches[k["name"]]
     train_throughput(dev, card)
+
+    kernels.append(ins_kernel_vs_plain(fine, pf, pts_f, vd, z_f, rd, card))
+    kernels[-1]["launches"] = edit_slice(dev)["render_field_ins"]
+    edit_throughput(dev, card, cfg, {"coarse": coarse, "fine": fine})
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
@@ -624,6 +663,275 @@ def profile_steps(step, state, arrs, i_train, card, n=3):
           f"device busy {busy:.2f} ms/step, idle share {100 * (1 - busy * n / wall_ms):.1f}%")
     for ms, count, key in rows[:16]:
         print(f"  {ms:8.3f} ms/step  x{count:<4d} {key[:90]}")
+
+
+def ins_kernel_vs_plain(fine, packed, pts, vd, z, rd, card):
+    """Phase 9: K5 vs its plain version on phase 3's fine z-union, which is
+    what an accumulated-label pass composites (det linspace + 128 det
+    sample_pdf samples, sorted)."""
+    from dmnerf_torch.kernels import render_field as krf
+
+    phase("9 K5 vs its plain version (flagship 8x256, K=32, bf16, 4096 rays x 192)")
+    R, S = z.shape
+    with torch.no_grad():
+        got = krf.render_field_ins(packed, pts, z, rd)
+        want = krf.render_field_ins_ref(fine, pts, z, rd)
+        k3_ins = krf.render_field_all(packed, pts, vd, z, rd)[2]
+        torch.cuda.synchronize()
+        worst = check("render_field_ins", "ins_logits", got, want,
+                      fine.density(pts[:, -1])[..., 0])
+        # the same trunk and instance branch as K3's, with the rgb rows of the
+        # output matmul left out: they add exact zeros to these columns
+        vs_k3 = float((got - k3_ins).abs().max())
+        print(f"render_field_ins vs render_field_all's logits: max abs diff {vs_k3:.3e}")
+        if vs_k3 > TOL["ins_logits"]:
+            raise AssertionError("K5's logits disagree with K3's")
+
+        def k5():
+            krf.render_field_ins(packed, pts, z, rd)
+
+        def k3():
+            krf.render_field_all(packed, pts, vd, z, rd)
+
+        def plain():
+            krf.render_field_ins_ref(fine, pts, z, rd)
+
+        # plain, K5, K3, K5, K3, plain: all three see the same slice of the run
+        p1, a1, b1, a2, b2, p2 = (cuda_ms(plain), cuda_ms(k5), cuda_ms(k3), cuda_ms(k5),
+                                  cuda_ms(k3), cuda_ms(plain))
+    ms, k3_ms, plain_ms = min(a1, a2), min(b1, b2), min(p1, p2)
+    print(f"render_field_ins: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, K3 at the same "
+          f"shape {k3_ms:.3f} ms (K5/K3 {ms / k3_ms:.3f}; median of 10; R={R}, S={S}; {card})")
+    return {"name": "render_field_ins", "route": "cuda", "source": SRC, "replaces": REPLACES,
+            "heads": "ins", "launches": 0, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms}
+
+
+def translation(dx):
+    t = np.eye(4)
+    t[0, 3] = dx
+    return t
+
+
+def edit_slice(dev):
+    """Phase 10: manipulator_eval and manipulator_demo at flagship width, then
+    a small edit through the kernels vs the plain path. Returns the launch
+    counts of the manipulator_eval run."""
+    from dmnerf_torch.cli import train as cli_train
+    from dmnerf_torch.edit import runner
+    from dmnerf_torch.kernels import field as kf
+    from dmnerf_torch.kernels import render_field as krf
+    from dmnerf_torch.models.fields import FieldConfig, init_field_params
+
+    phase("10 slice: the edit runners (boxroom128x8, flagship, K=4, bf16, N_test 4096)")
+    with tempfile.TemporaryDirectory() as tmp:
+        # the flags and the scene through the train CLI's loader; the runners
+        # read N_test, the samples, near/far, target_label and use_pallas
+        args, scene, _ = cli_train.load(["--config", train_cfg(tmp, "edit", 1),
+                                         "--device", "cuda"])
+        args.ins_num = scene.ins_num
+        args.target_label, args.use_pallas, args.mani_type = 1, True, "rigid"
+        cfg = FieldConfig.from_args(args)
+        # a random pair whose field has density and several labels in view,
+        # so that moving label 1 moves pixels (at 8x8 on a CPU, most seeds
+        # from 0 to 10 gave an empty view or one label everywhere)
+        gen = torch.Generator().manual_seed(11)
+        params = {k: init_field_params(gen, cfg, device=dev).eval() for k in ("coarse", "fine")}
+        n_chunks = -(-scene.H * scene.W // args.N_test)
+        sel = scene.i_test
+
+        def run_counted(what, views, n_obj, fn):
+            kf.reset_launches()
+            krf.reset_launches()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            got = {**kf.LAUNCHES, **krf.LAUNCHES}
+            want = {"field_forward": views * n_chunks * 2 * (1 + n_obj), "field_backward": 0,
+                    "render_field_sigma": 0, "render_field_all": 0,
+                    "render_field_ins": views * n_chunks * (1 + n_obj)}
+            print(f"{what}, {views} views x {n_chunks} chunks, {n_obj} object(s): "
+                  f"{time.perf_counter() - t0:.1f} s; launches {got}")
+            if got != want:
+                raise AssertionError(f"{what}: launches {got}, expected {want}")
+            return out, got
+
+        trans_dicts = {"transformations": [{"transformation": translation(0.3).tolist(),
+                                            "mode": "translation"}]}
+        res, launches = run_counted("manipulator_eval", len(sel), 1, lambda: runner.manipulator_eval(
+            cfg, params, scene.poses[sel], scene.hwk, trans_dicts, os.path.join(tmp, "eval"),
+            scene.ins_rgbs, args, gt_rgbs=scene.images[sel], gt_labels=scene.gt_labels[sel],
+            device=dev))
+        out = os.path.join(tmp, "eval", "translation")
+        want = sorted([f"{i}_{k}.png" for i in range(len(sel))
+                       for k in ("rgb", "ins", "rgb_gt", "ins_gt")]
+                      + ["matching_log.json", "test_results.txt"])
+        table = np.loadtxt(os.path.join(out, "test_results.txt"))
+        print("test_results.txt:\n" + open(os.path.join(out, "test_results.txt")).read())
+        if sorted(os.listdir(out)) != want:
+            raise AssertionError(f"manipulator_eval wrote {sorted(os.listdir(out))}")
+        if table.shape != (len(sel) + 1, 9) or not np.isfinite(table[:, 0]).all() \
+                or not np.isfinite(res[0]):
+            raise AssertionError(f"test_results.txt: shape {table.shape}, PSNR {table[:, 0]}")
+
+        objs = [{"obj_name": "box1", "tar_id": 1, "mani_mode": "translation"},
+                {"obj_name": "box2", "tar_id": 2, "mani_mode": "deform", "deform_func": "sin"}]
+        objs_trans = {"box1": [{"transformation": translation(d).tolist()} for d in (0.15, 0.3)]}
+        views = np.asarray(scene.poses)[[sel[0], sel[-1]]]
+        run_counted("manipulator_demo", 2, 2, lambda: runner.manipulator_demo(
+            cfg, params, scene.hwk, objs_trans, os.path.join(tmp, "demo"), scene.ins_rgbs,
+            objs, views, {}, args, device=dev))
+        names = sorted(os.listdir(os.path.join(tmp, "demo", "rigid")))
+        print(f"manipulator_demo wrote {names}")
+        if names != sorted(f"{i}_{k}.png" for i in range(2)
+                           for k in ("rgb", "ins", "ins_pred_mask")):
+            raise AssertionError("manipulator_demo: missing pngs")
+    edit_vs_plain(dev, cfg, params)
+    return launches
+
+
+def edit_vs_plain(dev, cfg, params):
+    """Phase 10b: a 32x32 edit through the kernels vs the plain path, and the
+    same comparison against two broken plain edits, which it must reject."""
+    from dmnerf_torch.edit import manipulator
+
+    phase("10b 32x32 edit: kernels vs the plain path, and two broken edits (flagship, K=4)")
+    small = SimpleNamespace(N_test=512, N_samples=64, N_importance=128, near=1.0, far=12.0)
+    pose = look_at_poses(1)[0].astype(np.float64)
+    Ks = np.array([[0.7 * 32, 0, 16], [0, -0.7 * 32, 16], [0, 0, -1.0]], np.float32)
+    tar = (translation(0.3) @ pose)[None]
+
+    def edit(use_pallas, move=1):
+        run = manipulator.make_pose_image_manipulator(
+            cfg, params, small, [{"mode": "rigid"}], [move], 32, 32, Ks, device=dev,
+            use_pallas=use_pallas)
+        rgb, label, _, _ = run(pose, tar, np.zeros(1))
+        return rgb[:1024].cpu().numpy(), label[:1024].cpu().numpy()
+
+    def diff(a, b):
+        err = np.abs(a[0] - b[0])
+        moved = (err.max(-1) > EDIT_RGB_STEP) | (a[1] != b[1])
+        return float(err.mean()), float(moved.mean())
+
+    got, want = edit(True), edit(False)
+    unedited = edit(False, move=-1)           # no point carries label -1
+    off_by_one = edit(False, move=2)
+    real, calls = manipulator.exchanger, [0]
+
+    def first_exchange_only(ori_raw, *rest):
+        calls[0] += 1                          # odd calls: pass 1; even: pass 2
+        return real(ori_raw, *rest) if calls[0] % 2 else ori_raw
+
+    manipulator.exchanger = first_exchange_only
+    try:
+        skipped = edit(False)
+    finally:
+        manipulator.exchanger = real
+    if not (np.isfinite(got[0]).all() and np.isfinite(want[0]).all()):
+        raise AssertionError("non-finite edit")
+    print(f"bars: mean abs rgb err <= {EDIT_MEAN_TOL:.0e}, pixels moved by > {EDIT_RGB_STEP:.0e} "
+          f"or relabelled <= {EDIT_FRAC_TOL:.0%}")
+    wrong = []
+    for name, other in (("plain edit", want), ("plain, unedited", unedited),
+                        ("plain, move label off by one", off_by_one),
+                        ("plain, second exchange skipped", skipped)):
+        mean, frac = diff(got, other)
+        relabelled = float((got[1] != other[1]).mean())
+        held = mean <= EDIT_MEAN_TOL and frac <= EDIT_FRAC_TOL
+        print(f"kernel edit vs {name}: mean abs rgb err {mean:.3e}, moved or relabelled "
+              f"{frac:.4f} of pixels (relabelled {relabelled:.4f}): "
+              f"{'within' if held else 'outside'} the bars")
+        if held != (name == "plain edit"):
+            wrong.append(name)
+    if wrong:
+        raise AssertionError(f"the edit bars judge wrongly: {wrong}")
+
+
+def edit_throughput(dev, card, cfg, params):
+    """Phase 11: bench.py's edit workload through the pose image manipulator,
+    pipelined one view ahead as the runners are."""
+    from dmnerf_torch.edit import manipulator, runner
+    from dmnerf_torch.kernels import field as kf
+    from dmnerf_torch.kernels import render_field as krf
+
+    phase("11 edit throughput: bench.py's edit workload (1 rigid object, 8x256 x2, K=32, "
+          "64+128 samples, bf16)")
+    bench = SimpleNamespace(N_test=4096, N_samples=64, N_importance=128, near=1.0, far=12.0)
+    K128 = np.array([[0.7 * 128, 0, 64], [0, -0.7 * 128, 64], [0, 0, -1.0]], np.float32)
+    # bench.py:282-283: the reference's 640x480, intrinsics of their own
+    K640 = np.array([[640.0, 0, 320.0], [0, 640.0, 240.0], [0, 0, 1.0]], np.float32)
+    poses = np.concatenate([look_at_poses(4)] * 3).astype(np.float64)
+    trans = translation(0.3)
+
+    def make(args, H, W, K):
+        run = manipulator.make_pose_image_manipulator(
+            cfg, params, args, [{"mode": "rigid"}], [1], H, W, K, device=dev, use_pallas=True)
+        return lambda _i, pose: run(pose, (trans @ pose)[None], np.zeros(1))
+
+    def per_image(args, H, W, K, views):
+        dispatch = make(args, H, W, K)
+        for _ in runner._prefetch_map(dispatch, views[:1], H * W, dev):   # warm-up
+            pass
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        n = sum(1 for _ in runner._prefetch_map(dispatch, views, H * W, dev))
+        return (time.perf_counter() - t0) / n * 1e3, torch.cuda.max_memory_allocated() / 2**30
+
+    ms128, gib128 = per_image(bench, 128, 128, K128, poses)
+    print(f"edit 128x128: {ms128:.2f} ms/image over {len(poses)} poses, N_test 4096 "
+          f"(peak {gib128:.2f} GiB; {card})")
+    ms640, gib640 = per_image(bench, 480, 640, K640, poses[:3])
+    print(f"edit 640x480: {ms640:.2f} ms/image over 3 poses, N_test 4096 "
+          f"(peak {gib640:.2f} GiB; {card})")
+
+    # the split of one 128x128 view: CUDA events around each part
+    events = {k: [] for k in ("K1 field_forward", "K5 render_field_ins", "sample_pdf",
+                              "sorts (z unions)", "exchanger", "composite")}
+    targets = {"K1 field_forward": (kf, "field_forward"),
+               "K5 render_field_ins": (krf, "render_field_ins"),
+               "sample_pdf": (manipulator, "sample_pdf"),
+               "sorts (z unions)": (manipulator, "_sorted_union"),
+               "exchanger": (manipulator, "exchanger"),
+               "composite": (manipulator, "composite")}
+    originals = {name: getattr(mod, attr) for name, (mod, attr) in targets.items()}
+
+    def timed(name, fn):
+        def wrapper(*a, **k):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **k)
+            e1.record()
+            events[name].append((e0, e1))
+            return out
+        return wrapper
+
+    dispatch = make(bench, 128, 128, K128)
+    dispatch(0, poses[0])
+    torch.cuda.synchronize()
+    for name, (mod, attr) in targets.items():
+        setattr(mod, attr, timed(name, originals[name]))
+    try:
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        dispatch(0, poses[1])
+        b.record()
+        b.synchronize()
+    finally:
+        for name, (mod, attr) in targets.items():
+            setattr(mod, attr, originals[name])
+    total = a.elapsed_time(b)
+    split = {k: sum(e0.elapsed_time(e1) for e0, e1 in v) for k, v in events.items()}
+    split["rest (rays, points, sigmoid, argmax, gaps)"] = total - sum(split.values())
+    print(f"split of one 128x128 view ({total:.2f} ms between the first and the last event; "
+          f"{card}):")
+    for k, v in split.items():
+        print(f"  {k}: {v:.3f} ms ({100 * v / total:.1f}%), {len(events.get(k, []))} calls")
+
+    print("chunk sweep, 128x128, 4 poses each:")
+    for chunk in (1024, 2048, 4096, 8192):
+        ms, gib = per_image(SimpleNamespace(**{**vars(bench), "N_test": chunk}), 128, 128, K128,
+                            poses[:4])
+        print(f"  N_test {chunk}: {ms:.2f} ms/image, peak device memory {gib:.2f} GiB ({card})")
 
 
 if __name__ == "__main__":

@@ -1,13 +1,16 @@
-"""Test CLI of the port: `python -m dmnerf_torch.cli.test --config ... --render`.
+"""Test CLI of the port: `python -m dmnerf_torch.cli.test --config ...` with
+--render, --mani_eval or --mani_demo.
 
-Mirrors dmnerf_tpu/cli/test.py for the render mode. Flags and config files are
+Mirrors dmnerf_tpu/cli/test.py for those modes. Flags and config files are
 the JAX package's (dmnerf_tpu.config), plus --device (default cuda; a CUDA
 device that is not there is an error, never a silent move to the CPU). The
 weights come from {basedir}/{expname}/{log_time}/NNNNNN.tar in the reference
 DM-NeRF layout: the latest one, or the one --test_model names. A JAX orbax
 checkpoint becomes such a file through tools/export_torch_ckpt.py.
 
---mani_eval, --mani_demo and --mesh are not ported yet and raise.
+--mani_eval reads the DM-SR manipulation ground truth (data/dmsr_mani.py) and
+--mani_demo the DM-SR objs_info files (data/dmsr.py); both loaders need
+imageio and h5py. --mesh is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -26,8 +29,6 @@ from dmnerf_tpu.config import initial, log_dir
 from dmnerf_tpu.data.base import dataset_name_from_dir, load_dataset
 
 _NOT_PORTED = {
-    "mani_eval": "ROADMAP.md queue 1, item 7 (edit)",
-    "mani_demo": "ROADMAP.md queue 1, item 7 (edit)",
     "mesh": "ROADMAP.md queue 1, item 8 (mesh)",
 }
 
@@ -102,7 +103,11 @@ def main(argv=None):
     args.is_train = False
     args.perturb = 0.0
 
-    scene = load_dataset(args)
+    if args.mani_eval:
+        from dmnerf_tpu.data.dmsr_mani import load_data as load_mani
+        scene = load_mani(args)
+    else:
+        scene = load_dataset(args)
     args.ins_num = scene.ins_num
 
     ldir = log_dir(args)
@@ -123,6 +128,42 @@ def main(argv=None):
                     ins_rgbs=scene.ins_rgbs, savedir=savedir,
                     crop_mask=scene.crop_mask, color_dict=_color_dict(args))
         print("Rendering Done", savedir)
+        return savedir
+
+    if args.mani_eval:
+        from dmnerf_torch.edit.runner import manipulator_eval, resolve_target_channel
+        from dmnerf_tpu.edit.transforms import generate_poses_eval, load_mani_poses
+        if args.resolve_target_label:
+            plain = load_dataset(args)      # the unedited scene: GT labels per view
+            args.target_label = resolve_target_channel(cfg, params, args, plain,
+                                                       device=device)
+        generate_poses_eval(args)
+        savedir = os.path.join(ldir, f"mani_eval_{iteration:06d}")
+        os.makedirs(savedir, exist_ok=True)
+        manipulator_eval(cfg, params, scene.poses, scene.hwk, load_mani_poses(args), savedir,
+                         scene.ins_rgbs, args, gt_rgbs=scene.images,
+                         gt_labels=scene.gt_labels, color_dict=_color_dict(args),
+                         device=device)
+        print("Manipulating Done", savedir)
+        return savedir
+
+    if args.mani_demo:
+        from dmnerf_torch.edit.runner import manipulator_demo, resolve_target_channel
+        from dmnerf_tpu.edit.transforms import generate_poses_demo, load_mani_demo_poses
+        if args.resolve_target_label:
+            # objs_info tar_ids are GT labels here: resolve all of them to
+            # channels in one Hungarian-matching pass
+            ch_map = resolve_target_channel(cfg, params, args, scene, device=device,
+                                            targets=[int(o["tar_id"]) for o in scene.objs])
+            for o in scene.objs:
+                o["tar_id"] = ch_map[int(o["tar_id"])]
+        generate_poses_demo(scene.objs, args)
+        savedir = os.path.join(ldir, f"mani_demo_{iteration:06d}")
+        os.makedirs(savedir, exist_ok=True)
+        manipulator_demo(cfg, params, scene.hwk, load_mani_demo_poses(args), savedir,
+                         scene.ins_rgbs, scene.objs, scene.view_poses, scene.ins_map, args,
+                         color_dict=_color_dict(args), device=device)
+        print("Manipulating Demo Done", savedir)
         return savedir
     return None
 

@@ -26,15 +26,20 @@ from dmnerf_torch.utils.png import write_png
 from dmnerf_tpu.utils.viz import render_gt_label2img, render_label2img, to8b
 
 
+def no_lpips(args) -> None:
+    """LPIPS is not ported: its column is NaN, and --lpips_weights raises."""
+    if getattr(args, "lpips_weights", None):
+        raise NotImplementedError("LPIPS is not ported yet (ROADMAP.md queue 1, "
+                                  "item 6); run without --lpips_weights")
+
+
 def render_test(render_im, params, render_poses, hwk, args,
                 gt_imgs=None, gt_labels=None, ins_rgbs=None,
                 savedir: Optional[str] = None, crop_mask=None,
                 color_dict: Optional[dict] = None):
     """Returns (mean_psnr, mean_ssim, mean_lpips, mean_ap[6]) and writes the
     artifacts. render_im comes from eval.renderer.make_image_renderer."""
-    if getattr(args, "lpips_weights", None):
-        raise NotImplementedError("LPIPS is not ported yet (ROADMAP.md queue 1, "
-                                  "item 6); run without --lpips_weights")
+    no_lpips(args)
     H, W, K = hwk
     psnrs, ssims, lpipses, aps = [], [], [], []
     full_map = {}

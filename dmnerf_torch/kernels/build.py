@@ -89,6 +89,8 @@ def load_render_field() -> ctypes.CDLL:
     lib.render_field_sigma.restype = i
     lib.render_field_all.argtypes = [p, p, p, p, i, i, p, p, p, i, p, p, p, p]
     lib.render_field_all.restype = i
+    lib.render_field_ins.argtypes = [p, p, p, i, i, p, p, p, i, p, p]
+    lib.render_field_ins.restype = i
     lib.render_field_error_string.argtypes = [i]
     lib.render_field_error_string.restype = ctypes.c_char_p
     return lib

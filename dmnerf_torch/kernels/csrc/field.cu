@@ -227,8 +227,8 @@ field_forward_kernel(const float* __restrict__ pts, const float* __restrict__ vd
     const int nv = min(TP, P - p0);
     const int tid = threadIdx.x;
 
-    bf16* h = tile_forward<true>(pts + (size_t)p0 * 3, nv, vdirs, p0, ppd, w, b, m, bufA, bufB,
-                                 bufC, bufC, LDA, scratch, NoSave{});
+    bf16* h = tile_forward<H_ALL>(pts + (size_t)p0 * 3, nv, vdirs, p0, ppd, w, b, m, bufA, bufB,
+                                  bufC, bufC, LDA, scratch, NoSave{});
     // raw = [rgb_h, ins_h, h] @ Wout + bo: rgb 0:3, sigma 3, ins 4:C
     float* stage = reinterpret_cast<float*>(h == bufA ? bufB : bufA);
     matmul(bufC, LDA, W, h, LDA, W, w + m.off_out, CP, StoreF32{stage, CP});
@@ -267,8 +267,8 @@ field_bwd_tile_kernel(const float* __restrict__ pts, const float* __restrict__ v
     bf16* yrow = dys + (size_t)p0 * DYW;
 
     // ---- forward, saving every activation to act ----------------------------
-    tile_forward<true>(pts + (size_t)p0 * 3, nv, vdirs, p0, ppd, w, b, m, bufA, bufB, bufC,
-                       bufC, LDA, scratch, SaveAct{arow, ACT, L});
+    tile_forward<H_ALL>(pts + (size_t)p0 * 3, nv, vdirs, p0, ppd, w, b, m, bufA, bufB, bufC,
+                        bufC, LDA, scratch, SaveAct{arow, ACT, L});
 
     // ---- backward ---------------------------------------------------------
     // gb = bf16(g) [TP, CP] in bufC (ld LDG) and in dys

@@ -1,4 +1,4 @@
-// Device code shared by the field kernels (render_field.cu: K3/K4;
+// Device code shared by the field kernels (render_field.cu: K3/K4/K5;
 // field.cu: K1/K2): the packed-weight layout, the in-kernel positional
 // encoding, the bf16 wmma matmul core with its epilogues, and the forward of
 // one tile through the trunk and the heads (tile_forward).
@@ -133,16 +133,22 @@ struct StoreF32 {
     }
 };
 
+// Which heads tile_forward runs after the trunk: none (K4: sigma only), all
+// (K1, K2, K3) or the instance branch alone (K5: no view encoding, no rgb
+// branch).
+enum Heads { H_NONE, H_ALL, H_INS };
+
 // The field forward of one tile of TP rows, nv of them points (_fwd_body up
 // to the output layer): row r is the point p_tile[3r:3r+3] and looks along
-// vdirs[3 * ((row0 + r) / ppd)]. bufA, bufB and bufC are [TP, W+PAD] bf16;
-// xenc (ld ldx) takes the position encoding and may be bufC, which nothing
-// else uses until the trunk (whose last reader of xenc is layer skip+1) is
-// done. Returns the buffer holding the trunk output h; the other of
-// bufA/bufB is free. With HEADS, bufC[:, 0:W] then holds the hidden pair
-// [rgb_h | ins_h] (the view encoding passes through bufC[:, W/2:W/2+DP]).
-// Every bf16 activation is also handed to save.
-template <bool HEADS, class Save>
+// vdirs[3 * ((row0 + r) / ppd)] (read with H_ALL only). bufA, bufB and bufC
+// are [TP, W+PAD] bf16; xenc (ld ldx) takes the position encoding and may be
+// bufC, which nothing else uses until the trunk (whose last reader of xenc is
+// layer skip+1) is done. Returns the buffer holding the trunk output h; the
+// other of bufA/bufB is free. With H_ALL, bufC[:, 0:W] then holds the hidden
+// pair [rgb_h | ins_h] (the view encoding passes through
+// bufC[:, W/2:W/2+DP]); with H_INS, bufC[:, W/2:W] holds ins_h and
+// bufC[:, 0:W/2] is not written. Every bf16 activation is also handed to save.
+template <Heads HEADS, class Save>
 __device__ __forceinline__ bf16* tile_forward(const float* p_tile, int nv, const float* vdirs,
                                               int row0, int ppd, const bf16* w, const float* b,
                                               const Meta& m, bf16* bufA, bf16* bufB,
@@ -176,27 +182,30 @@ __device__ __forceinline__ bf16* tile_forward(const float* p_tile, int nv, const
         __syncthreads();
         bf16* t = h; h = spare; spare = t;
     }
-    if (!HEADS) return h;
+    if (HEADS == H_NONE) return h;
 
-    // view encoding per row, in bufC's right half until rgb_h has read it
-    const int cd = save.col(A_ENCD, 0);
-    for (int i = tid; i < TP * DP; i += NTHREADS) {
-        const int r = i / DP, j = i % DP;
-        const float v = (r < nv && j < view_ch)
-            ? pe_channel(vdirs + (size_t)((row0 + r) / ppd) * 3, j) : 0.0f;
-        const bf16 o = __float2bfloat16_rn(v);
-        bufC[r * LDA + HW + j] = o;
-        save.put(r, cd + j, o);
+    if (HEADS == H_ALL) {
+        // view encoding per row, in bufC's right half until rgb_h has read it
+        const int cd = save.col(A_ENCD, 0);
+        for (int i = tid; i < TP * DP; i += NTHREADS) {
+            const int r = i / DP, j = i % DP;
+            const float v = (r < nv && j < view_ch)
+                ? pe_channel(vdirs + (size_t)((row0 + r) / ppd) * 3, j) : 0.0f;
+            const bf16 o = __float2bfloat16_rn(v);
+            bufC[r * LDA + HW + j] = o;
+            save.put(r, cd + j, o);
+        }
+        // rgb_f = h @ Wrgbf + b (bf16, no activation) -> spare
+        matmul(h, LDA, W, nullptr, 0, 0, w + m.off_rgbf, W,
+               StoreBf16<Save>{b + m.boff_rgbf, spare, LDA, false, scratch, save,
+                               save.col(A_RGBF, 0)});
+        __syncthreads();
+        // rgb_h = relu([rgb_f, enc_d] @ Wrh + b) -> bufC[:, 0:W/2]
+        matmul(spare, LDA, W, bufC + HW, LDA, DP, w + m.off_rh, HW,
+               StoreBf16<Save>{b + m.boff_rh, bufC, LDA, true, scratch, save,
+                               save.col(A_HH, 0)});
+        __syncthreads();
     }
-    // rgb_f = h @ Wrgbf + b (bf16, no activation) -> spare
-    matmul(h, LDA, W, nullptr, 0, 0, w + m.off_rgbf, W,
-           StoreBf16<Save>{b + m.boff_rgbf, spare, LDA, false, scratch, save,
-                           save.col(A_RGBF, 0)});
-    __syncthreads();
-    // rgb_h = relu([rgb_f, enc_d] @ Wrh + b) -> bufC[:, 0:W/2]
-    matmul(spare, LDA, W, bufC + HW, LDA, DP, w + m.off_rh, HW,
-           StoreBf16<Save>{b + m.boff_rh, bufC, LDA, true, scratch, save, save.col(A_HH, 0)});
-    __syncthreads();
     // ins_f = h @ Winsf + b -> spare
     matmul(h, LDA, W, nullptr, 0, 0, w + m.off_insf, W,
            StoreBf16<Save>{b + m.boff_insf, spare, LDA, false, scratch, save,

@@ -1,6 +1,7 @@
-"""Fused field + composite for the eval render path: CUDA kernels K3 and K4.
+"""Fused field + composite for the eval render and edit paths: CUDA kernels
+K3, K4 and K5.
 
-Port of dmnerf_tpu/ops/pallas/render_field.py. Two kernels in
+Port of dmnerf_tpu/ops/pallas/render_field.py. Three kernels in
 csrc/render_field.cu replace the TPU kernel `_composite_kernel`:
 
 - render_field_sigma (K4, heads="sigma"): trunk + density head, then the
@@ -9,16 +10,19 @@ csrc/render_field.cu replace the TPU kernel `_composite_kernel`:
 - render_field_all (K3, heads="all"): the whole field, then per ray rgb [R,3],
   depth [R] and instance logits [R,K+1]. The raw [R,S,C] tensor never reaches
   device memory.
+- render_field_ins (K5, heads="ins"): trunk, density and the instance branch
+  (no view directions, no rgb branch), then per ray the instance logits
+  [R,K+1]. The edit path's accumulated-label passes composite nothing else.
 
 Beside each kernel is its plain PyTorch version (render_field_sigma_ref /
-render_field_all_ref): the field module plus core/rendering's compositing,
-with bf16 operands upcast to fp32 for every matmul, so the products are exact
-and only the order of summation differs from the kernel. A wrapper takes the
-plain version for CPU tensors only; for a CUDA tensor it launches the kernel or
-raises. LAUNCHES counts the launches of each kernel.
+render_field_all_ref / render_field_ins_ref): the field module plus
+core/rendering's compositing, with bf16 operands upcast to fp32 for every
+matmul, so the products are exact and only the order of summation differs
+from the kernel. A wrapper takes the plain version for CPU tensors only; for
+a CUDA tensor it launches the kernel or raises. LAUNCHES counts the launches
+of each kernel.
 
 Only bf16 (the deployed precision) has a kernel; precision f32 on CUDA raises.
-heads="ins" (K5, the edit path) is not ported yet.
 """
 
 from __future__ import annotations
@@ -34,7 +38,8 @@ from dmnerf_torch.core.sampling import sample_pdf
 from dmnerf_torch.models.fields import DMNeRFField, FieldConfig
 
 # launches of each kernel since the last reset (the CPU plain path adds none)
-LAUNCHES: Dict[str, int] = {"render_field_sigma": 0, "render_field_all": 0}
+LAUNCHES: Dict[str, int] = {"render_field_sigma": 0, "render_field_all": 0,
+                            "render_field_ins": 0}
 
 MAX_DEPTH = 16          # trunk layers the kernel's Meta block describes
 _ALIGN = 128            # bf16 elements between packed matrices (256 bytes)
@@ -157,6 +162,14 @@ def render_field_all_ref(field: DMNeRFField, pts: torch.Tensor, viewdirs: torch.
     return out.rgb, out.depth, out.ins_logits
 
 
+def render_field_ins_ref(field: DMNeRFField, pts: torch.Tensor, z: torch.Tensor,
+                         rays_d: torch.Tensor) -> torch.Tensor:
+    """ins_logits [R,K+1] from pts [R,S,3], z [R,S], rays_d [R,3]."""
+    sigma, ins = field.instance(pts)
+    weights = alpha_weights(sigma[..., 0], sample_dists(z, rays_d))
+    return torch.sum(weights[..., None] * ins, dim=-2)
+
+
 # ---- kernel wrappers ----------------------------------------------------------
 
 def _check(packed: PackedField, pts, z, rays_d, viewdirs=None):
@@ -254,17 +267,38 @@ def render_field_all(params: Params, pts: torch.Tensor, viewdirs: torch.Tensor,
     return rgb, depth, ins
 
 
+def render_field_ins(params: Params, pts: torch.Tensor, z: torch.Tensor,
+                     rays_d: torch.Tensor) -> torch.Tensor:
+    """K5: instance logits [R,K+1] (heads="ins")."""
+    if _device_kind(pts) == "cpu":
+        return render_field_ins_ref(_as_field(params), pts, z, rays_d)
+    from dmnerf_torch.kernels.build import load_render_field
+    packed = params if isinstance(params, PackedField) else pack_field(params)
+    _check(packed, pts, z, rays_d)
+    R, S = z.shape
+    dists = sample_dists(z, rays_d).contiguous()
+    ins = torch.empty((R, packed.field.cfg.ins_num + 1), dtype=torch.float32,
+                      device=pts.device)
+    lib = load_render_field()
+    rc = lib.render_field_ins(
+        pts.data_ptr(), z.data_ptr(), dists.data_ptr(), R, S,
+        packed.w.data_ptr(), packed.b.data_ptr(), packed.meta.ctypes.data,
+        len(packed.meta), ins.data_ptr(),
+        torch.cuda.current_stream(pts.device).cuda_stream)
+    _raise_on(rc, lib, "render_field_ins")
+    LAUNCHES["render_field_ins"] += 1
+    return ins
+
+
 # ---- the JAX package's entry points -------------------------------------------
 
 def make_render_field(cfg: FieldConfig, heads: str = "all"):
     """heads="all":   rf(params, pts [R,S,3], viewdirs [R,1,3], z [R,S],
                          rays_d [R,3]) -> (rgb [R,3], depth [R], ins_logits [R,K+1])
     heads="sigma": rf(params, pts, z, rays_d) -> weights [R,S]
+    heads="ins":   rf(params, pts, z, rays_d) -> ins_logits [R,K+1]
     params: a DMNeRFField built with `cfg`, or its PackedField."""
-    if heads == "ins":
-        raise NotImplementedError("heads='ins' is kernel K5 (the edit path), still "
-                                  "to be ported: ROADMAP.md queue 2")
-    if heads not in ("all", "sigma"):
+    if heads not in ("all", "sigma", "ins"):
         raise ValueError(f"unknown heads {heads!r}")
 
     def checked(params):
@@ -274,6 +308,9 @@ def make_render_field(cfg: FieldConfig, heads: str = "all"):
 
     if heads == "sigma":
         return lambda params, pts, z, rays_d: render_field_sigma(
+            checked(params), pts, z, rays_d)
+    if heads == "ins":
+        return lambda params, pts, z, rays_d: render_field_ins(
             checked(params), pts, z, rays_d)
     return lambda params, pts, viewdirs, z, rays_d: render_field_all(
         checked(params), pts, viewdirs, z, rays_d)

@@ -115,6 +115,18 @@ class DMNeRFField(nn.Module):
         return _dot(self._trunk(pts), self.density_linear, dt).to(
             torch.promote_types(torch.float32, dt))
 
+    def instance(self, pts: torch.Tensor):
+        """Trunk, density and instance heads only (no view directions, no rgb
+        branch): pts [..., 3] -> (raw sigma [..., 1], instance logits
+        [..., ins_num + 1]), equal to forward's columns 3: for any viewdirs."""
+        dt = self.cfg.compute_dtype
+        acc = torch.promote_types(torch.float32, dt)
+        h = self._trunk(pts)
+        ins_f = _dot(h, self.ins_feature_linear, dt, out_dtype=dt)
+        ins_f = torch.relu(_dot(ins_f, self.ins_feature_linears[0], dt, out_dtype=dt))
+        return (_dot(h, self.density_linear, dt).to(acc),
+                _dot(ins_f, self.ins_linear, dt).to(acc))
+
     def forward(self, pts: torch.Tensor, viewdirs: torch.Tensor) -> torch.Tensor:
         """pts [..., 3], viewdirs [..., 3] broadcastable to pts ->
         raw [..., 4 + ins_num + 1] fp32 (apply_field)."""

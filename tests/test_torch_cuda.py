@@ -1,5 +1,6 @@
 """The port's CUDA kernels on an NVIDIA card against their plain versions:
-the render kernels K3/K4 and the training kernels K1/K2.
+the render kernels K3/K4, the edit kernel K5 and the training kernels K1/K2,
+and the edit path's launches of K1 and K5.
 
 Imports no jax, so the machine with the card runs it without the JAX package's
 conftest:  python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -30,7 +31,7 @@ def _rays(R, S, seed=3):
 @pytest.mark.cuda
 @pytest.mark.parametrize("width,ins_num,S", [(64, 11, 100), (256, 32, 192)])
 def test_kernels_match_plain_versions_on_the_card(width, ins_num, S):
-    """Both kernels vs their plain versions on the same card: bf16 operands
+    """K4, K3 and K5 vs their plain versions on the same card: bf16 operands
     and fp32 accumulation both ways (TF32 off), so only the summation order
     differs, which can flip a stored bf16 activation by one ulp (2^-8
     relative). Bound: 2e-2 abs per ray on any output (weights and rgb in
@@ -51,9 +52,12 @@ def test_kernels_match_plain_versions_on_the_card(width, ins_num, S):
                   krf.render_field_sigma_ref(field, pts, z, rd))]
         pairs += list(zip(krf.render_field_all(field, pts, vd, z, rd),
                           krf.render_field_all_ref(field, pts, vd, z, rd)))
+        pairs.append((krf.render_field_ins(field, pts, z, rd),
+                      krf.render_field_ins_ref(field, pts, z, rd)))
         step = field.density(pts[:, -1])[..., 0].abs() < 0.05
     torch.cuda.synchronize()
-    assert krf.LAUNCHES == {"render_field_sigma": 1, "render_field_all": 1}
+    assert krf.LAUNCHES == {"render_field_sigma": 1, "render_field_all": 1,
+                            "render_field_ins": 1}
     for got, want in pairs:
         assert got.shape == want.shape and torch.isfinite(got).all()
         err = (got - want).abs()
@@ -72,6 +76,8 @@ def test_f32_precision_has_no_kernel():
     pts, vd, z, rd = _rays(4, 8)
     with pytest.raises(NotImplementedError):
         krf.render_field_sigma(field, pts, z, rd)
+    with pytest.raises(NotImplementedError):
+        krf.render_field_ins(field, pts, z, rd)
     with pytest.raises(NotImplementedError):
         kf.field_forward(field, pts, vd)
 
@@ -158,3 +164,38 @@ def test_train_steps_run_through_the_kernels():
         assert kf.LAUNCHES == {"field_forward": 6, "field_backward": 6}
         runs.append([p.detach().clone() for p in state.opt.param_groups[0]["params"]])
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+def test_edit_launches_k1_and_k5_per_chunk():
+    """A 2-object edit (rigid + deform) of a 12x12 image in chunks of 64 rays
+    (3 chunks, the last one padded) through the kernels: per chunk
+    2 * (1 + n_obj) launches of K1 and 1 + n_obj of K5, and none of K3 or
+    K4; finite rgb and labels in [0, K]."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from dmnerf_torch.edit.manipulator import make_pose_image_manipulator
+    from dmnerf_tpu.config import default_config
+    from dmnerf_tpu.data.synthetic import make_scene
+
+    scene = make_scene(H=12, W=12, n_train=1, n_test=1)
+    args = default_config(N_test=64, N_samples=16, N_importance=32, near=1.0, far=12.0)
+    cfg = FieldConfig(netdepth=8, netwidth=64, multires=10, multires_views=4,
+                      ins_num=scene.ins_num)
+    g = torch.Generator().manual_seed(5)
+    params = {k: init_field_params(g, cfg, device="cuda") for k in ("coarse", "fine")}
+    objs = [{"mode": "rigid"}, {"mode": "deform", "deform_func": "sin"}]
+    run = make_pose_image_manipulator(cfg, params, args, objs, [1, 2], 12, 12, scene.K,
+                                      device="cuda", use_pallas=True)
+    ori = np.asarray(scene.poses[0], np.float64)
+    trans = np.eye(4)
+    trans[:3, 3] = [0.3, 0.0, 0.0]
+    kf.reset_launches()
+    krf.reset_launches()
+    rgb, label, _, conf = run(ori, np.stack([trans @ ori, ori]), np.array([0.0, 0.5]))
+    torch.cuda.synchronize()
+    assert kf.LAUNCHES["field_forward"] == 3 * 2 * 3
+    assert krf.LAUNCHES == {"render_field_sigma": 0, "render_field_all": 0,
+                            "render_field_ins": 3 * 3}
+    assert rgb.shape == (192, 3) and torch.isfinite(rgb).all() and torch.isfinite(conf).all()
+    assert int(label.min()) >= 0 and int(label.max()) <= scene.ins_num

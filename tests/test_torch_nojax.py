@@ -1,5 +1,5 @@
-"""The port imports neither jax, orbax nor imageio: `import dmnerf_torch` and
-a tiny CPU render through its CLI, in a fresh interpreter."""
+"""The port imports neither jax, orbax nor imageio: `import dmnerf_torch`, its
+edit modules and a tiny CPU render through its CLI, in a fresh interpreter."""
 
 import json
 import os
@@ -16,6 +16,8 @@ def test_import_and_cli_render_load_no_jax(tmp_path):
         import torch
         import dmnerf_torch
         import dmnerf_torch.cli.test as cli
+        import dmnerf_torch.edit.manipulator
+        import dmnerf_torch.edit.runner
         from dmnerf_torch.models.convert import save_tar
         from dmnerf_torch.models.fields import FieldConfig, init_field_params
 

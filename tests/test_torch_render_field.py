@@ -159,7 +159,10 @@ def test_cpu_wrappers_take_the_plain_version_without_launching():
             for a, b in zip(krf.render_field_all(p, pts, vd, z, rd),
                             krf.render_field_all_ref(field, pts, vd, z, rd)):
                 torch.testing.assert_close(a, b)
-    assert krf.LAUNCHES == {"render_field_sigma": 0, "render_field_all": 0}
+            torch.testing.assert_close(krf.render_field_ins(p, pts, z, rd),
+                                       krf.render_field_ins_ref(field, pts, z, rd))
+    assert krf.LAUNCHES == {"render_field_sigma": 0, "render_field_all": 0,
+                            "render_field_ins": 0}
 
 
 def test_wrapper_validation_rejects_what_the_kernel_does_not_take():
@@ -180,7 +183,15 @@ def test_wrapper_validation_rejects_what_the_kernel_does_not_take():
         krf._check(packed, pts, z, rd, vd[:, 0])
     with pytest.raises(ValueError):
         krf.render_field_sigma(packed, pts.to("meta"), z, rd)
-    with pytest.raises(NotImplementedError):
-        krf.make_render_field(field.cfg, heads="ins")
+    with pytest.raises(ValueError):
+        krf.render_field_ins(packed, pts.to("meta"), z, rd)
+    with pytest.raises(ValueError):
+        krf.make_render_field(field.cfg, heads="rgb")
     with pytest.raises(ValueError):
         krf.make_render_field(f32_field.cfg, heads="sigma")(field, pts, z, rd)
+    # K5 takes no view directions, and only bf16 has a kernel
+    rf_ins = krf.make_render_field(field.cfg, heads="ins")
+    with pytest.raises(TypeError):
+        rf_ins(field, pts, vd, z, rd)
+    with pytest.raises(ValueError):
+        krf.make_render_field(f32_field.cfg, heads="ins")(field, pts, z, rd)
