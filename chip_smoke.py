@@ -27,7 +27,12 @@ Phases (each fails the run by raising; nothing is caught):
    the check rejects raw with the rgb bias off by 10%), relative L2 error of
    every parameter's gradient, K2 bit-identical across two launches, an
    instance-logit loss giving the trunk exactly zero gradient, and the median
-   time of each kernel and its plain version (K1; K2; both).
+   time of each kernel and its plain version (K1; K2; both); the rate that
+   torch.matmul reaches at [589,824 x 256] @ [256 x 256] bf16, as a
+   reference for this width (the port never calls it). 6b: K1 and K2 timed
+   through builds of their core with the weight slab loads, the per-slab
+   barrier, or both taken out, and on a 4 x 4 warp grid (built in parallel
+   since phase 2; timing only, the first three are wrong by design).
 7. the training slice through its entry point: dmnerf_torch.cli.train on
    boxroom128x8 at flagship width (N_train 3072, 64+128 samples, penalizer,
    bf16) for 30 steps with one in-train eval; every printed loss finite, K1
@@ -58,8 +63,11 @@ Phases (each fails the run by raising; nothing is caught):
    128x128 view into K1, K5, sample_pdf, the sorts, the exchanger, the
    composites and the rest (CUDA events); and the chunk over {1024, 2048,
    4096, 8192} at 128x128 with its peak device memory.
-The line before the last is a JSON object with one entry per kernel; the last
-line is {"ok": true, "device": {...}}.
+Phases 3, 6 and 9 also print each kernel's bound (the larger of its
+operations over the bf16 tensor-core peak and its bytes over the memory
+rate), its TFLOP/s and its share of the bound. The line before the last is a
+JSON object with one entry per kernel; the last line is {"ok": true,
+"device": {...}}. The run fails if it loaded jax or the JAX package.
 """
 
 import json
@@ -124,6 +132,12 @@ EDIT_FRAC_TOL = 1e-1
 # with f64 in place of f32 accumulation differs from itself by 1.1e-2 at the
 # flagship width (CPU, 3700 points); an NVIDIA H100 (700 W) measured 1.2e-2-1.7e-2.
 GRAD_TOL = 3e-2
+# Published dense peaks of an H100 SXM at 700 W (NVIDIA's data sheet): the
+# least time a kernel could take is the larger of its operations over the bf16
+# tensor-core rate and its bytes (each input read once, each output written
+# once) over the memory rate.
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
 
 
 def check(name, out, got, want, sigma_last):
@@ -143,6 +157,87 @@ def check(name, out, got, want, sigma_last):
         raise AssertionError(f"{name} {out}: {int((off & ~step).sum())} rays off "
                              f"tolerance away from the step, {int(off.sum())} in all")
     return held
+
+
+def field_macs(cfg, part, need_x=False, need_d=False):
+    """Multiply-adds per point of the unpadded field layers that a kernel
+    computes: "sigma" (K4: trunk + density), "ins" (K5: trunk, density and the
+    instance branch), "all" (K1, K3: the whole field) or "backward" (K2: the
+    forward without its output layer, the activation gradients, the
+    encoding cotangents when asked, and one product per weight for dW)."""
+    D, W, HW, X, V = cfg.netdepth, cfg.netwidth, cfg.netwidth // 2, cfg.pos_ch, cfg.view_ch
+    K1 = cfg.ins_num + 1
+    trunk = X * W + (D - 1) * W * W + (X * W if cfg.skip + 1 < D else 0)
+    ins = W * W + W * HW + HW * K1
+    rgb = W * W + (W + V) * HW + HW * 3
+    if part == "sigma":
+        return trunk + W
+    if part == "ins":
+        return trunk + W + ins
+    total = trunk + W + ins + rgb
+    if part == "all":
+        return total
+    fwd = total - (HW * K1 + HW * 3 + W)                   # no output layer
+    dx = (HW * K1 + HW * 3) + W * HW + W * HW + W + W * W + (D - 1) * W * W
+    dx += (X * W * (2 if cfg.skip + 1 < D else 1) if need_x else 0) + (V * HW if need_d else 0)
+    return fwd + dx + total
+
+
+def roofline(entry, macs, nbytes):
+    """Adds the bound (ms, and whether operations or bytes set it), the
+    achieved TFLOP/s and the library yardstick (none) to a kernels entry."""
+    t_ops, t_bytes = 2.0 * macs / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    entry.update(bound_ms=max(t_ops, t_bytes),
+                 bound_by="operations" if t_ops >= t_bytes else "bytes",
+                 tflops=2.0 * macs / (entry["ms"] * 1e-3) / 1e12, library_ms=None)
+    print(f"{entry['name']}: bound {entry['bound_ms']:.3f} ms ({entry['bound_by']}; "
+          f"{2.0 * macs / 1e12:.4f} TFLOP, {nbytes / 1e6:.1f} MB), {entry['tflops']:.1f} "
+          f"TFLOP/s, {100 * entry['bound_ms'] / entry['ms']:.1f}% of the bound; no single "
+          "PyTorch call computes it")
+    return entry
+
+
+def weight_bytes(packed):
+    return packed.w.numel() * packed.w.element_size() + packed.b.numel() * 4
+
+
+# Timing-only builds of the K1/K2 core with one part taken out (their outputs
+# are wrong by design and are not checked), and with the 4 x 4 warp grid in
+# place of 2 x 8: where the kernels' time goes, and what the grid gives.
+ABLATIONS = {
+    "weight slab loads out": [(
+        "            if (!s.trans) {            // rows r0+k0 .. +ks, every column",
+        "            if (t > STAGES) {} else if (!s.trans) {            // rows r0+k0 .. +ks, every column")],
+    "per-slab barrier out": [(
+        "        cp_async_wait<STAGES - 2>();\n        __syncthreads();",
+        "        cp_async_wait<STAGES - 2>();")],
+}
+ABLATIONS["loads and barrier out"] = ABLATIONS["weight slab loads out"] + ABLATIONS["per-slab barrier out"]
+ABLATIONS["4 x 4 warp grid"] = [("constexpr int WM = 2, WN = 8;", "constexpr int WM = 4, WN = 4;")]
+
+
+def start_ablation_builds():
+    """One nvcc per ABLATIONS entry, started now (they build while the real
+    kernels are checked): {name: (library path, process)}."""
+    import shutil
+    from dmnerf_torch.kernels import build
+    root = os.path.join(REPO, "build", "ablation")
+    shutil.rmtree(root, ignore_errors=True)
+    out = {}
+    for i, (name, patches) in enumerate(ABLATIONS.items()):
+        d = os.path.join(root, str(i))
+        shutil.copytree(build.CSRC, d)
+        core = open(os.path.join(d, "field_core.cuh")).read()
+        for old, new in patches:
+            if old not in core:
+                raise AssertionError(f"ablation {name!r}: field_core.cuh has no {old!r}")
+            core = core.replace(old, new)
+        open(os.path.join(d, "field_core.cuh"), "w").write(core)
+        so = os.path.join(d, "libfield.so")
+        out[name] = (so, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", so, os.path.join(d, "field.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return out
 
 
 def phase(name):
@@ -211,6 +306,7 @@ def main():
     print(f"build wall time {time.perf_counter() - t0:.1f} s (one nvcc per source, in parallel)")
     build.load_render_field()
     build.load_field()
+    ablation_builds = start_ablation_builds()
 
     phase("3 kernels vs plain versions (flagship 8x256, K=32, bf16, 4096 rays)")
     cfg = FieldConfig(**FLAGSHIP, ins_num=32)
@@ -256,10 +352,16 @@ def main():
             ms, plain_ms = min(k1, k2), min(p1, p2)
             print(f"{name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
                   f"(median of 10; R=4096, S={z_c.shape[1] if 'sigma' in name else 192}; {card})")
-            kernels.append({"name": name, "route": "cuda", "source": SRC,
-                            "replaces": REPLACES, "heads": name.split("_")[-1],
-                            "launches": 0, "max_abs_err": worst,
-                            "ms": ms, "plain_ms": plain_ms})
+            S_k = z_c.shape[1] if "sigma" in name else z_f.shape[1]
+            # in: points, z and dists per sample (+ view directions per ray);
+            # out: weights per sample (K4) or rgb, depth, logits per ray (K3)
+            nbytes = R * S_k * (12 + 4 + 4) + weight_bytes(pf) + (
+                R * S_k * 4 if "sigma" in name else R * (12 + (3 + 1 + cfg.ins_num + 1) * 4))
+            kernels.append(roofline(
+                {"name": name, "route": "cuda", "source": SRC, "replaces": REPLACES,
+                 "heads": name.split("_")[-1], "launches": 0, "max_abs_err": worst,
+                 "ms": ms, "plain_ms": plain_ms},
+                field_macs(cfg, name.split("_")[-1]) * R * S_k, nbytes))
 
     phase("4 slice: dmnerf_torch.cli.test --render (boxroom128x8, flagship, bf16)")
     from dmnerf_torch.cli import test as cli
@@ -332,7 +434,7 @@ def main():
     print(f"render: {n * 128 * 128 / secs:.1f} rays/s, {secs / n * 1e3:.2f} ms/view "
           f"({n} views; {card})")
 
-    kernels += field_kernels_vs_plain(dev, card)
+    kernels += field_kernels_vs_plain(dev, card, ablation_builds)
     train_launches = train_slice(dev)
     for k in kernels:
         if k["name"] in train_launches:
@@ -343,8 +445,9 @@ def main():
     kernels[-1]["launches"] = edit_slice(dev)["render_field_ins"]
     edit_throughput(dev, card, cfg, {"coarse": coarse, "fine": fine})
 
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "dmnerf_tpu"))
+    if loaded:
+        raise AssertionError(f"the port loaded the JAX package or jax: {loaded}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -372,8 +475,9 @@ def grad_errors(field, packed, got, want):
     return rel, max(float((a - b).abs().max()) for _, a, b in pairs)
 
 
-def field_kernels_vs_plain(dev, card):
-    """Phase 6: K1 and K2 vs their plain versions at the train step's shapes."""
+def field_kernels_vs_plain(dev, card, ablation_builds):
+    """Phase 6: K1 and K2 vs their plain versions at the train step's shapes;
+    then the timing-only builds of ABLATIONS beside the real kernels."""
     from dmnerf_torch.kernels import field as kf
     from dmnerf_torch.kernels.render_field import pack_field
     from dmnerf_torch.models.fields import FieldConfig, init_field_params
@@ -478,12 +582,55 @@ def field_kernels_vs_plain(dev, card):
           f"{ms2:.3f} ms, plain {plain2:.3f} ms (P=589824; {card})")
     print(f"K1+K2 forward+backward: kernels {ms12:.3f} ms, plain {plain12:.3f} ms "
           f"(P=589824; {card})")
-    return [{"name": "field_forward", "route": "cuda", "source": FIELD_SRC,
-             "replaces": K1_REPLACES, "launches": 0, "max_abs_err": worst_raw,
-             "ms": ms1, "plain_ms": plain1},
-            {"name": "field_backward", "route": "cuda", "source": FIELD_SRC,
-             "replaces": K2_REPLACES, "launches": 0, "max_abs_err": worst_grad,
-             "ms": ms2, "plain_ms": plain2}]
+
+    # what a plain bf16 matmul at this width reaches on the card: a reference
+    # for the field kernels' rate (the port never calls it)
+    x = torch.randn(pf.shape[0], cfg.netwidth, device=dev, dtype=torch.bfloat16)
+    wm = torch.randn(cfg.netwidth, cfg.netwidth, device=dev, dtype=torch.bfloat16)
+    mm_ms = cuda_ms(lambda: torch.matmul(x, wm))
+    print(f"torch.matmul [{x.shape[0]} x {cfg.netwidth}] @ [{cfg.netwidth} x {cfg.netwidth}] "
+          f"bf16: {mm_ms:.3f} ms, {2 * x.shape[0] * cfg.netwidth ** 2 / mm_ms / 1e9:.1f} "
+          f"TFLOP/s (median of 10; {card})")
+
+    ablation_times(ablation_builds, fwd_k, bwd_k, card)
+
+    P, C, w_bytes = pf.shape[0], cfg.ins_num + 5, weight_bytes(packed)
+    # K1 in: points, a direction per ray, the weights; out: raw fp32
+    k1 = roofline({"name": "field_forward", "route": "cuda", "source": FIELD_SRC,
+                   "replaces": K1_REPLACES, "launches": 0, "max_abs_err": worst_raw,
+                   "ms": ms1, "plain_ms": plain1},
+                  field_macs(cfg, "all") * P, P * 12 + dirs.shape[0] * 12 + w_bytes + P * C * 4)
+    # K2 in: points, directions, the cotangent g, the weights; out: dW, db fp32
+    k2 = roofline({"name": "field_backward", "route": "cuda", "source": FIELD_SRC,
+                   "replaces": K2_REPLACES, "launches": 0, "max_abs_err": worst_grad,
+                   "ms": ms2, "plain_ms": plain2},
+                  field_macs(cfg, "backward") * P,
+                  P * 12 + dirs.shape[0] * 12 + P * C * 4 + w_bytes + 2 * w_bytes)
+    return [k1, k2]
+
+
+def ablation_times(builds, fwd_k, bwd_k, card):
+    """Phase 6b: K1 and K2 at P=589,824 through each ABLATIONS build, between
+    two timings of the real build, in one stretch of the run."""
+    from dmnerf_torch.kernels import build
+
+    phase("6b where K1/K2's time goes: the core with a part taken out, or on a 4 x 4 warp "
+          "grid (timing only)")
+    real = build.load_field
+    rows = [("real kernels", cuda_ms(fwd_k), cuda_ms(bwd_k, 5))]
+    try:
+        for name, (so, proc) in builds.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise AssertionError(f"ablation build {name!r} failed:\n{log}")
+            lib = build.bind_field(so)
+            build.load_field = lambda lib=lib: lib
+            rows.append((name, cuda_ms(fwd_k), cuda_ms(bwd_k, 5)))
+    finally:
+        build.load_field = real
+    rows.append(("real kernels, again", cuda_ms(fwd_k), cuda_ms(bwd_k, 5)))
+    for name, ms1, ms2 in rows:
+        print(f"  {name}: K1 {ms1:.3f} ms, K2 {ms2:.3f} ms (P=589824; {card})")
 
 
 def train_cfg(tmp, name, n_iters, extra=()):
@@ -702,9 +849,12 @@ def ins_kernel_vs_plain(fine, packed, pts, vd, z, rd, card):
     ms, k3_ms, plain_ms = min(a1, a2), min(b1, b2), min(p1, p2)
     print(f"render_field_ins: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, K3 at the same "
           f"shape {k3_ms:.3f} ms (K5/K3 {ms / k3_ms:.3f}; median of 10; R={R}, S={S}; {card})")
-    return {"name": "render_field_ins", "route": "cuda", "source": SRC, "replaces": REPLACES,
-            "heads": "ins", "launches": 0, "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms}
+    # in: points, z and dists per sample, the weights; out: logits per ray
+    nbytes = R * S * (12 + 4 + 4) + weight_bytes(packed) + R * (fine.cfg.ins_num + 1) * 4
+    return roofline({"name": "render_field_ins", "route": "cuda", "source": SRC,
+                     "replaces": REPLACES, "heads": "ins", "launches": 0, "max_abs_err": worst,
+                     "ms": ms, "plain_ms": plain_ms},
+                    field_macs(fine.cfg, "ins") * R * S, nbytes)
 
 
 def translation(dx):

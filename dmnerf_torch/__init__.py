@@ -9,12 +9,16 @@ The layout mirrors dmnerf_tpu/ so each module's counterpart is found by path:
             ctypes bindings and their plain PyTorch versions.
 - eval:     the chunked image renderer, PSNR/SSIM, instance AP and the
             render_test harness.
-- cli:      `python -m dmnerf_torch.cli.test --config ... --render`.
-- utils:    a stdlib PNG writer.
+- cli:      `python -m dmnerf_torch.cli.train` and `dmnerf_torch.cli.test`.
+- config, data, edit/transforms, edit/deform, utils/viz: copies of the JAX
+            package's host modules (numpy only), each naming its source on
+            its first line.
+- utils:    also a stdlib PNG writer.
 
-Host-side modules of dmnerf_tpu that import no jax are reused rather than
-copied: dmnerf_tpu.config, dmnerf_tpu.data.base, dmnerf_tpu.data.synthetic and
-dmnerf_tpu.utils.viz. Nothing here imports jax, orbax or imageio.
+The port imports nothing of dmnerf_tpu, not even a module there that imports
+no jax: what it needs of such a module is copied here. Nothing here imports
+jax or orbax; only the DM-SR, Replica and ScanNet readers (reached through
+data.base.load_dataset's dispatch) import imageio, h5py or cv2.
 """
 
 __version__ = "0.1.0"

@@ -2,7 +2,7 @@
 --render, --mani_eval or --mani_demo.
 
 Mirrors dmnerf_tpu/cli/test.py for those modes. Flags and config files are
-the JAX package's (dmnerf_tpu.config), plus --device (default cuda; a CUDA
+the JAX package's (copied into dmnerf_torch.config), plus --device (default cuda; a CUDA
 device that is not there is an error, never a silent move to the CPU). The
 weights come from {basedir}/{expname}/{log_time}/NNNNNN.tar in the reference
 DM-NeRF layout: the latest one, or the one --test_model names. A JAX orbax
@@ -21,12 +21,12 @@ import re
 
 import torch
 
+from dmnerf_torch.config import initial, log_dir
+from dmnerf_torch.data.base import dataset_name_from_dir, load_dataset
 from dmnerf_torch.eval.renderer import make_image_renderer
 from dmnerf_torch.eval.tester import render_test
 from dmnerf_torch.models.convert import load_tar
 from dmnerf_torch.models.fields import DMNeRFField, FieldConfig
-from dmnerf_tpu.config import initial, log_dir
-from dmnerf_tpu.data.base import dataset_name_from_dir, load_dataset
 
 _NOT_PORTED = {
     "mesh": "ROADMAP.md queue 1, item 8 (mesh)",
@@ -77,7 +77,7 @@ def resolve_device(name: str) -> torch.device:
 def _color_dict(args):
     """GT-label -> palette-index map for this scene from data/color_dict.json,
     or None for scenes it does not list (e.g. the synthetic fixture)."""
-    from dmnerf_tpu.utils.viz import load_color_dict
+    from dmnerf_torch.utils.viz import load_color_dict
     repo_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     for path in (os.path.join("data", "color_dict.json"),
                  os.path.join(repo_root, "data", "color_dict.json")):
@@ -104,7 +104,7 @@ def main(argv=None):
     args.perturb = 0.0
 
     if args.mani_eval:
-        from dmnerf_tpu.data.dmsr_mani import load_data as load_mani
+        from dmnerf_torch.data.dmsr_mani import load_data as load_mani
         scene = load_mani(args)
     else:
         scene = load_dataset(args)
@@ -132,7 +132,7 @@ def main(argv=None):
 
     if args.mani_eval:
         from dmnerf_torch.edit.runner import manipulator_eval, resolve_target_channel
-        from dmnerf_tpu.edit.transforms import generate_poses_eval, load_mani_poses
+        from dmnerf_torch.edit.transforms import generate_poses_eval, load_mani_poses
         if args.resolve_target_label:
             plain = load_dataset(args)      # the unedited scene: GT labels per view
             args.target_label = resolve_target_channel(cfg, params, args, plain,
@@ -149,7 +149,7 @@ def main(argv=None):
 
     if args.mani_demo:
         from dmnerf_torch.edit.runner import manipulator_demo, resolve_target_channel
-        from dmnerf_tpu.edit.transforms import generate_poses_demo, load_mani_demo_poses
+        from dmnerf_torch.edit.transforms import generate_poses_demo, load_mani_demo_poses
         if args.resolve_target_label:
             # objs_info tar_ids are GT labels here: resolve all of them to
             # channels in one Hungarian-matching pass

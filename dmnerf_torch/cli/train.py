@@ -1,7 +1,7 @@
 """Training CLI of the port: `python -m dmnerf_torch.cli.train --config ...`
 
 Mirrors dmnerf_tpu/cli/train.py: flags and config files are the JAX
-package's (dmnerf_tpu.config), the dataset follows --datadir and the pixel
+package's (copied into dmnerf_torch.config), the dataset follows --datadir and the pixel
 sampler (full vs 30%-labeled crop) follows the dataset. Adds --device
 (default cuda; a CUDA device that is not there is an error, never a silent
 move to the CPU). One device: multi-GPU is not ported yet (ROADMAP.md queue
@@ -16,8 +16,8 @@ import argparse
 import torch
 
 from dmnerf_torch.cli.test import resolve_device
-from dmnerf_tpu.config import initial
-from dmnerf_tpu.data.base import load_dataset
+from dmnerf_torch.config import initial
+from dmnerf_torch.data.base import load_dataset
 
 
 def load(argv=None):

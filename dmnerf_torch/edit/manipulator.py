@@ -34,7 +34,7 @@ from dmnerf_torch.core.rendering import composite
 from dmnerf_torch.core.sampling import sample_pdf, z_val_sample
 from dmnerf_torch.kernels.field import make_pallas_field
 from dmnerf_torch.kernels.render_field import make_render_field, pack_params
-from dmnerf_tpu.edit.deform import deform_curve
+from dmnerf_torch.edit.deform import deform_curve
 
 
 def _field_raw(field_fn, rays_o, rays_d, z_vals):

@@ -33,8 +33,8 @@ from dmnerf_torch.eval.metrics import psnr as psnr_fn, ssim as ssim_fn
 from dmnerf_torch.eval.renderer import _copy_to_host, _wait
 from dmnerf_torch.eval.tester import no_lpips
 from dmnerf_torch.utils.png import write_png
-from dmnerf_tpu.edit.deform import deform_scale
-from dmnerf_tpu.utils.viz import render_gt_label2img, render_label2img, to8b
+from dmnerf_torch.edit.deform import deform_scale
+from dmnerf_torch.utils.viz import render_gt_label2img, render_label2img, to8b
 
 
 def _prefetch_map(dispatch, items, n: int, device):

@@ -23,7 +23,7 @@ import numpy as np
 from dmnerf_torch.eval.instance_ap import ins_eval_from_labels
 from dmnerf_torch.eval.metrics import psnr as psnr_fn, ssim as ssim_fn
 from dmnerf_torch.utils.png import write_png
-from dmnerf_tpu.utils.viz import render_gt_label2img, render_label2img, to8b
+from dmnerf_torch.utils.viz import render_gt_label2img, render_label2img, to8b
 
 
 def no_lpips(args) -> None:

@@ -99,9 +99,15 @@ def load_render_field() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def load_field() -> ctypes.CDLL:
     """csrc/field.cu (K1, K2), built if needed, with its argument types set."""
-    so, _ = build("field")
+    return bind_field(build("field")[0])
+
+
+def bind_field(so) -> ctypes.CDLL:
+    """A library built from csrc/field.cu, with its argument types set."""
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
+    lib.field_tile_rows.argtypes = []
+    lib.field_tile_rows.restype = i
     lib.field_scratch_widths.argtypes = [p, i, p, p]
     lib.field_scratch_widths.restype = i
     lib.field_forward.argtypes = [p, p, i, i, p, p, p, i, p, p]

@@ -9,36 +9,54 @@
 // The math and its bf16 rounding are _fwd_body's and _bwd_kernel's; the
 // packed weights are kernels/render_field.py::pack_field's.
 //
-// What bounds them on the H100: a chain of small matmuls through a 9-layer
-// MLP, about 1.4 MFLOP per point forward and twice that backward for the
-// 8x256 field. The Pallas backward keeps every weight and one dW accumulator
-// in VMEM and relies on the TPU grid running in order; neither carries over.
+// What bounds them on the H100: operations. A chain of matmuls through a
+// 9-layer MLP, 1.39 MFLOP per point forward for the 8x256 field against 12
+// bytes in and 148 out; the backward is about 2.85 times the forward. The
+// Pallas kernels keep every weight in VMEM and K2's dW accumulator in
+// scratch across an in-order grid; neither carries over. On the card the
+// tensor-core products and the shared-memory traffic of their operand
+// fragments take most of the time, then the weight slabs' L2 reads and the
+// per-slab barrier (PERF.md §6 measures each by taking it out).
 //
-// What the design does about that:
-// - Tiles are 64 points of the flat point list (one block each), with the
-//   activations of the layer in flight in padded shared memory and the
-//   weights read from L2 straight into wmma fragments, as in
-//   render_field.cu. The forward of a tile is field_common.cuh's
-//   tile_forward, which K1, K2's recompute and K3/K4 all call. PE is
-//   computed in the kernel in the reference channel order with precise
-//   sinf/cosf.
-// - A tile's post-ReLU activations for all layers are ~370 KB of bf16, more
-//   than an SM's 228 KB of shared memory, so K2's per-tile pass
-//   (field_bwd_tile_kernel) writes each bf16 activation it recomputes to a
-//   scratch array `act` [P, ACT] in device memory and reads the ReLU masks
-//   back from it (the block's own writes, mostly still in L2). Its backward
-//   matmuls run against the transposed weights (col_major fragments of the
-//   same packed matrices) and write every bf16 activation gradient dy to a
-//   second scratch array `dys` [P, DYW].
+// What the design does about that (the core is field_core.cuh):
+// - Tiles of 128 points, one block of 16 warps each, on mma.sync m16n8k16
+//   bf16 tensor cores with fp32 accumulators in registers. The weights (1.40
+//   MB bf16 for the flagship field, far more than a block's shared memory)
+//   stream through a ring of slabs in shared memory by cp.async (K1: 2
+//   stages of 64 rows; K2, which also holds the ReLU masks: 2 of 32),
+//   prefetched across layer boundaries, so each weight is read from L2 once
+//   per 128 points (4,608 x 1.40 MB = 6.45 GB per call at 589,824 points)
+//   with the next slab in flight. The epilogues (bias, ReLU, bf16 rounding)
+//   run on the accumulators and store bf16 pairs.
+// - mma.sync, not wgmma: a wgmma version of the same core (B from the ring
+//   in the canonical no-swizzle layout, A from registers) gave the same
+//   results on the card but was slower, since each slab waits for its
+//   products before the block barrier; overlapping them needs a producer
+//   warp and mbarriers, which is later work (PERF.md §6).
+// - Each layer's output is written over its input once every warp has read
+//   it (the accumulators hold the whole output), so a tile needs two
+//   activation buffers: H (the trunk, then ins_f/ins_h) and Bf (the
+//   encodings, rgb_f/rgb_h, and K2's cotangent g). K1 takes the density rows
+//   of the output layer while h is still in H and keeps those 3 output
+//   columns' accumulators in registers until rgb_h and ins_h are done.
+// - K2's per-tile pass (field_bwd_tile_kernel) recomputes the forward on the
+//   same core, stores every bf16 activation to a scratch array `act`
+//   [P, ACT] (the dW pass reads it) by bulk asynchronous copies, one per row,
+//   that overlap the next layer, and keeps the ReLU masks of the tile on
+//   chip: one bit per value, in the same thread and register position that
+//   the backward's accumulator of that layer takes, in shared memory. The
+//   backward matmuls read the same packed matrices transposed (the ring's
+//   trans segments) and store every bf16 activation gradient dy to a second
+//   scratch array `dys` [P, DYW] the same way.
 // - dW must be deterministic (the same inputs give bit-identical gradients,
-//   so a resumed run replays), which rules out fp32 atomics. dW = a^T dy is a
-//   separate pass (dw_partial_kernel): one block per 64x64 tile of a weight
-//   matrix and per fixed range of `psplit` points writes an fp32 partial;
-//   reduce_splits_kernel then adds the partials in split order. The bias
-//   gradients are column sums of dys (and of the fp32 cotangent g for the
-//   output bias) taken the same way. The scratch columns are laid out so
-//   that each matmul's input (e.g. [h_skip | x], [rgb_h | ins_h | h]) is one
-//   contiguous column range and the dy columns follow the packed bias order.
+//   so a resumed run replays): no fp32 atomics. dW = act^T dy is a tiled
+//   tensor-core GEMM (dw_partial_kernel): one block per 128 x 256 tile of a
+//   weight matrix (every column of a layer, so act is read once) and per
+//   fixed range of `psplit` points, act and dys staged
+//   by cp.async in 32-point slabs, writes an fp32 partial; the blocks of the
+//   first row tile also sum their dy slab's columns (the bias gradients,
+//   from the fp32 g for the output bias) in a fixed order.
+//   reduce_splits_kernel adds the partials in split order.
 // - Rounding is _bwd_kernel's: g is rounded to bf16 for the products (the
 //   output-bias gradient sums the fp32 g), every dy is rounded to bf16 after
 //   its fp32 product and mask, and the encoding cotangents come back in fp32
@@ -52,12 +70,24 @@
 #include <algorithm>
 #include <cstring>
 
-#include "field_common.cuh"
+#include "field_core.cuh"
+
+using core::Plan;
+using core::Ring;
+using core::Seg;
+using core::THREADS;
+using core::TM;
 
 namespace {
 
+// weight ring of each kernel: stages x slab depth (shared memory: K2 also
+// holds the ReLU masks)
+constexpr int K1_STAGES = 2, K1_KS = 64;
+constexpr int K2_STAGES = 2, K2_KS = 32;
 constexpr int MAXJ = MAXD + 5;          // dW jobs: D trunk matrices + 5 head matrices
-constexpr int BM = 64, BN = 64;         // dW output tile of one dw_partial block
+constexpr int BM = 128, BN = 256, BK = 32, DW_STAGES = 3;   // dW GEMM tiles
+constexpr int NJ = BN / 32;             // 8-column tiles per dW warp
+constexpr int DW_THREADS = 256;         // the dW GEMM's block: 8 warps
 
 // Column layout of K2's scratch arrays (bf16 elements per point row).
 struct Layout {
@@ -94,30 +124,346 @@ Layout make_layout(const Meta& m) {
     return L;
 }
 
-// Save policy of K2's forward recompute (see field_common.cuh::NoSave):
-// every bf16 activation to this tile's rows of act, at its Layout column.
-struct SaveAct {
-    bf16* arow; int ld; const Layout& L;
-    __device__ __forceinline__ int col(Act a, int layer) const {
-        switch (a) {
-            case A_X: return L.a_x;
-            case A_H: return L.a_hs[layer];
-            case A_RGBF: return L.a_rgbf;
-            case A_ENCD: return L.a_encd;
-            case A_HH: return L.a_hh;
-            default: return L.a_insf;
-        }
-    }
-    __device__ __forceinline__ void put(int r, int c, bf16 v) const {
-        arow[(size_t)r * ld + c] = v;
+// ---- the weight plans (the order the kernels below consume segments in) ------
+
+struct Planner {
+    Plan p;
+    int ksl;              // the ring's slab depth
+    explicit Planner(int ks) : ksl(ks) { p.n = 0; p.stage_elems = 0; }
+    void add(int w_off, int ldw, int r0, int rows, int trans) {
+        const Seg s{w_off, ldw, r0, rows, trans};
+        p.s[p.n++] = s;
+        p.stage_elems = std::max(p.stage_elems, core::slab_elems(s, ksl));
     }
 };
 
+// forward_tile's segments; with_out: K1's output layer too
+void plan_forward(Planner& B, const Meta& m, bool with_out) {
+    const int W = m.W, HW = m.W / 2;
+    B.add(m.off_t[0], W, 0, m.XP, 0);
+    for (int i = 1; i < m.D; ++i) {
+        B.add(m.off_t[i], W, 0, W, 0);
+        if (i == m.skip + 1) B.add(m.off_t[i], W, W, m.XP, 0);
+    }
+    B.add(m.off_rgbf, W, 0, W, 0);
+    B.add(m.off_rh, HW, 0, W + m.DP, 0);
+    if (with_out) B.add(m.off_out, m.CP, W, W, 0);             // density rows, from h
+    B.add(m.off_insf, W, 0, W, 0);
+    B.add(m.off_ih, HW, 0, W, 0);
+    if (with_out) {
+        B.add(m.off_out, m.CP, 0, HW, 0);                      // rgb_out rows
+        B.add(m.off_out, m.CP, HW, HW, 0);                     // ins_out rows
+    }
+}
+
+// field_bwd_tile_kernel's backward segments
+void plan_backward(Planner& B, const Meta& m, bool need_x, bool need_d) {
+    const int W = m.W, HW = m.W / 2;
+    B.add(m.off_out, m.CP, 0, HW, 1);                          // d_rgb_h
+    B.add(m.off_out, m.CP, HW, HW, 1);                         // d_ins_h
+    B.add(m.off_ih, HW, 0, W, 1);                              // d_ins_f
+    B.add(m.off_rh, HW, 0, W, 1);                              // d_rgb_f
+    if (need_d) B.add(m.off_rh, HW, W, m.DP, 1);               // g_d
+    B.add(m.off_out, m.CP, W, W, 1);                           // d_h: density
+    B.add(m.off_rgbf, W, 0, W, 1);                             //      + rgb branch
+    for (int i = m.D - 1; i >= 1; --i) {
+        if (i == m.skip + 1 && need_x) B.add(m.off_t[i], W, W, m.XP, 1);   // g_x part
+        B.add(m.off_t[i], W, 0, W, 1);
+    }
+    if (need_x) B.add(m.off_t[0], W, 0, m.XP, 1);
+}
+
+// ---- the tile's forward ---------------------------------------------------------
+
+// Shared memory of a tile: H [TM, W+SPAD], Bf [TM, W+E+SPAD] with E =
+// max(DP, CP), then the ring, then (K2) the mask words.
+struct Bufs {
+    bf16* H; int ldh;
+    bf16* Bf; int ldb;
+    bf16* ring;
+    uint32_t* masks;      // K2: (D + 1) slots of MW words per thread
+};
+
+__host__ __device__ inline int ld_h(const Meta& m) { return m.W + core::SPAD; }
+__host__ __device__ inline int ld_b(const Meta& m) {
+    return m.W + (m.DP > m.CP ? m.DP : m.CP) + core::SPAD;
+}
+
+size_t tile_smem(const Meta& m, const Plan& p, int stages, bool masks) {
+    return ((size_t)TM * (ld_h(m) + ld_b(m)) + (size_t)stages * p.stage_elems) * sizeof(bf16)
+        + (masks ? (size_t)(m.D + 1) * core::MW * THREADS * sizeof(uint32_t) : 0);
+}
+
+__device__ __forceinline__ Bufs carve(unsigned char* smem, const Meta& m, const Plan& p,
+                                      int stages) {
+    Bufs B;
+    B.ldh = ld_h(m);
+    B.ldb = ld_b(m);
+    B.H = reinterpret_cast<bf16*>(smem);
+    B.Bf = B.H + TM * B.ldh;
+    B.ring = B.Bf + TM * B.ldb;
+    B.masks = reinterpret_cast<uint32_t*>(B.ring + stages * p.stage_elems);
+    return B;
+}
+
+// The scratch rows of a tile (K2) or nothing (K1).
+struct Save {
+    bf16* act;            // this tile's first row of act, or null
+    const Layout* L;
+    __device__ __forceinline__ void put(const bf16* src, int lds, int ncols, int col) const {
+        if (act) {
+            core::publish();
+            core::store_rows(src, lds, ncols, act + col, L->ACT);
+        }
+    }
+};
+
+__device__ __forceinline__ uint32_t* slot(const Bufs& B, int s, bool on) {
+    return on ? B.masks + s * core::MW * THREADS : nullptr;
+}
+
+// The forward of one tile of TM rows, nv of them points p_tile[3r:3r+3],
+// row r looking along vdirs[3 * ((row0 + r) / ppd)]. Ends with ins_h in
+// H[:, 0:W/2] and rgb_h in Bf[:, 0:W/2]. With OUT (K1) acc_out holds the
+// output layer (without its bias) on return. With SAVE (K2) every bf16
+// activation goes to the scratch rows and every ReLU mask to B.masks (slot i
+// for trunk layer i; slot D word 0 rgb_h and word 1 ins_h, one word each
+// at W <= 256).
+template <bool OUT, bool SAVE, class RingT>
+__device__ __forceinline__ void forward_tile(RingT& R, const Bufs& B, core::Acc& acc,
+                                             core::AccT<core::NTO>& acc_out, const float* p_tile, int nv,
+                                             const float* vdirs, int row0, int ppd,
+                                             const float* __restrict__ b, const Meta& m,
+                                             const Save& save, const Layout* L) {
+    const int W = m.W, XP = m.XP, DP = m.DP, HW = W / 2;
+    const int pos_ch = 3 * (1 + 2 * m.F), view_ch = 3 * (1 + 2 * m.FV);
+    const int tid = threadIdx.x;
+    bf16* H = B.H;
+    bf16* Bf = B.Bf;
+    const int ldh = B.ldh, ldb = B.ldb;
+
+    // the position encoding -> Bf[:, 0:XP]
+    for (int i = tid; i < TM * XP; i += THREADS) {
+        const int r = i / XP, j = i % XP;
+        const float v = (r < nv && j < pos_ch) ? pe_channel(p_tile + r * 3, j) : 0.0f;
+        Bf[r * ldb + j] = __float2bfloat16_rn(v);
+    }
+    if (SAVE) save.put(Bf, ldb, XP, L->a_x);
+
+    // trunk: layer 0 reads the encoding, layer skip+1 reads [h, x]; every
+    // layer writes over its input in H
+    core::zero(acc);
+    core::run_seg(R, acc, Bf, ldb);
+    core::sync_write();
+    core::store_act(acc, W, b + m.boff_t, true, H, ldh, slot(B, 0, SAVE));
+    if (SAVE) save.put(H, ldh, W, L->a_hs[0]);
+    for (int i = 1; i < m.D; ++i) {
+        core::zero(acc);
+        core::run_seg(R, acc, H, ldh);
+        if (i == m.skip + 1) core::run_seg(R, acc, Bf, ldb);
+        core::sync_write();
+        core::store_act(acc, W, b + m.boff_t + i * W, true, H, ldh, slot(B, i, SAVE));
+        if (SAVE) save.put(H, ldh, W, L->a_hs[i]);
+    }
+
+    // the view encoding -> Bf[:, W:W+DP], beside rgb_f
+    for (int i = tid; i < TM * DP; i += THREADS) {
+        const int r = i / DP, j = i % DP;
+        const float v = (r < nv && j < view_ch)
+            ? pe_channel(vdirs + (size_t)((row0 + r) / ppd) * 3, j) : 0.0f;
+        Bf[r * ldb + W + j] = __float2bfloat16_rn(v);
+    }
+    // rgb_f = h @ Wrgbf + b (bf16, no activation) -> Bf[:, 0:W]
+    core::zero(acc);
+    core::run_seg(R, acc, H, ldh);
+    core::sync_write();
+    core::store_act(acc, W, b + m.boff_rgbf, false, Bf, ldb, nullptr);
+    if (SAVE) save.put(Bf, ldb, W + DP, L->a_rgbf);            // [rgb_f | enc_d]
+    // rgb_h = relu([rgb_f, enc_d] @ Wrh + b) -> Bf[:, 0:W/2]
+    core::zero(acc);
+    core::run_seg(R, acc, Bf, ldb);
+    core::sync_write();
+    core::store_act(acc, HW, b + m.boff_rh, true, Bf, ldb, slot(B, m.D, SAVE));
+    if (SAVE) save.put(Bf, ldb, HW, L->a_hh);
+    if (OUT) {   // the density rows of the output layer, while h is in H
+        core::zero(acc_out);
+        core::run_seg(R, acc_out, H, ldh);
+    }
+    // ins_f = h @ Winsf + b -> H
+    core::zero(acc);
+    core::run_seg(R, acc, H, ldh);
+    core::sync_write();
+    core::store_act(acc, W, b + m.boff_insf, false, H, ldh, nullptr);
+    if (SAVE) save.put(H, ldh, W, L->a_insf);
+    // ins_h = relu(ins_f @ Wih + b) -> H[:, 0:W/2]
+    core::zero(acc);
+    core::run_seg(R, acc, H, ldh);
+    core::sync_write();
+    core::store_act(acc, HW, b + m.boff_ih, true, H, ldh,
+                    SAVE ? slot(B, m.D, true) + THREADS : nullptr);
+    if (SAVE) save.put(H, ldh, HW, L->a_hh + HW);
+    if (OUT) {   // + [rgb_h | ins_h] @ Wout[0:W]
+        core::run_seg(R, acc_out, Bf, ldb);
+        core::run_seg(R, acc_out, H, ldh);
+    }
+}
+
+// K1: raw [P, C] for points pts [P, 3] and directions vdirs [P / ppd, 3].
+__global__ void __launch_bounds__(THREADS, 1)
+field_forward_kernel(const float* __restrict__ pts, const float* __restrict__ vdirs, int P,
+                     int ppd, const bf16* __restrict__ w, const float* __restrict__ b,
+                     const Meta m, const __grid_constant__ Plan plan,
+                     float* __restrict__ raw) {
+    extern __shared__ __align__(128) unsigned char smem[];
+    const Bufs B = carve(smem, m, plan, K1_STAGES);
+    const int p0 = blockIdx.x * TM;
+    const int nv = min(TM, P - p0);
+    Ring<K1_STAGES, K1_KS> R;
+    R.start(B.ring, &plan, w);
+    core::Acc acc;
+    core::AccT<core::NTO> acc_out;
+    forward_tile<true, false>(R, B, acc, acc_out, pts + (size_t)p0 * 3, nv, vdirs, p0, ppd, b,
+                              m, Save{nullptr, nullptr}, nullptr);
+    // raw = acc_out + bo: rgb 0:3, sigma 3, ins 4:C
+    const float* bo = b + m.boff_o;
+    const int C = m.C;
+    core::for_pairs(acc_out, m.CP, [&](int r, int c, float v0, float v1, int) {
+        if (r < nv) {
+            float* q = raw + (size_t)(p0 + r) * C + c;
+            if (c < C) q[0] = v0 + bo[c];
+            if (c + 1 < C) q[1] = v1 + bo[c + 1];
+        }
+    });
+}
+
+// Epilogue: fp32 accumulators to the tile's rows of a global [rows, ld]
+// array, added to what is there when add.
+__device__ __forceinline__ void store_f32(core::Acc& acc, int n, float* dst, int ld, bool add) {
+    core::for_pairs(acc, n, [&](int r, int c, float v0, float v1, int) {
+        float2* q = reinterpret_cast<float2*>(dst + (size_t)r * ld + c);
+        if (add) { const float2 o = *q; v0 += o.x; v1 += o.y; }
+        *q = make_float2(v0, v1);
+    });
+}
+
+// K2, per-tile pass: the forward again (every bf16 activation to `act`, the
+// ReLU masks to shared memory), then the backward through the heads and the
+// trunk (every bf16 dy to `dys`). gx [P_pad, XP] / gd [P_pad, DP] (fp32
+// encoding cotangents) are written only when non-null; the plan has their
+// segments exactly then.
+__global__ void __launch_bounds__(THREADS, 1)
+field_bwd_tile_kernel(const float* __restrict__ pts, const float* __restrict__ vdirs, int P,
+                      int ppd, const bf16* __restrict__ w, const float* __restrict__ b,
+                      const Meta m, const __grid_constant__ Layout L,
+                      const __grid_constant__ Plan plan,
+                      const float* __restrict__ g, bf16* __restrict__ act,
+                      bf16* __restrict__ dys, float* __restrict__ gx,
+                      float* __restrict__ gd) {
+    extern __shared__ __align__(128) unsigned char smem[];
+    const Bufs B = carve(smem, m, plan, K2_STAGES);
+    const int W = m.W, XP = m.XP, DP = m.DP, CP = m.CP, C = m.C, D = m.D, HW = m.W / 2;
+    const int p0 = blockIdx.x * TM;
+    const int nv = min(TM, P - p0);
+    const int tid = threadIdx.x;
+    bf16* yrow = dys + (size_t)p0 * L.DYW;
+    bf16* H = B.H;
+    bf16* Bf = B.Bf;
+    const int ldh = B.ldh, ldb = B.ldb;
+    Ring<K2_STAGES, K2_KS> R;
+    R.start(B.ring, &plan, w);
+    core::Acc acc;
+    core::AccT<core::NTO> unused;
+
+    // ---- forward, saving every activation to act ------------------------------
+    const Save save{act + (size_t)p0 * L.ACT, &L};
+    forward_tile<false, true>(R, B, acc, unused, pts + (size_t)p0 * 3, nv, vdirs, p0, ppd, b, m,
+                              save, &L);
+
+    // ---- backward -------------------------------------------------------------
+    // gb = bf16(g) [TM, CP] -> G = Bf[:, W:W+CP] and dys
+    bf16* G = Bf + W;
+    core::sync_write();              // [rgb_f | enc_d] in Bf has been stored
+    for (int i = tid; i < TM * CP; i += THREADS) {
+        const int r = i / CP, c = i % CP;
+        const float v = (r < nv && c < C) ? g[(size_t)(p0 + r) * C + c] : 0.0f;
+        G[r * ldb + c] = __float2bfloat16_rn(v);
+    }
+    core::publish();
+    core::store_rows(G, ldb, CP, yrow + L.y_gb, L.DYW);
+
+    const uint32_t* hh_mask = B.masks + D * core::MW * THREADS;
+    // d_rgb_h = mask(rgb_h) * (gb @ Wout[0:W/2]^T) -> H[:, 0:W/2]
+    core::zero(acc);
+    core::run_seg(R, acc, G, ldb);
+    core::sync_write();                 // ins_h in H has been copied out
+    core::store_grad(acc, HW, H, ldh, hh_mask);
+    // d_ins_h = mask(ins_h) * (gb @ Wout[W/2:W]^T) -> H[:, W/2:W]
+    core::zero(acc);
+    core::run_seg(R, acc, G, ldb);
+    core::store_grad(acc, HW, H + HW, ldh, hh_mask + THREADS);
+    core::publish();
+    core::store_rows(H, ldh, HW, yrow + L.y_rh, L.DYW);
+    core::store_rows(H + HW, ldh, HW, yrow + L.y_ih, L.DYW);
+    // d_ins_f = d_ins_h @ Wih^T -> Bf[:, 0:W]: its dW and bias only, never
+    // the trunk
+    core::zero(acc);
+    core::run_seg(R, acc, H + HW, ldh);
+    core::sync_write();
+    core::store_grad(acc, W, Bf, ldb, nullptr);
+    core::publish();
+    core::store_rows(Bf, ldb, W, yrow + L.y_insf, L.DYW);
+    // [d_rgb_f | g_d] = d_rgb_h @ Wrh^T; d_rgb_f -> Bf[:, 0:W]; g_d -> gd
+    core::zero(acc);
+    core::run_seg(R, acc, H, ldh);
+    core::sync_write();
+    core::store_grad(acc, W, Bf, ldb, nullptr);
+    if (gd) {
+        core::zero(acc);
+        core::run_seg(R, acc, H, ldh);
+        store_f32(acc, DP, gd + (size_t)p0 * DP, DP, false);
+    }
+    core::publish();
+    core::store_rows(Bf, ldb, W, yrow + L.y_rgbf, L.DYW);
+    // d_h = gb @ Wout[W:2W]^T (density) + d_rgb_f @ Wrgbf^T; dy_{D-1} -> H
+    core::zero(acc);
+    core::run_seg(R, acc, G, ldb);
+    core::run_seg(R, acc, Bf, ldb);
+    core::sync_write();
+    core::store_grad(acc, W, H, ldh, B.masks + (D - 1) * core::MW * THREADS);
+    core::publish();
+    core::store_rows(H, ldh, W, yrow + L.y_dy[D - 1], L.DYW);
+
+    // the trunk: dy_{i-1} = mask(h_{i-1}) * (dy_i @ t_i[0:W]^T), over H; at
+    // the skip layer rows W:W+XP of t_i face x and give part of g_x
+    const bool skipped = m.skip + 1 < D;
+    for (int i = D - 1; i >= 1; --i) {
+        if (i == m.skip + 1 && gx) {
+            core::zero(acc);
+            core::run_seg(R, acc, H, ldh);
+            store_f32(acc, XP, gx + (size_t)p0 * XP, XP, false);
+        }
+        core::zero(acc);
+        core::run_seg(R, acc, H, ldh);
+        core::sync_write();
+        core::store_grad(acc, W, H, ldh, B.masks + (i - 1) * core::MW * THREADS);
+        core::publish();
+        core::store_rows(H, ldh, W, yrow + L.y_dy[i - 1], L.DYW);
+    }
+    if (gx) {
+        core::zero(acc);
+        core::run_seg(R, acc, H, ldh);
+        store_f32(acc, XP, gx + (size_t)p0 * XP, XP, skipped);
+    }
+    core::drain_stores();
+}
+
 // dW = act[:, a_off:a_off+K]^T @ dys[:, y_off:y_off+N] into the packed
-// matrix at w_off ([K, N] row-major); tile0 is the prefix count of 64x64 tiles.
+// matrix at w_off ([K, N] row-major); the bias gradient of job j is the
+// column sum of its dys columns into db at b_off (the output bias: of the
+// fp32 g). tile0 is the prefix count of BM x BN tiles.
 struct Jobs {
     int n;
-    int a_off[MAXJ], K[MAXJ], y_off[MAXJ], N[MAXJ], w_off[MAXJ], tile0[MAXJ + 1];
+    int a_off[MAXJ], K[MAXJ], y_off[MAXJ], N[MAXJ], w_off[MAXJ], b_off[MAXJ], tile0[MAXJ + 1];
 };
 
 Jobs make_jobs(const Meta& m, const Layout& L) {
@@ -127,6 +473,7 @@ Jobs make_jobs(const Meta& m, const Layout& L) {
     auto add = [&](int a, int K, int y, int N, int w) {
         const int j = J.n++;
         J.a_off[j] = a; J.K[j] = K; J.y_off[j] = y; J.N[j] = N; J.w_off[j] = w;
+        J.b_off[j] = y;                 // dys columns [0, NB) are the bias order
         J.tile0[j + 1] = J.tile0[j] + ((K + BM - 1) / BM) * ((N + BN - 1) / BN);
     };
     const int D = m.D, W = m.W;
@@ -140,279 +487,118 @@ Jobs make_jobs(const Meta& m, const Layout& L) {
     add(L.a_rgbf, W + m.DP, L.y_rh, W / 2, m.off_rh);
     add(L.a_hs[D - 1], W, L.y_insf, W, m.off_insf);
     add(L.a_insf, W, L.y_ih, W / 2, m.off_ih);
-    add(L.a_hh, 2 * W, L.y_gb, m.CP, m.off_out);
+    add(L.a_hh, 2 * W, L.y_gb, m.CP, m.off_out);     // bias from g, at NB
+    J.b_off[J.n - 1] = L.NB;
     return J;
 }
 
-// Epilogue that hands every element of the fp32 products to f(row, col, v),
-// through the warp's 16x16 fp32 scratch tile.
-template <class F>
-struct PerElem {
-    F f; float* scratch;
-    __device__ __forceinline__ void operator()(Acc (&acc)[RT], int ct) const {
-        const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-        float* sc = scratch + warp * 256;
-        for (int r = 0; r < RT; ++r) {
-            wmma::store_matrix_sync(sc, acc[r], 16, wmma::mem_row_major);
-            __syncwarp();
-            for (int e = lane; e < 256; e += 32) f(r * 16 + e / 16, ct * 16 + e % 16, sc[e]);
-            __syncwarp();
-        }
-    }
-};
-
-template <class F>
-__device__ __forceinline__ PerElem<F> per_elem(F f, float* scratch) {
-    return PerElem<F>{f, scratch};
-}
-
-// acc[RT] += A [TP, K] (ld lda, shared) @ Wt^T for output column tile ct,
-// where Wt is a packed [rows, ldw] row-major matrix whose row j is output
-// column j: a col_major fragment of Wt is a row_major fragment of Wt^T.
-__device__ __forceinline__ void mma_segment_t(Acc (&acc)[RT], const bf16* A, int lda, int K,
-                                              const bf16* Wt, int ldw, int ct) {
-    for (int k = 0; k < K; k += 16) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bfr;
-        wmma::load_matrix_sync(bfr, Wt + (size_t)ct * 16 * ldw + k, ldw);
-#pragma unroll
-        for (int r = 0; r < RT; ++r) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> afr;
-            wmma::load_matrix_sync(afr, A + r * 16 * lda + k, lda);
-            wmma::mma_sync(acc[r], afr, bfr, acc[r]);
-        }
-    }
-}
-
-// out[TP, N] = A1 @ W1^T + A2 @ W2^T (the backward of `matmul`).
-template <class Epilogue>
-__device__ __forceinline__ void matmul_t(const bf16* A1, int lda1, int K1, const bf16* W1,
-                                         int ldw1, const bf16* A2, int lda2, int K2,
-                                         const bf16* W2, int ldw2, int N, Epilogue epi) {
-    const int warp = threadIdx.x / 32;
-    for (int ct = warp; ct < N / 16; ct += NWARPS) {
-        Acc acc[RT];
-#pragma unroll
-        for (int r = 0; r < RT; ++r) wmma::fill_fragment(acc[r], 0.0f);
-        mma_segment_t(acc, A1, lda1, K1, W1, ldw1, ct);
-        if (K2) mma_segment_t(acc, A2, lda2, K2, W2, ldw2, ct);
-        epi(acc, ct);
-    }
-}
-
-__device__ __forceinline__ float relu_mask(bf16 a) {
-    return __bfloat162float(a) > 0.0f ? 1.0f : 0.0f;
-}
-
-// three [TP, W+PAD] bf16 activation buffers and one fp32 16x16 tile per warp
-size_t smem_bytes(const Meta& m) {
-    return 3 * (size_t)TP * (m.W + PAD) * sizeof(bf16) + NWARPS * 256 * sizeof(float);
-}
-
-// K1: raw [P, C] for points pts [P, 3] and directions vdirs [P / ppd, 3]
-// (point p looks along direction p / ppd): tile_forward, with the position
-// encoding in the third buffer during the trunk and the view encoding and
-// the hidden pair in it after (as render_field.cu's K3), then the output layer.
-__global__ void __launch_bounds__(NTHREADS, 2)
-field_forward_kernel(const float* __restrict__ pts, const float* __restrict__ vdirs,
-                     int P, int ppd, const bf16* __restrict__ w,
-                     const float* __restrict__ b, const Meta m, float* __restrict__ raw) {
+// K2, dW pass: per (BM x BN tile of one job's dW, range of psplit points) an
+// fp32 partial of act^T @ dys into partial_w[blockIdx.y], and for the first
+// row tile of each job the bias partial into partial_b[blockIdx.y]. 8 warps
+// as 2 (rows of dW) x 4 (columns), 64 x 32 each; A = act^T is read from the
+// [points, K] slabs with ldmatrix .trans.
+__global__ void __launch_bounds__(DW_THREADS, 1)
+dw_partial_kernel(const bf16* __restrict__ act, int ACT, const bf16* __restrict__ dys, int DYW,
+                  const float* __restrict__ g, int P, int C, int P_pad, int psplit,
+                  const Jobs J, float* __restrict__ partial_w, int n_w,
+                  float* __restrict__ partial_b, int n_b) {
     extern __shared__ __align__(128) unsigned char smem[];
-    const int W = m.W, CP = m.CP, C = m.C;
-    const int LDA = W + PAD;
-    bf16* bufA = reinterpret_cast<bf16*>(smem);
-    bf16* bufB = bufA + TP * LDA;
-    bf16* bufC = bufB + TP * LDA;
-    float* scratch = reinterpret_cast<float*>(bufC + TP * LDA);
-    const int p0 = blockIdx.x * TP;
-    const int nv = min(TP, P - p0);
-    const int tid = threadIdx.x;
-
-    bf16* h = tile_forward<H_ALL>(pts + (size_t)p0 * 3, nv, vdirs, p0, ppd, w, b, m, bufA, bufB,
-                                  bufC, bufC, LDA, scratch, NoSave{});
-    // raw = [rgb_h, ins_h, h] @ Wout + bo: rgb 0:3, sigma 3, ins 4:C
-    float* stage = reinterpret_cast<float*>(h == bufA ? bufB : bufA);
-    matmul(bufC, LDA, W, h, LDA, W, w + m.off_out, CP, StoreF32{stage, CP});
-    __syncthreads();
-
-    const float* bo = b + m.boff_o;
-    for (int i = tid; i < nv * C; i += NTHREADS) {
-        const int r = i / C, c = i % C;
-        raw[(size_t)(p0 + r) * C + c] = stage[r * CP + c] + bo[c];
-    }
-}
-
-// K2, per-tile pass: the forward again (every bf16 activation to `act`),
-// then the backward through the heads and the trunk (every bf16 dy to
-// `dys`). gx [P, XP] / gd [P, DP] (fp32 encoding cotangents) are written
-// only when non-null.
-__global__ void __launch_bounds__(NTHREADS, 2)
-field_bwd_tile_kernel(const float* __restrict__ pts, const float* __restrict__ vdirs,
-                      int P, int ppd, const bf16* __restrict__ w,
-                      const float* __restrict__ b, const Meta m, const Layout L,
-                      const float* __restrict__ g, bf16* __restrict__ act,
-                      bf16* __restrict__ dys, float* __restrict__ gx,
-                      float* __restrict__ gd) {
-    extern __shared__ __align__(128) unsigned char smem[];
-    const int W = m.W, XP = m.XP, DP = m.DP, CP = m.CP, C = m.C, D = m.D, HW = m.W / 2;
-    const int LDA = W + PAD, LDG = CP + PAD;
-    const int ACT = L.ACT, DYW = L.DYW;
-    bf16* bufA = reinterpret_cast<bf16*>(smem);
-    bf16* bufB = bufA + TP * LDA;
-    bf16* bufC = bufB + TP * LDA;
-    float* scratch = reinterpret_cast<float*>(bufC + TP * LDA);
-    const int p0 = blockIdx.x * TP;
-    const int nv = min(TP, P - p0);
-    const int tid = threadIdx.x;
-    bf16* arow = act + (size_t)p0 * ACT;      // this tile's scratch rows
-    bf16* yrow = dys + (size_t)p0 * DYW;
-
-    // ---- forward, saving every activation to act ----------------------------
-    tile_forward<H_ALL>(pts + (size_t)p0 * 3, nv, vdirs, p0, ppd, w, b, m, bufA, bufB, bufC,
-                        bufC, LDA, scratch, SaveAct{arow, ACT, L});
-
-    // ---- backward ---------------------------------------------------------
-    // gb = bf16(g) [TP, CP] in bufC (ld LDG) and in dys
-    bf16* G = bufC;
-    for (int i = tid; i < TP * CP; i += NTHREADS) {
-        const int r = i / CP, c = i % CP;
-        const float v = (r < nv && c < C) ? g[(size_t)(p0 + r) * C + c] : 0.0f;
-        const bf16 o = __float2bfloat16_rn(v);
-        G[r * LDG + c] = o;
-        yrow[(size_t)r * DYW + L.y_gb + c] = o;
-    }
-    __syncthreads();
-
-    // dy = bf16(v * relu'(act[:, mcol + c])): to shared memory (if sdst) and
-    // to dys column ycol + c
-    auto masked = [&](int mcol, bf16* sdst, int ycol) {
-        return per_elem([=](int r, int c, float v) {
-            const bf16 o = __float2bfloat16_rn(v * relu_mask(arow[(size_t)r * ACT + mcol + c]));
-            if (sdst) sdst[r * LDA + c] = o;
-            yrow[(size_t)r * DYW + ycol + c] = o;
-        }, scratch);
-    };
-
-    const bf16* Wout = w + m.off_out;                  // [2W, CP]
-    // [d_rgb_h | d_ins_h] = mask(hh) * (gb @ Wout[0:W]^T) -> bufA, dys
-    const int y_rh = L.y_rh, y_ih = L.y_ih, a_hh = L.a_hh;
-    matmul_t(G, LDG, CP, Wout, CP, nullptr, 0, 0, nullptr, 0, W,
-             per_elem([=](int r, int c, float v) {
-                 const bf16 o = __float2bfloat16_rn(v * relu_mask(arow[(size_t)r * ACT + a_hh + c]));
-                 bufA[r * LDA + c] = o;
-                 yrow[(size_t)r * DYW + (c < HW ? y_rh + c : y_ih + c - HW)] = o;
-             }, scratch));
-    __syncthreads();
-    // d_ins_f = d_ins_h @ Wih^T: its dW and bias only, never the trunk
-    const int y_insf = L.y_insf;
-    matmul_t(bufA + HW, LDA, HW, w + m.off_ih, HW, nullptr, 0, 0, nullptr, 0, W,
-             per_elem([=](int r, int c, float v) {
-                 yrow[(size_t)r * DYW + y_insf + c] = __float2bfloat16_rn(v);
-             }, scratch));
-    // [d_rgb_f | g_d] = d_rgb_h @ Wrh^T; d_rgb_f -> bufB, dys; g_d -> gd
-    const int y_rgbf = L.y_rgbf;
-    matmul_t(bufA, LDA, HW, w + m.off_rh, HW, nullptr, 0, 0, nullptr, 0, gd ? W + DP : W,
-             per_elem([=](int r, int c, float v) {
-                 if (c < W) {
-                     const bf16 o = __float2bfloat16_rn(v);
-                     bufB[r * LDA + c] = o;
-                     yrow[(size_t)r * DYW + y_rgbf + c] = o;
-                 } else {
-                     gd[(size_t)(p0 + r) * DP + c - W] = v;
-                 }
-             }, scratch));
-    __syncthreads();
-    // d_h = gb @ Wout[W:2W]^T (density) + d_rgb_f @ Wrgbf^T; dy_{D-1} -> bufA
-    matmul_t(G, LDG, CP, Wout + (size_t)W * CP, CP, bufB, LDA, W, w + m.off_rgbf, W, W,
-             masked(L.a_hs[D - 1], bufA, L.y_dy[D - 1]));
-    __syncthreads();
-
-    bf16* cur = bufA;
-    bf16* nxt = bufB;
-    for (int i = D - 1; i >= 1; --i) {
-        const bool sk = (i == m.skip + 1);
-        const int mcol = L.a_hs[i - 1], ycol = L.y_dy[i - 1];
-        // rows 0:W of t_i face h_{i-1}; at the skip layer rows W:W+XP face x
-        matmul_t(cur, LDA, W, w + m.off_t[i], W, nullptr, 0, 0, nullptr, 0,
-                 (sk && gx) ? W + XP : W,
-                 per_elem([=](int r, int c, float v) {
-                     if (c < W) {
-                         const bf16 o = __float2bfloat16_rn(
-                             v * relu_mask(arow[(size_t)r * ACT + mcol + c]));
-                         nxt[r * LDA + c] = o;
-                         yrow[(size_t)r * DYW + ycol + c] = o;
-                     } else {
-                         gx[(size_t)(p0 + r) * XP + c - W] = v;
-                     }
-                 }, scratch));
-        __syncthreads();
-        bf16* t = cur; cur = nxt; nxt = t;
-    }
-    if (gx) {
-        const bool skipped = m.skip + 1 < D;        // gx already holds the skip part
-        matmul_t(cur, LDA, W, w + m.off_t[0], W, nullptr, 0, 0, nullptr, 0, XP,
-                 per_elem([=](int r, int c, float v) {
-                     float* q = gx + (size_t)(p0 + r) * XP + c;
-                     *q = skipped ? *q + v : v;
-                 }, scratch));
-    }
-}
-
-// K2, dW pass: per (64x64 tile of one job's dW, range of psplit points) an
-// fp32 partial of act^T @ dys into partial[blockIdx.y]. Each warp owns one
-// 16-row strip and two 16-column tiles.
-__global__ void __launch_bounds__(NTHREADS)
-dw_partial_kernel(const bf16* __restrict__ act, int ACT, const bf16* __restrict__ dys,
-                  int DYW, int P_pad, int psplit, const Jobs J,
-                  float* __restrict__ partial, int n_w) {
+    typedef bf16 ATile[BK][BM + core::SPAD];
+    typedef bf16 BTile[BK][BN + core::SPAD];
+    ATile* As = reinterpret_cast<ATile*>(smem);
+    BTile* Bs = reinterpret_cast<BTile*>(smem + DW_STAGES * sizeof(ATile));
     const int t = blockIdx.x;
     int j = 0;
     while (j + 1 < J.n && J.tile0[j + 1] <= t) ++j;
     const int K = J.K[j], N = J.N[j];
     const int tn = (N + BN - 1) / BN, local = t - J.tile0[j];
-    const int warp = threadIdx.x / 32;
-    const int m = (local / tn) * BM + (warp / 2) * 16;
-    const int n0 = (local % tn) * BN + (warp % 2) * 32;
-    if (m >= K) return;
-    const bool has1 = n0 + 16 < N;
-    if (n0 >= N) return;
+    const int m0 = (local / tn) * BM, n0 = (local % tn) * BN;
+    const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+    const int wm = (warp % 2) * 64, wn = (warp / 2) * (BN / 4);
+    const bool bias = m0 == 0;
+    const bool bias_g = bias && j == J.n - 1;
 
     const int p_begin = blockIdx.y * psplit, p_end = min(P_pad, p_begin + psplit);
-    const bf16* ap = act + J.a_off[j] + m;
+    const int nsteps = (p_end - p_begin) / BK;
+    const bf16* ap = act + J.a_off[j] + m0;
     const bf16* yp = dys + J.y_off[j] + n0;
-    Acc acc0, acc1;
-    wmma::fill_fragment(acc0, 0.0f);
-    wmma::fill_fragment(acc1, 0.0f);
-    for (int p = p_begin; p < p_end; p += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> afr;
-        wmma::load_matrix_sync(afr, ap + (size_t)p * ACT, ACT);
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-        wmma::load_matrix_sync(bfr, yp + (size_t)p * DYW, DYW);
-        wmma::mma_sync(acc0, afr, bfr, acc0);
-        if (has1) {
-            wmma::load_matrix_sync(bfr, yp + (size_t)p * DYW + 16, DYW);
-            wmma::mma_sync(acc1, afr, bfr, acc1);
+
+    auto load = [&](int s, int step) {
+        const int p = p_begin + step * BK;
+        for (int i = tid; i < BK * (BM / 8); i += DW_THREADS) {
+            const int r = i / (BM / 8), c = (i % (BM / 8)) * 8;
+            const bool va = m0 + c < K;
+            core::cp_async16_zfill(&As[s][r][c], ap + (size_t)(p + r) * ACT + (va ? c : 0), va);
+        }
+        for (int i = tid; i < BK * (BN / 8); i += DW_THREADS) {
+            const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
+            const bool vb = n0 + c < N;
+            core::cp_async16_zfill(&Bs[s][r][c], yp + (size_t)(p + r) * DYW + (vb ? c : 0), vb);
+        }
+    };
+
+    core::AccT<2 * NJ> acc;     // [mi / 2][(mi % 2) * NJ + nj]: 4 x NJ tiles of 16 x 8
+    core::zero(acc);
+    float bsum = 0.0f;
+#pragma unroll
+    for (int s = 0; s < DW_STAGES - 1; ++s) {
+        if (s < nsteps) load(s, s);
+        core::cp_async_commit();
+    }
+    for (int step = 0; step < nsteps; ++step) {
+        core::cp_async_wait<DW_STAGES - 2>();
+        __syncthreads();
+        if (step + DW_STAGES - 1 < nsteps)
+            load((step + DW_STAGES - 1) % DW_STAGES, step + DW_STAGES - 1);
+        core::cp_async_commit();
+        const int s = step % DW_STAGES;
+#pragma unroll
+        for (int kk = 0; kk < BK; kk += 16) {
+            uint32_t a[4][4];
+#pragma unroll
+            for (int mi = 0; mi < 4; ++mi)
+                core::ldsm_x4_t(a[mi], &As[s][kk + (lane & 7) + ((lane >> 4) & 1) * 8]
+                                           [wm + mi * 16 + ((lane >> 3) & 1) * 8]);
+#pragma unroll
+            for (int nj = 0; nj < NJ; ++nj) {
+                uint32_t b0, b1;
+                core::ldsm_x2_t(b0, b1, &Bs[s][kk + (lane & 15)][wn + nj * 8]);
+#pragma unroll
+                for (int mi = 0; mi < 4; ++mi)
+                    core::mma16816(acc[mi / 2][(mi % 2) * NJ + nj], a[mi], b0, b1);
+            }
+        }
+        // the bias sums in a fixed order, slab by slab and row by row: of
+        // this dy slab, or for the output bias of the fp32 g rows it covers
+        if (bias && !bias_g && tid < BN) {
+#pragma unroll 8
+            for (int r = 0; r < BK; ++r) bsum += __bfloat162float(Bs[s][r][tid]);
+        } else if (bias_g && tid < C) {
+            const int p = p_begin + step * BK;
+            float v[BK];
+#pragma unroll
+            for (int r = 0; r < BK; ++r) v[r] = p + r < P ? __ldg(g + (size_t)(p + r) * C + tid) : 0.0f;
+#pragma unroll
+            for (int r = 0; r < BK; ++r) bsum += v[r];
         }
     }
-    float* dst = partial + (size_t)blockIdx.y * n_w + J.w_off[j] + (size_t)m * N + n0;
-    wmma::store_matrix_sync(dst, acc0, N, wmma::mem_row_major);
-    if (has1) wmma::store_matrix_sync(dst + 16, acc1, N, wmma::mem_row_major);
-}
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-
-// partial[blockIdx.y][pcol + c] = sum over rows [y*psplit, (y+1)*psplit) of
-// x[row, c] for c < ncols, added in row order.
-template <class T>
-__global__ void colsum_partial_kernel(const T* __restrict__ x, int ld, int ncols, int rows,
-                                      int psplit, float* __restrict__ partial, int pld,
-                                      int pcol) {
-    const int c = blockIdx.x * blockDim.x + threadIdx.x;
-    if (c >= ncols) return;
-    const int p_end = min(rows, (int)(blockIdx.y + 1) * psplit);
-    float s = 0.0f;
-    for (int p = blockIdx.y * psplit; p < p_end; ++p) s += to_f32(x[(size_t)p * ld + c]);
-    partial[(size_t)blockIdx.y * pld + pcol + c] = s;
+    float* dst = partial_w + (size_t)blockIdx.y * n_w + J.w_off[j];
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < NJ; ++nj)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int r = m0 + wm + mi * 16 + lane / 4 + h * 8;
+                const int c = n0 + wn + nj * 8 + 2 * (lane % 4);
+                if (r < K && c < N)
+                    *reinterpret_cast<float2*>(dst + (size_t)r * N + c) =
+                        make_float2(acc[mi / 2][(mi % 2) * NJ + nj][2 * h],
+                                    acc[mi / 2][(mi % 2) * NJ + nj][2 * h + 1]);
+            }
+    if (bias && tid < BN && n0 + tid < (bias_g ? C : N))
+        partial_b[(size_t)blockIdx.y * n_b + J.b_off[j] + n0 + tid] = bsum;
 }
 
 // out[e] = sum over splits s (in order) of partial[s][e]
@@ -428,8 +614,9 @@ __global__ void reduce_splits_kernel(const float* __restrict__ partial, int n_sp
 int read_meta(const int* meta, int n_meta, Meta* m) {
     if (n_meta != META_INTS) return (int)cudaErrorInvalidValue;
     memcpy(m, meta, sizeof(Meta));
-    if (m->D < 1 || m->D > MAXD || m->W % 32 || m->XP % 16 || m->DP % 16 || m->CP % 16
-        || m->XP > m->W || m->DP > m->W / 2 || m->CP > m->W / 2)
+    if (m->D < 1 || m->D > MAXD || m->W % 32 || m->W > core::MAXW || m->XP % 16
+        || m->DP % 16 || m->CP % 16 || m->XP > m->W || m->DP > m->W / 2
+        || m->CP > m->W / 2 || m->CP > 64)
         return (int)cudaErrorInvalidValue;
     return 0;
 }
@@ -437,6 +624,9 @@ int read_meta(const int* meta, int n_meta, Meta* m) {
 }  // namespace
 
 extern "C" {
+
+// Points per tile of K1/K2 (the wrapper pads K2's scratch rows to it).
+int field_tile_rows() { return TM; }
 
 // Scratch widths (bf16 per point) of field_backward: act and dys.
 int field_scratch_widths(const int* meta, int n_meta, int* act_w, int* dy_w) {
@@ -454,13 +644,15 @@ int field_forward(const float* pts, const float* vdirs, int P, int ppd, const bf
     Meta m;
     if (int err = read_meta(meta, n_meta, &m)) return err;
     if (P < 1 || ppd < 1) return (int)cudaErrorInvalidValue;
-    const size_t smem = smem_bytes(m);
+    Planner pb(K1_KS);
+    plan_forward(pb, m, true);
+    const size_t smem = tile_smem(m, pb.p, K1_STAGES, false);
     cudaError_t err = cudaFuncSetAttribute(field_forward_kernel,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return (int)err;
-    field_forward_kernel<<<(P + TP - 1) / TP, NTHREADS, smem, (cudaStream_t)stream>>>(
-        pts, vdirs, P, ppd, w, b, m, raw);
+    field_forward_kernel<<<(P + TM - 1) / TM, THREADS, smem, (cudaStream_t)stream>>>(
+        pts, vdirs, P, ppd, w, b, m, pb.p, raw);
     return (int)cudaGetLastError();
 }
 
@@ -469,7 +661,7 @@ int field_forward(const float* pts, const float* vdirs, int P, int ppd, const bf
 // <- pts, vdirs as for K1, g [P, C] fp32. Scratch: act [P_pad, act_w] and
 // dys [P_pad, dy_w] bf16, partial_w [ceil(P_pad / psplit), n_w] and
 // partial_b [ceil(P_pad / psplit), n_b] fp32 zero-filled, with P_pad = P
-// rounded up to 64 and psplit a multiple of 16.
+// rounded up to field_tile_rows() and psplit a multiple of 32.
 int field_backward(const float* pts, const float* vdirs, int P, int ppd, const bf16* w,
                    const float* b, const int* meta, int n_meta, const float* g,
                    bf16* act, int act_w, bf16* dys, int dy_w, float* gx, float* gd,
@@ -479,31 +671,31 @@ int field_backward(const float* pts, const float* vdirs, int P, int ppd, const b
     if (int err = read_meta(meta, n_meta, &m)) return err;
     const Layout L = make_layout(m);
     const Jobs J = make_jobs(m, L);
-    if (P < 1 || ppd < 1 || psplit < 16 || psplit % 16 || act_w != L.ACT || dy_w != L.DYW
+    if (P < 1 || ppd < 1 || psplit < BK || psplit % BK || act_w != L.ACT || dy_w != L.DYW
         || n_b != L.NB + m.CP || n_w < m.off_out + 2 * m.W * m.CP)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
-    const int tiles = (P + TP - 1) / TP, P_pad = tiles * TP;
+    const int tiles = (P + TM - 1) / TM, P_pad = tiles * TM;
     const int n_split = (P_pad + psplit - 1) / psplit;
     cudaError_t err;
 
-    const size_t smem = smem_bytes(m);
+    Planner pb(K2_KS);
+    plan_forward(pb, m, false);
+    plan_backward(pb, m, gx != nullptr, gd != nullptr);
+    const size_t smem = tile_smem(m, pb.p, K2_STAGES, true);
     err = cudaFuncSetAttribute(field_bwd_tile_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    field_bwd_tile_kernel<<<tiles, NTHREADS, smem, st>>>(pts, vdirs, P, ppd, w, b, m, L, g,
-                                                         act, dys, gx, gd);
+    field_bwd_tile_kernel<<<tiles, THREADS, smem, st>>>(pts, vdirs, P, ppd, w, b, m, L, pb.p,
+                                                         g, act, dys, gx, gd);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-    dw_partial_kernel<<<dim3(J.tile0[J.n], n_split), NTHREADS, 0, st>>>(
-        act, L.ACT, dys, L.DYW, P_pad, psplit, J, partial_w, n_w);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-    colsum_partial_kernel<bf16><<<dim3((L.NB + 255) / 256, n_split), 256, 0, st>>>(
-        dys, L.DYW, L.NB, P_pad, psplit, partial_b, n_b, 0);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    colsum_partial_kernel<float><<<dim3((m.C + 255) / 256, n_split), 256, 0, st>>>(
-        g, m.C, m.C, P, psplit, partial_b, n_b, L.NB);
+    const int dw_smem = DW_STAGES * BK * (BM + BN + 2 * core::SPAD) * (int)sizeof(bf16);
+    err = cudaFuncSetAttribute(dw_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               dw_smem);
+    if (err != cudaSuccess) return (int)err;
+    dw_partial_kernel<<<dim3(J.tile0[J.n], n_split), DW_THREADS, dw_smem, st>>>(
+        act, L.ACT, dys, L.DYW, g, P, m.C, P_pad, psplit, J, partial_w, n_w, partial_b, n_b);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
     reduce_splits_kernel<<<std::min((n_w + 255) / 256, 4096), 256, 0, st>>>(

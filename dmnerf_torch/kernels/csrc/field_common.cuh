@@ -1,7 +1,8 @@
-// Device code shared by the field kernels (render_field.cu: K3/K4/K5;
-// field.cu: K1/K2): the packed-weight layout, the in-kernel positional
-// encoding, the bf16 wmma matmul core with its epilogues, and the forward of
-// one tile through the trunk and the heads (tile_forward).
+// Device code of the field kernels: the packed-weight layout and the in-kernel
+// positional encoding (render_field.cu's K3/K4/K5 and, through
+// field_core.cuh, field.cu's K1/K2), and the bf16 wmma matmul core with its
+// epilogues and the forward of one tile through the trunk and the heads
+// (tile_forward) that K3/K4/K5 run.
 //
 // Matmuls are nvcuda::wmma bf16 16x16x16 fragments with fp32 accumulation
 // over 64-point tiles whose activations live in shared memory (rows padded by
@@ -87,23 +88,9 @@ __device__ __forceinline__ void matmul(const bf16* A1, int lda1, int K1,
     }
 }
 
-// The activations of a tile's forward, for a Save policy that keeps them.
-// A_HH is the hidden pair [rgb_h | ins_h]: ins_h starts W/2 columns in.
-enum Act { A_X, A_H, A_RGBF, A_ENCD, A_HH, A_INSF };
-
-// Save policy of the forward kernels: keep nothing beyond shared memory.
-// (field.cu's SaveAct keeps every bf16 activation for K2's backward:
-// col(a, layer) is the first column of activation a, put(r, col, v) stores.)
-struct NoSave {
-    __device__ __forceinline__ int col(Act, int) const { return 0; }
-    __device__ __forceinline__ void put(int, int, bf16) const {}
-};
-
-// Epilogue: + bias (fp32), optional ReLU, round to bf16, store [TP, N] at dst
-// and hand each value to save at column scol + its column.
-template <class Save>
+// Epilogue: + bias (fp32), optional ReLU, round to bf16, store [TP, N] at dst.
 struct StoreBf16 {
-    const float* bias; bf16* dst; int ldd; bool relu; float* scratch; Save save; int scol;
+    const float* bias; bf16* dst; int ldd; bool relu; float* scratch;
     __device__ __forceinline__ void operator()(Acc (&acc)[RT], int ct) const {
         const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
         float* sc = scratch + warp * 256;
@@ -114,9 +101,7 @@ struct StoreBf16 {
                 const int rr = e / 16, cc = e % 16;
                 float v = sc[e] + bias[ct * 16 + cc];
                 if (relu) v = fmaxf(v, 0.0f);
-                const bf16 o = __float2bfloat16_rn(v);
-                dst[(r * 16 + rr) * ldd + ct * 16 + cc] = o;
-                save.put(r * 16 + rr, scol + ct * 16 + cc, o);
+                dst[(r * 16 + rr) * ldd + ct * 16 + cc] = __float2bfloat16_rn(v);
             }
             __syncwarp();
         }
@@ -134,8 +119,7 @@ struct StoreF32 {
 };
 
 // Which heads tile_forward runs after the trunk: none (K4: sigma only), all
-// (K1, K2, K3) or the instance branch alone (K5: no view encoding, no rgb
-// branch).
+// (K3) or the instance branch alone (K5: no view encoding, no rgb branch).
 enum Heads { H_NONE, H_ALL, H_INS };
 
 // The field forward of one tile of TP rows, nv of them points (_fwd_body up
@@ -147,24 +131,20 @@ enum Heads { H_NONE, H_ALL, H_INS };
 // other of bufA/bufB is free. With H_ALL, bufC[:, 0:W] then holds the hidden
 // pair [rgb_h | ins_h] (the view encoding passes through
 // bufC[:, W/2:W/2+DP]); with H_INS, bufC[:, W/2:W] holds ins_h and
-// bufC[:, 0:W/2] is not written. Every bf16 activation is also handed to save.
-template <Heads HEADS, class Save>
+// bufC[:, 0:W/2] is not written.
+template <Heads HEADS>
 __device__ __forceinline__ bf16* tile_forward(const float* p_tile, int nv, const float* vdirs,
                                               int row0, int ppd, const bf16* w, const float* b,
                                               const Meta& m, bf16* bufA, bf16* bufB,
-                                              bf16* bufC, bf16* xenc, int ldx, float* scratch,
-                                              const Save& save) {
+                                              bf16* bufC, bf16* xenc, int ldx, float* scratch) {
     const int W = m.W, XP = m.XP, DP = m.DP, HW = m.W / 2, LDA = m.W + PAD;
     const int pos_ch = 3 * (1 + 2 * m.F), view_ch = 3 * (1 + 2 * m.FV);
     const int tid = threadIdx.x;
 
-    const int cx = save.col(A_X, 0);
     for (int i = tid; i < TP * XP; i += NTHREADS) {
         const int r = i / XP, j = i % XP;
         const float v = (r < nv && j < pos_ch) ? pe_channel(p_tile + r * 3, j) : 0.0f;
-        const bf16 o = __float2bfloat16_rn(v);
-        xenc[r * ldx + j] = o;
-        save.put(r, cx + j, o);
+        xenc[r * ldx + j] = __float2bfloat16_rn(v);
     }
     __syncthreads();
 
@@ -172,13 +152,12 @@ __device__ __forceinline__ bf16* tile_forward(const float* p_tile, int nv, const
     bf16* h = bufA;
     bf16* spare = bufB;
     matmul(xenc, ldx, XP, nullptr, 0, 0, w + m.off_t[0], W,
-           StoreBf16<Save>{b + m.boff_t, h, LDA, true, scratch, save, save.col(A_H, 0)});
+           StoreBf16{b + m.boff_t, h, LDA, true, scratch});
     __syncthreads();
     for (int i = 1; i < m.D; ++i) {
         const bool sk = (i == m.skip + 1);
         matmul(h, LDA, W, sk ? xenc : nullptr, ldx, sk ? XP : 0, w + m.off_t[i], W,
-               StoreBf16<Save>{b + m.boff_t + i * W, spare, LDA, true, scratch, save,
-                               save.col(A_H, i)});
+               StoreBf16{b + m.boff_t + i * W, spare, LDA, true, scratch});
         __syncthreads();
         bf16* t = h; h = spare; spare = t;
     }
@@ -186,35 +165,28 @@ __device__ __forceinline__ bf16* tile_forward(const float* p_tile, int nv, const
 
     if (HEADS == H_ALL) {
         // view encoding per row, in bufC's right half until rgb_h has read it
-        const int cd = save.col(A_ENCD, 0);
         for (int i = tid; i < TP * DP; i += NTHREADS) {
             const int r = i / DP, j = i % DP;
             const float v = (r < nv && j < view_ch)
                 ? pe_channel(vdirs + (size_t)((row0 + r) / ppd) * 3, j) : 0.0f;
-            const bf16 o = __float2bfloat16_rn(v);
-            bufC[r * LDA + HW + j] = o;
-            save.put(r, cd + j, o);
+            bufC[r * LDA + HW + j] = __float2bfloat16_rn(v);
         }
         // rgb_f = h @ Wrgbf + b (bf16, no activation) -> spare
         matmul(h, LDA, W, nullptr, 0, 0, w + m.off_rgbf, W,
-               StoreBf16<Save>{b + m.boff_rgbf, spare, LDA, false, scratch, save,
-                               save.col(A_RGBF, 0)});
+               StoreBf16{b + m.boff_rgbf, spare, LDA, false, scratch});
         __syncthreads();
         // rgb_h = relu([rgb_f, enc_d] @ Wrh + b) -> bufC[:, 0:W/2]
         matmul(spare, LDA, W, bufC + HW, LDA, DP, w + m.off_rh, HW,
-               StoreBf16<Save>{b + m.boff_rh, bufC, LDA, true, scratch, save,
-                               save.col(A_HH, 0)});
+               StoreBf16{b + m.boff_rh, bufC, LDA, true, scratch});
         __syncthreads();
     }
     // ins_f = h @ Winsf + b -> spare
     matmul(h, LDA, W, nullptr, 0, 0, w + m.off_insf, W,
-           StoreBf16<Save>{b + m.boff_insf, spare, LDA, false, scratch, save,
-                           save.col(A_INSF, 0)});
+           StoreBf16{b + m.boff_insf, spare, LDA, false, scratch});
     __syncthreads();
     // ins_h = relu(ins_f @ Wih + b) -> bufC[:, W/2:W]
     matmul(spare, LDA, W, nullptr, 0, 0, w + m.off_ih, HW,
-           StoreBf16<Save>{b + m.boff_ih, bufC + HW, LDA, true, scratch, save,
-                           save.col(A_HH, 0) + HW});
+           StoreBf16{b + m.boff_ih, bufC + HW, LDA, true, scratch});
     __syncthreads();
     return h;
 }

@@ -1,0 +1,389 @@
+// The matmul core of the training kernels (field.cu: K1 and both passes of
+// K2): 128-point tiles on bf16 tensor cores (mma.sync m16n8k16, operands by
+// ldmatrix) with the weights staged in shared memory by cp.async through a
+// ring of slabs, so the next slab is in flight while the current one is
+// multiplied.
+//
+// - A block of THREADS = 512 threads (16 warps, at most 128 registers each)
+//   owns TM = 128 rows (points). For an output [TM, N], warp w computes MT
+//   16-row tiles from row 16 MT (w % WM) and every WN-th 8-column tile from
+//   tile w / WM: fp32 accumulators in registers. With WM x WN = 2 x 8 a warp
+//   holds 64 rows, so each B fragment feeds 4 products and each A fragment
+//   up to 4 (chip_smoke.py phase 6b times a 4 x 4 grid, 2 products per
+//   fragment, beside it). Epilogues (bias, ReLU, bf16 rounding, ReLU mask
+//   bits) run on those registers. Sixteen warps, four per scheduler, hide
+//   the latency of the ldmatrix -> mma chains and of the per-slab barrier.
+// - Activations live in shared memory, rows padded by 8 bf16 so that the 8
+//   row addresses of one ldmatrix fall in distinct 16-byte bank groups.
+// - The weights a block reads form a Plan: the ordered list of segments of
+//   the packed matrices (kernels/render_field.py::pack_field) that its
+//   matmuls consume. A segment is either W[r0:r0+rows, :] read as B (the
+//   forward: reduction over rows) or the same rows read as B^T (the
+//   backward: reduction over the columns, one output column per row). Both
+//   come from the one packed layout: the backward's slabs are column blocks
+//   of W and its fragments are ldmatrix without .trans, the forward's are row
+//   blocks read with .trans.
+// - The ring cuts the plan into slabs of KSL reduction steps and keeps
+//   STAGES - 1 of them in flight across matmul and layer boundaries: every
+//   thread walks the same plan, copies its share of each slab with 16-byte
+//   cp.async, and one __syncthreads per slab both publishes the slab and
+//   frees the stage that the next copy overwrites.
+// - The weights are read once per 128 points, twice the 64 points per read of
+//   the tile_forward core (field_common.cuh) that K3/K4/K5 still use.
+
+#pragma once
+
+#include <cstdint>
+
+#include "field_common.cuh"
+
+namespace core {
+
+constexpr int TM = 128;                // rows (points) of a tile
+constexpr int WM = 2, WN = 8;          // the warp grid of a tile's output
+constexpr int THREADS = WM * WN * 32;
+constexpr int MT = TM / WM / 16;       // 16-row tiles per warp
+constexpr int SPAD = 8;                // bf16 padding of every shared-memory row
+constexpr int MAXW = 256;              // widest layer the register tiles hold
+constexpr int NT = MAXW / 8 / WN;      // 8-column tiles per warp at N = MAXW
+constexpr int MW = NT * MT * 4 / 32;   // mask words per thread at N = MAXW
+constexpr int NTO = (64 / 8 + WN - 1) / WN;   // tiles per warp of an output <= 64 wide
+constexpr int MAXSEG = 56;
+
+// One segment of the weight plan (element offsets into the packed weights).
+// trans 0: B = W[r0:r0+rows, 0:ldw], reduction over the rows, ldw outputs.
+// trans 1: B = W[r0:r0+rows, 0:ldw]^T, reduction over ldw, rows outputs.
+struct Seg {
+    int w_off, ldw, r0, rows, trans;
+};
+
+struct Plan {
+    int n;                 // segments
+    int stage_elems;       // bf16 elements of one ring stage (the largest slab)
+    Seg s[MAXSEG];
+};
+
+__host__ __device__ inline int seg_red(const Seg& s) { return s.trans ? s.ldw : s.rows; }
+__host__ __device__ inline int seg_out(const Seg& s) { return s.trans ? s.rows : s.ldw; }
+
+// ---- PTX ----------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
+}
+
+// 16 bytes, or 16 zero bytes when !valid (src is then not read)
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool valid) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 ::"r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1, const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+                 : "=r"(r0), "=r"(r1) : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t& r0, uint32_t& r1, const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+                 : "=r"(r0), "=r"(r1) : "r"(smem_u32(p)));
+}
+
+// d += a (16x16, row) @ b (16x8, col), bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+    asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+                 "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---- the weight ring ------------------------------------------------------------
+
+// bf16 elements of one slab of s in a ring of KSL-step slabs
+__host__ __device__ inline int slab_elems(const Seg& s, int ksl) {
+    return s.trans ? s.rows * (ksl + SPAD) : ksl * (s.ldw + SPAD);
+}
+
+template <int STAGES, int KSL>
+struct Ring {
+    bf16* base;            // STAGES * plan.stage_elems bf16 of shared memory
+    const Plan* plan;
+    const bf16* w;         // packed weights (global)
+    int t;                 // slabs consumed
+    int cseg;              // consumer's segment
+    int pseg, pslab;       // producer's next slab
+
+    __device__ __forceinline__ bf16* stage(int i) const { return base + i * plan->stage_elems; }
+
+    // copy the producer's next slab into stage i (every thread its share),
+    // and commit a cp.async group (an empty one past the end of the plan)
+    __device__ __forceinline__ void fetch(int i) {
+        if (pseg < plan->n) {
+            const Seg s = plan->s[pseg];
+            bf16* dst = stage(i);
+            const int red = seg_red(s), k0 = pslab * KSL, ks = min(KSL, red - k0);
+            if (!s.trans) {            // rows r0+k0 .. +ks, every column -> [ks][ldw+SPAD]
+                const int cpr = s.ldw / 8, ld = s.ldw + SPAD;
+                const bf16* src = w + s.w_off + (size_t)(s.r0 + k0) * s.ldw;
+                for (int c = threadIdx.x; c < ks * cpr; c += THREADS) {
+                    const int r = c / cpr, col = (c % cpr) * 8;
+                    cp_async16(dst + r * ld + col, src + (size_t)r * s.ldw + col);
+                }
+            } else {                   // every row, columns k0 .. +ks -> [rows][KSL+SPAD]
+                const int cpr = ks / 8;
+                const bf16* src = w + s.w_off + (size_t)s.r0 * s.ldw + k0;
+                for (int c = threadIdx.x; c < s.rows * cpr; c += THREADS) {
+                    const int r = c / cpr, col = (c % cpr) * 8;
+                    cp_async16(dst + r * (KSL + SPAD) + col, src + (size_t)r * s.ldw + col);
+                }
+            }
+            if (++pslab * KSL >= red) { pslab = 0; ++pseg; }
+        }
+        cp_async_commit();
+    }
+
+    __device__ __forceinline__ void start(bf16* smem_base, const Plan* p, const bf16* wts) {
+        base = smem_base; plan = p; w = wts;
+        t = cseg = pseg = pslab = 0;
+#pragma unroll
+        for (int i = 0; i < STAGES - 1; ++i) fetch(i);
+    }
+
+    // the next slab, landed and visible to every thread; its predecessor's
+    // stage is refilled with the slab STAGES - 1 ahead
+    __device__ __forceinline__ const bf16* acquire() {
+        cp_async_wait<STAGES - 2>();
+        __syncthreads();
+        fetch((t + STAGES - 1) % STAGES);
+        return stage(t++ % STAGES);
+    }
+};
+
+// ---- the warp tile ----------------------------------------------------------------
+
+// a warp's accumulators: MT row tiles x N 8-column tiles x 4 fp32
+template <int N>
+using AccT = float[MT][N][4];
+typedef AccT<NT> Acc;
+
+template <int N>
+__device__ __forceinline__ void zero(AccT<N>& acc) {
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int j = 0; j < N; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[mi][j][c] = 0.0f;
+}
+
+// This warp's place in the WM x WN warp grid of an output [TM, n]: rows
+// row0() ... +16 MT, and the 8-column tiles wn, wn + WN, wn + 2 WN, ...
+// (tiles() of them), so every width that is a multiple of 16 spreads over
+// the warps.
+__device__ __forceinline__ int warp_n() { return threadIdx.x / 32 / WM; }
+__device__ __forceinline__ int row0() { return (threadIdx.x / 32 % WM) * 16 * MT; }
+__device__ __forceinline__ int tiles(int n) { return (n / 8 - warp_n() + WN - 1) / WN; }
+
+// One 16-deep reduction step over exactly X of this warp's tiles,
+// branch-free so that the B fragment loads (two tiles per ldmatrix.x4) run
+// ahead of the products. bp is this lane's address for tile pair 0 (lanes
+// 16-31 already one tile on); tstep the element step from a tile to the next.
+template <int X, bool TRANS, int N>
+__device__ __forceinline__ void k16_exact(AccT<N>& acc, const uint32_t (&a)[MT][4],
+                                          const bf16* bp, int tstep) {
+#pragma unroll
+    for (int j = 0; j + 1 < X; j += 2) {
+        uint32_t b[4];
+        if (TRANS) ldsm_x4(b, bp + j * tstep);
+        else ldsm_x4_t(b, bp + j * tstep);
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi) {
+            mma16816(acc[mi][j], a[mi], b[0], b[1]);
+            mma16816(acc[mi][j + 1], a[mi], b[2], b[3]);
+        }
+    }
+    if (X % 2) {
+        uint32_t b0, b1;
+        if (TRANS) ldsm_x2(b0, b1, bp + (X - 1) * tstep);
+        else ldsm_x2_t(b0, b1, bp + (X - 1) * tstep);
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi) mma16816(acc[mi][X - 1], a[mi], b0, b1);
+    }
+}
+
+// The same for nt tiles known only at run time (every count up to N has its
+// branch-free body).
+template <bool TRANS, int N>
+__device__ __forceinline__ void k16(AccT<N>& acc, int nt, const uint32_t (&a)[MT][4],
+                                    const bf16* bp, int tstep) {
+    switch (nt) {
+        case 8: if constexpr (N >= 8) k16_exact<8, TRANS>(acc, a, bp, tstep); break;
+        case 7: if constexpr (N >= 7) k16_exact<7, TRANS>(acc, a, bp, tstep); break;
+        case 6: if constexpr (N >= 6) k16_exact<6, TRANS>(acc, a, bp, tstep); break;
+        case 5: if constexpr (N >= 5) k16_exact<5, TRANS>(acc, a, bp, tstep); break;
+        case 4: if constexpr (N >= 4) k16_exact<4, TRANS>(acc, a, bp, tstep); break;
+        case 3: if constexpr (N >= 3) k16_exact<3, TRANS>(acc, a, bp, tstep); break;
+        case 2: if constexpr (N >= 2) k16_exact<2, TRANS>(acc, a, bp, tstep); break;
+        case 1: k16_exact<1, TRANS>(acc, a, bp, tstep); break;
+        default: break;
+    }
+}
+
+// acc += A [TM, red] (shared, ld lda) @ B, B the plan's next segment, whose
+// seg_out columns this warp holds tiles(seg_out) <= N tiles of.
+template <int N, int STAGES, int KSL>
+__device__ __forceinline__ void run_seg(Ring<STAGES, KSL>& R, AccT<N>& acc, const bf16* A,
+                                        int lda) {
+    const Seg s = R.plan->s[R.cseg++];
+    const int red = seg_red(s), nt = tiles(seg_out(s));
+    const int lane = threadIdx.x % 32, c0 = warp_n() * 8;
+    const bf16* arow = A + (row0() + (lane & 15)) * lda + (lane >> 4) * 8;
+    // this lane's ldmatrix row of B for tile pair 0 at reduction step 0
+    const int ldt = KSL + SPAD, ldn = s.ldw + SPAD;
+    const int boff = s.trans
+        ? (c0 + (lane & 7) + ((lane >> 4) & 1) * 8 * WN) * ldt + ((lane >> 3) & 1) * 8
+        : (lane & 15) * ldn + c0 + (lane >> 4) * 8 * WN;
+    for (int k0 = 0; k0 < red; k0 += KSL) {
+        const bf16* st = R.acquire() + boff;
+        const int ks = min(KSL, red - k0);
+        for (int kk = 0; kk < ks; kk += 16) {
+            uint32_t a[MT][4];
+#pragma unroll
+            for (int mi = 0; mi < MT; ++mi) ldsm_x4(a[mi], arow + mi * 16 * lda + k0 + kk);
+            if (s.trans) k16<true>(acc, nt, a, st + kk, 8 * WN * ldt);
+            else k16<false>(acc, nt, a, st + kk * ldn, 8 * WN);
+        }
+    }
+}
+
+// f(row, col, v0, v1, bit) for every pair of adjacent columns (col even) of
+// this warp's accumulators of an output with n columns; bit is the pair's
+// first bit in this thread's mask words (the second is bit + 1).
+template <int N, class F>
+__device__ __forceinline__ void for_pairs(AccT<N>& acc, int n, F f) {
+    const int lane = threadIdx.x % 32, nt = tiles(n);
+    const int r0 = row0() + lane / 4;
+    const int c0 = warp_n() * 8 + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+        if (j < nt) {
+#pragma unroll
+            for (int mi = 0; mi < MT; ++mi) {
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    f(r0 + mi * 16 + h * 8, c0 + j * 8 * WN, acc[mi][j][2 * h],
+                      acc[mi][j][2 * h + 1], (j * MT + mi) * 4 + 2 * h);
+                }
+            }
+        }
+    }
+}
+
+__device__ __forceinline__ void st_bf16x2(bf16* p, float a, float b) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// mask words a thread keeps for an output of n columns (one bit per value)
+__device__ __forceinline__ int mask_words(int n) { return (tiles(n) * MT * 4 + 31) / 32; }
+
+// Epilogue: dst[r, c] = bf16(relu?(acc + bias[c])) over n columns and, if
+// mask is non-null, the bits (value > 0) into this thread's words
+// mask[w * THREADS] (w < mask_words(n) <= MW).
+__device__ __forceinline__ void store_act(Acc& acc, int n, const float* __restrict__ bias,
+                                          bool relu, bf16* dst, int ldd, uint32_t* mask) {
+    uint32_t words[MW] = {};
+    for_pairs(acc, n, [&](int r, int c, float v0, float v1, int bit) {
+        const float2 bb = *reinterpret_cast<const float2*>(bias + c);
+        v0 += bb.x;
+        v1 += bb.y;
+        if (relu) { v0 = fmaxf(v0, 0.0f); v1 = fmaxf(v1, 0.0f); }
+        const __nv_bfloat162 o = __floats2bfloat162_rn(v0, v1);
+        *reinterpret_cast<__nv_bfloat162*>(dst + r * ldd + c) = o;
+        if (__bfloat162float(o.x) > 0.0f) words[bit / 32] |= 1u << (bit % 32);
+        if (__bfloat162float(o.y) > 0.0f) words[bit / 32] |= 1u << (bit % 32 + 1);
+    });
+    if (mask) {
+        const int nw = mask_words(n);
+#pragma unroll
+        for (int i = 0; i < MW; ++i)
+            if (i < nw) mask[i * THREADS + threadIdx.x] = words[i];
+    }
+}
+
+// Epilogue of a backward matmul: dst[r, c] = bf16(acc * relu'(saved)) over n
+// columns, the mask words as store_act wrote them (mask null: no ReLU).
+__device__ __forceinline__ void store_grad(Acc& acc, int n, bf16* dst, int ldd,
+                                           const uint32_t* mask) {
+    uint32_t words[MW];
+#pragma unroll
+    for (int i = 0; i < MW; ++i) words[i] = ~0u;
+    if (mask) {
+        const int nw = mask_words(n);
+#pragma unroll
+        for (int i = 0; i < MW; ++i)
+            if (i < nw) words[i] = mask[i * THREADS + threadIdx.x];
+    }
+    for_pairs(acc, n, [&](int r, int c, float v0, float v1, int bit) {
+        const uint32_t wd = words[bit / 32];
+        st_bf16x2(dst + r * ldd + c, (wd >> (bit % 32)) & 1u ? v0 : 0.0f,
+                  (wd >> (bit % 32 + 1)) & 1u ? v1 : 0.0f);
+    });
+}
+
+// ---- bulk stores of a tile's rows (K2's scratch) ---------------------------------
+
+// [TM, ncols] bf16 from shared memory (ld lds) to global rows (ld ldg): one
+// asynchronous bulk copy per row (cp.async.bulk, the TMA's 1-D form), started
+// by threads 0 .. TM-1, so the copies overlap the next matmul. ncols, lds,
+// ldg and both column offsets are multiples of 8. Call after publish().
+__device__ __forceinline__ void store_rows(const bf16* src, int lds, int ncols, bf16* dst,
+                                           int ldg) {
+    if (threadIdx.x < TM) {
+        asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+                     ::"l"(dst + (size_t)threadIdx.x * ldg),
+                     "r"(smem_u32(src + threadIdx.x * lds)), "r"(ncols * 2)
+                     : "memory");
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    }
+}
+
+// Every thread's shared-memory writes so far, visible to the bulk copies.
+__device__ __forceinline__ void publish() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+}
+
+// A barrier after which shared memory may be written again: every bulk copy
+// has finished reading its rows.
+__device__ __forceinline__ void sync_write() {
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    __syncthreads();
+}
+
+// The bulk copies' writes complete (before the block exits).
+__device__ __forceinline__ void drain_stores() {
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+}  // namespace core

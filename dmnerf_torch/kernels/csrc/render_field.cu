@@ -44,9 +44,9 @@
 // - Outputs carry no lane padding: weights [R,S] (sigma), rgb [R,3], depth
 //   [R] and instance logits [R,K+1] (all), or instance logits [R,K+1] (ins).
 //
-// The shared device code (Meta, pe_channel, the wmma matmul and its
+// The device code of the tile (Meta, pe_channel, the wmma matmul and its
 // epilogues, and tile_forward: a tile through the trunk and the heads) lives
-// in field_common.cuh, which field.cu (K1/K2) includes too.
+// in field_common.cuh, whose Meta and pe_channel field.cu (K1/K2) uses too.
 // Plain C interface for ctypes; each entry returns cudaGetLastError() after
 // its launch so a refused launch is reported to the wrapper.
 
@@ -101,8 +101,7 @@ render_field_kernel(const float* __restrict__ pts, const float* __restrict__ vdi
 
         // the trunk and, in ALL/INS, the heads; every row looks along the ray
         bf16* h = tile_forward<HEADS>(p_tile, nv, ALL ? vdirs + (size_t)ray * 3 : nullptr, 0,
-                                      TP, w, b, m, bufA, bufB, bufC, xenc, LDX, scratch,
-                                      NoSave{});
+                                      TP, w, b, m, bufA, bufB, bufC, xenc, LDX, scratch);
         // [TP, CP] fp32 raw in the activation buffer that h is not in
         float* stage = reinterpret_cast<float*>(h == bufA ? bufB : bufA);
 

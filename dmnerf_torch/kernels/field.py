@@ -42,7 +42,8 @@ from dmnerf_torch.models.fields import FieldConfig
 # launches of each kernel since the last reset (the CPU plain path adds none)
 LAUNCHES: Dict[str, int] = {"field_forward": 0, "field_backward": 0}
 
-# points per fixed-order partial of K2's dW and bias sums
+# points per fixed-order partial of K2's dW and bias sums (a multiple of the
+# dW pass's 32-point slabs)
 PSPLIT = 16384
 # points per chunk of the plain backward (bounds its fp32 activations)
 REF_CHUNK = 1 << 16
@@ -343,7 +344,8 @@ def field_backward(packed: PackedField, pts: torch.Tensor, dirs: torch.Tensor, p
                                        ctypes.byref(aw), ctypes.byref(yw)),
               lib, "field_scratch_widths")
     P = pts.shape[0]
-    P_pad = -(-P // 64) * 64
+    tile = lib.field_tile_rows()
+    P_pad = -(-P // tile) * tile
     n_split = -(-P_pad // PSPLIT)
     dev, f32, bf16 = pts.device, torch.float32, torch.bfloat16
     act = torch.empty((P_pad, aw.value), dtype=bf16, device=dev)

@@ -28,7 +28,7 @@ from dmnerf_torch.train.checkpoint import (latest_checkpoint, restore_checkpoint
                                            save_checkpoint)
 from dmnerf_torch.train.step import (create_train_state, make_train_scan_step,
                                      scene_arrays)
-from dmnerf_tpu.config import log_dir
+from dmnerf_torch.config import log_dir
 
 
 def _scan_stride(args, eval_every: int) -> int:

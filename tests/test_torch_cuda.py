@@ -83,7 +83,8 @@ def test_f32_precision_has_no_kernel():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("width,ins_num,R,S", [(64, 11, 37, 100), (256, 32, 16, 70)])
+@pytest.mark.parametrize("width,ins_num,R,S", [(64, 11, 37, 100), (256, 32, 16, 70),
+                                               (256, 32, 2, 50)])
 def test_field_kernels_match_plain_versions_on_the_card(width, ins_num, R, S):
     """K1 vs DMNeRFField.forward and K2 vs field_backward_ref on the same
     card (TF32 off). Both round to bf16 at the same places; the order of fp32
@@ -97,7 +98,7 @@ def test_field_kernels_match_plain_versions_on_the_card(width, ins_num, R, S):
     (the plain version moves by 1.1e-2 with f64 in place of f32 accumulation
     at width 256). K2 is bit-identical across launches, and an
     instance-logit loss gives the trunk exactly zero. R*S is not a multiple
-    of the 64-point tile."""
+    of the kernels' 128-point tile, and 100 points leave one partial tile."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -144,8 +145,8 @@ def test_train_steps_run_through_the_kernels():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     from dmnerf_torch.train.step import create_train_state, make_train_scan_step, scene_arrays
-    from dmnerf_tpu.config import default_config
-    from dmnerf_tpu.data.synthetic import make_scene
+    from dmnerf_torch.config import default_config
+    from dmnerf_torch.data.synthetic import make_scene
 
     scene = make_scene(H=16, W=16, n_train=2, n_test=1)
     args = default_config(N_train=256, N_samples=16, N_importance=16, near=1.0, far=12.0,
@@ -175,8 +176,8 @@ def test_edit_launches_k1_and_k5_per_chunk():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     from dmnerf_torch.edit.manipulator import make_pose_image_manipulator
-    from dmnerf_tpu.config import default_config
-    from dmnerf_tpu.data.synthetic import make_scene
+    from dmnerf_torch.config import default_config
+    from dmnerf_torch.data.synthetic import make_scene
 
     scene = make_scene(H=12, W=12, n_train=1, n_test=1)
     args = default_config(N_test=64, N_samples=16, N_importance=32, near=1.0, far=12.0)

@@ -220,3 +220,30 @@ def test_flatten_inputs_and_validation():
         kf.field_forward(packed, pts.to("meta"), torch.zeros(4, 1, 3, device="meta"))
     with pytest.raises(ValueError):
         kf.make_pallas_field(f32_field.cfg)(field, pts, torch.zeros(4, 1, 3))
+
+
+def _chip_smoke():
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("part", ["sigma", "ins", "all"])
+@pytest.mark.parametrize("over", [{}, dict(netdepth=8, netwidth=256, multires=10,
+                                           multires_views=4, ins_num=32, skip=4)])
+def test_chip_smoke_counts_the_field_layers(part, over):
+    """chip_smoke.py's bounds count one multiply-add per weight of the layers
+    a kernel runs, per point: every Linear for the whole field, the trunk and
+    density for K4, and those and the instance branch for K5."""
+    field = tf.DMNeRFField(tf.FieldConfig(**{**CFG, **over}))
+    heads = {"sigma": ("mlps.", "density_linear."),
+             "ins": ("mlps.", "density_linear.", "ins_"),
+             "all": ("",)}[part]
+    want = sum(p.numel() for n, p in field.named_parameters()
+               if n.endswith("weight") and n.startswith(heads))
+    assert _chip_smoke().field_macs(field.cfg, part) == want

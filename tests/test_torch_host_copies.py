@@ -1,0 +1,164 @@
+"""The port's copies of the JAX package's host modules (config, data, edit
+transforms and deform, utils/viz) give what their sources give, and no module
+of the port imports the JAX package.
+
+The copies live in dmnerf_torch/ and name their source on their first line;
+each case here runs a source and its copy on the same inputs.
+"""
+
+import ast
+import dataclasses
+import glob
+import os
+import types
+
+import numpy as np
+import pytest
+
+import dmnerf_torch.config as tcfg
+import dmnerf_torch.data.base as tbase
+import dmnerf_torch.edit.deform as tdeform
+import dmnerf_torch.edit.transforms as ttrans
+import dmnerf_torch.utils.viz as tviz
+import dmnerf_tpu.config as jcfg
+import dmnerf_tpu.data.base as jbase
+import dmnerf_tpu.edit.deform as jdeform
+import dmnerf_tpu.edit.transforms as jtrans
+import dmnerf_tpu.utils.viz as jviz
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONFIGS = sorted(os.path.relpath(p, REPO)
+                 for p in glob.glob(os.path.join(REPO, "configs", "**", "*.txt"), recursive=True))
+PORT_FILES = sorted(os.path.relpath(p, REPO) for p in glob.glob(
+    os.path.join(REPO, "dmnerf_torch", "**", "*.py"), recursive=True)) + ["chip_smoke.py"]
+
+
+def _equal(a, b):
+    """Bit-for-bit equality of two loaded values (arrays, lists, dicts, scalars)."""
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b, equal_nan=True)
+    if isinstance(a, (list, tuple)):
+        return type(a) is type(b) and len(a) == len(b) and all(map(_equal, a, b))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_equal(a[k], b[k]) for k in a)
+    return type(a) is type(b) and a == b
+
+
+@pytest.mark.parametrize("path", CONFIGS)
+def test_config_files_parse_the_same(path):
+    argv = ["--config", os.path.join(REPO, path)]
+    assert vars(tcfg.parse_args(argv)) == vars(jcfg.parse_args(argv))
+
+
+def test_the_configs_were_found():
+    assert len(CONFIGS) >= 50
+
+
+@pytest.mark.parametrize("datadir", ["./data/synthetic/boxroom8x4",
+                                     "./data/synthetic/boxroomcrop8x4"])
+def test_load_dataset_gives_the_same_scene(datadir):
+    args = types.SimpleNamespace(datadir=datadir)
+    got, want = tbase.load_dataset(args), jbase.load_dataset(args)
+    assert type(got).__name__ == type(want).__name__ == "SceneData"
+    fields = [f.name for f in dataclasses.fields(want)]
+    assert fields == [f.name for f in dataclasses.fields(got)]
+    for name in fields:
+        assert _equal(getattr(got, name), getattr(want, name)), name
+    if "crop" in datadir:
+        assert got.crop_mask is not None and got.ins_indices is not None
+
+
+@pytest.mark.parametrize("mode", ["translation", "rotation", "scale", "multi"])
+def test_transforms_agree(mode, tmp_path):
+    rng = np.random.default_rng(0)
+    center = rng.normal(size=3)
+    for fn in ("r_x", "r_y", "r_z"):
+        a = rng.uniform(-np.pi, np.pi)
+        assert _equal(getattr(ttrans, fn)(a), getattr(jtrans, fn)(a))
+    th, ph, r = rng.uniform(0, 360), rng.uniform(-90, 0), rng.uniform(1, 5)
+    assert _equal(ttrans.pose_spherical(th, ph, r), jtrans.pose_spherical(th, ph, r))
+    assert _equal(ttrans._mode_matrix(mode), jtrans._mode_matrix(mode))
+    M = rng.normal(size=(4, 4))
+    assert _equal(ttrans._center_conjugate(M, center), jtrans._center_conjugate(M, center))
+
+    out = {}
+    for name, mod in (("torch", ttrans), ("tpu", jtrans)):
+        args = types.SimpleNamespace(expname="not_a_scene", mani_mode=mode, views=3,
+                                     datadir=str(tmp_path / name))
+        ev = mod.generate_poses_eval(args, center=list(center))
+        objs = [{"obj_name": "a", "mani_mode": mode, "obj_center": list(center),
+                 "distance": [0.3, -0.2]},
+                {"obj_name": "b", "mani_mode": "deform", "obj_center": [0, 0, 0]}]
+        demo = mod.generate_poses_demo(objs, args)
+        out[name] = (ev, mod.load_mani_poses(args), demo, mod.load_mani_demo_poses(args))
+    assert _equal(out["torch"], out["tpu"])
+
+
+@pytest.mark.parametrize("func", ["sin", "ex", "linear", "abs_linear", "ln"])
+def test_deform_agrees(func):
+    rng = np.random.default_rng(1)
+    H, W = 7, 5
+    ro, rd = rng.normal(size=(H * W, 3)), rng.normal(size=(H * W, 3))
+    assert _equal(tdeform.deform_curve(func, H, W), jdeform.deform_curve(func, H, W))
+    for view in range(4):
+        assert _equal(tdeform.deform_scale(func, view), jdeform.deform_scale(func, view))
+        assert _equal(tdeform.deform_offsets(func, H, W, view),
+                      jdeform.deform_offsets(func, H, W, view))
+        assert _equal(tdeform.deform_rays(ro, rd, func, H, W, view),
+                      jdeform.deform_rays(ro, rd, func, H, W, view))
+
+
+def test_viz_label_mappers_agree(tmp_path):
+    rng = np.random.default_rng(2)
+    rgbs = rng.integers(0, 255, (6, 3))
+    labels = rng.integers(-2, 6, (9, 11))
+    pos = np.abs(labels) % 6
+    color_dict = {str(i): (i * 5) % 6 for i in range(6)}
+    ins_map = {str(i): (i + 1) % 6 for i in range(5)}
+    probs = rng.uniform(size=(9, 11, 6))
+    x = rng.uniform(-0.5, 1.5, (4, 3))
+    assert _equal(tviz.to8b(x), jviz.to8b(x))
+    for fn, fargs in (("render_label2img", (pos, rgbs, color_dict, ins_map)),
+                      ("render_gt_label2img", (pos, rgbs, color_dict)),
+                      ("render_label2world", (pos.reshape(-1), rgbs, color_dict, ins_map)),
+                      ("ins2img", (probs, rgbs)),
+                      ("matching_label2img", (labels.clip(-2, 5), rgbs))):
+        assert _equal(getattr(tviz, fn)(*fargs), getattr(jviz, fn)(*fargs)), fn
+    path = tmp_path / "colors.json"
+    path.write_text('{"dmsr": {"tiny": {"1": 2, "3": 0}}}')
+    assert tviz.load_color_dict(str(path), "dmsr", "tiny") == \
+        jviz.load_color_dict(str(path), "dmsr", "tiny")
+
+
+def test_dmsr_mani_readers_agree(tmp_path):
+    pytest.importorskip("imageio")
+    pytest.importorskip("h5py")
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from test_torch_edit import _dmsr_fixture
+
+    import dmnerf_torch.data.dmsr_mani as tmani
+    import dmnerf_tpu.data.dmsr_mani as jmani
+
+    root = tmp_path / "dmsr" / "tiny"
+    _dmsr_fixture(str(root))
+    args = types.SimpleNamespace(datadir=str(root), mani_mode="translation", testskip=1)
+    got, want = tmani.load_data(args), jmani.load_data(args)
+    for f in dataclasses.fields(want):
+        assert _equal(getattr(got, f.name), getattr(want, f.name)), f.name
+
+
+def _imports(path):
+    tree = ast.parse(open(os.path.join(REPO, path)).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_the_port_imports_nothing_of_the_jax_package(path):
+    bad = [m for m in _imports(path) if m.split(".")[0] in ("dmnerf_tpu", "jax", "jaxlib")]
+    assert not bad, f"{path} imports {bad}"

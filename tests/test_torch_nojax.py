@@ -1,5 +1,6 @@
-"""The port imports neither jax, orbax nor imageio: `import dmnerf_torch`, its
-edit modules and a tiny CPU render through its CLI, in a fresh interpreter."""
+"""The port imports neither jax, orbax, imageio nor anything of the JAX
+package dmnerf_tpu: `import dmnerf_torch`, its edit modules and a tiny CPU
+render through its CLI, in a fresh interpreter."""
 
 import json
 import os
@@ -37,7 +38,8 @@ def test_import_and_cli_render_load_no_jax(tmp_path):
                             "--render", "--device", "cpu"])
         print(json.dumps({{
             "loaded": sorted(m for m in sys.modules
-                             if m.split(".")[0] in ("jax", "jaxlib", "orbax", "imageio")),
+                             if m.split(".")[0] in ("jax", "jaxlib", "orbax", "imageio",
+                                                     "dmnerf_tpu")),
             "results": os.path.exists(os.path.join(savedir, "test_results.txt")),
         }}))
     """)
@@ -51,7 +53,7 @@ def test_import_and_cli_render_load_no_jax(tmp_path):
 def test_cli_train_loads_no_jax(tmp_path):
     """A tiny CPU run of dmnerf_torch.cli.train (boxroom8x4, 3 steps, a
     checkpoint and an in-train eval) in a fresh interpreter loads none of
-    jax, orbax or imageio."""
+    jax, orbax, imageio or dmnerf_tpu."""
     script = textwrap.dedent(f"""
         import json, os, sys
         import dmnerf_torch.cli.train as cli
@@ -67,7 +69,8 @@ def test_cli_train_loads_no_jax(tmp_path):
                           "--device", "cpu"])
         print(json.dumps({{
             "loaded": sorted(m for m in sys.modules
-                             if m.split(".")[0] in ("jax", "jaxlib", "orbax", "imageio")),
+                             if m.split(".")[0] in ("jax", "jaxlib", "orbax", "imageio",
+                                                     "dmnerf_tpu")),
             "step": state.step,
             "tar": os.path.exists(os.path.join({str(tmp_path)!r}, "logs", "nj", "run",
                                                "000003.tar")),
