@@ -12,27 +12,32 @@ Phases (each fails the run by raising; nothing is caught):
 3. kernels vs their plain PyTorch versions at the flagship field (8x256,
    PE 10/4, K=32, bf16) on 4096 rays: K4 (render_field_sigma) at S=64, K3
    (render_field_all) at S=192 on the z-union that the coarse pass and
-   sample_pdf produce; max abs error per output against its tolerance, and the
-   median time of each (CUDA events).
+   sample_pdf produce; max abs error per output against its tolerance, K3
+   against core/rendering.composite of K1's raw (K1 and K3 run the same tile
+   forward) within COMPOSITE_TOL, and the median time of each (CUDA events).
+   3b: K3 and K5 the same way at K=64 (CP 80).
 4. the slice through its entry point: dmnerf_torch.cli.test --render on the
    synthetic scene boxroom128x8 (128x128, 2 test views) with a He-initialised
    flagship pair saved as 000001.tar; test_results.txt must hold finite PSNR
    and both kernels must have launched once per 4096-ray chunk per view. Then
    a 32x32 render through the kernels is held against the plain unfused path.
 5. throughput at bench.py's render workload: 128x128 views, 4 poses x 3,
-   K=32, N_test 4096, through make_image_renderer(...).many.
+   K=32, N_test 4096, through make_image_renderer(...).many; then
+   torch.profiler over 4 more views: device time by kernel and the device's
+   idle share.
 6. K1 (field_forward) and K2 (field_backward) vs their plain versions at the
    flagship field (K=32, bf16) on the train step's shapes, 3072 rays x 64
    (coarse) and x 192 (fine) points: the error of raw per column (and that
    the check rejects raw with the rgb bias off by 10%), relative L2 error of
    every parameter's gradient, K2 bit-identical across two launches, an
    instance-logit loss giving the trunk exactly zero gradient, and the median
-   time of each kernel and its plain version (K1; K2; both); the rate that
-   torch.matmul reaches at [589,824 x 256] @ [256 x 256] bf16, as a
-   reference for this width (the port never calls it). 6b: K1 and K2 timed
-   through builds of their core with the weight slab loads, the per-slab
-   barrier, or both taken out, and on a 4 x 4 warp grid (built in parallel
-   since phase 2; timing only, the first three are wrong by design).
+   time of each kernel and its plain version (K1; K2; both); the same checks
+   and times at K=64 on the coarse shape; the rate that torch.matmul reaches
+   at [589,824 x 256] @ [256 x 256] bf16, as a reference for this width (the
+   port never calls it). 6b: K1 and K2 timed through builds of their core
+   with the weight slab loads, the per-slab barrier, or both taken out, and
+   on a 4 x 4 warp grid (built in parallel since phase 2; timing only, the
+   first three are wrong by design).
 7. the training slice through its entry point: dmnerf_torch.cli.train on
    boxroom128x8 at flagship width (N_train 3072, 64+128 samples, penalizer,
    bf16) for 30 steps with one in-train eval; every printed loss finite, K1
@@ -42,13 +47,13 @@ Phases (each fails the run by raising; nothing is caught):
 8. training throughput at bench.py's train workload (bench.py:56-82: K=32 on
    the subdivided boxroom labels, penalizer on; flags and scene through
    dmnerf_torch.cli.train's loader): ms/step and rays/s over 20
-   steps after warm-up, and the split of the step into K1, K2, the LAP's host
-   solve, pack_field and the rest.
+   steps after warm-up, the split of the step into K1, K2, the LAP's host
+   solve, pack_field and the rest, and torch.profiler over 3 steps.
 9. K5 (render_field_ins) vs its plain version at the flagship field (K=32) on
    phase 3's 4096 rays x 192 samples, the z-union of an accumulated-label
    pass (the det linspace and 128 det sample_pdf samples): per-ray max error
-   of the logits, and the median times of K5, its plain version and K3 at
-   that shape.
+   of the logits, the logits equal to K3's bit for bit, and the median times
+   of K5, its plain version and K3 at that shape.
 10. the edit slice through its entry points, dmnerf_torch.edit.runner's
    manipulator_eval (boxroom128x8's test views, a rigid translation of label
    1) and manipulator_demo (a rigid translation and a 'sin' deform, 2 views),
@@ -61,13 +66,15 @@ Phases (each fails the run by raising; nothing is caught):
    rigid object, N_test 4096): ms/image over 12 poses at 128x128 and 3 at
    640x480, one view launched ahead as the runners do; the split of one
    128x128 view into K1, K5, sample_pdf, the sorts, the exchanger, the
-   composites and the rest (CUDA events); and the chunk over {1024, 2048,
-   4096, 8192} at 128x128 with its peak device memory.
+   composites and the rest (CUDA events); torch.profiler over 2 views; and
+   the chunk over {1024, 2048, 4096, 8192} at 128x128 with its peak device
+   memory.
 Phases 3, 6 and 9 also print each kernel's bound (the larger of its
 operations over the bf16 tensor-core peak and its bytes over the memory
 rate), its TFLOP/s and its share of the bound. The line before the last is a
-JSON object with one entry per kernel; the last line is {"ok": true,
-"device": {...}}. The run fails if it loaded jax or the JAX package.
+JSON object with one entry per kernel (its K=64 reading under "k64"); the
+last line is {"ok": true, "device": {...}}. The run fails if it loaded jax
+or the JAX package.
 """
 
 import json
@@ -113,6 +120,14 @@ MAX_STEP_RAYS = 8
 # 10% measured 1.0e-2 relative L2, and the check must reject it.
 RAW_COL_TOL = 3e-2
 RAW_L2_TOL = 5e-3
+# K3 vs core/rendering.composite of K1's raw: K1 and K3 run the same tile
+# forward, so their raw agrees to the last bit and only the fp32 rounding of
+# the scan (the kernel's sequential sums and expf against torch's cumprod,
+# sums and exp) differs. Max abs error over max(1, max |output|): an NVIDIA
+# H100 (700 W) measured at most 1.1e-6 at K=32 and K=64 on 4096 x 192; a
+# one-ulp bf16 flip in the raw (what a different field would give) moves it
+# by ~1e-3.
+COMPOSITE_TOL = 2e-5
 # An edit through the kernels vs the plain path (use_pallas False), per
 # pixel: a one-ulp bf16 flip can move a point's instance argmax and with it an
 # exchange decision, so single pixels may differ by a lot while the image
@@ -199,6 +214,75 @@ def roofline(entry, macs, nbytes):
 
 def weight_bytes(packed):
     return packed.w.numel() * packed.w.element_size() + packed.b.numel() * 4
+
+
+def render_bytes(name, R, S, packed, ins_num):
+    """Bytes a render kernel must move: points, z and dists per sample (+ view
+    directions per ray for K3) and the weights in; weights per sample (K4),
+    rgb, depth and logits per ray (K3) or logits per ray (K5) out."""
+    out = {"render_field_sigma": S, "render_field_all": 3 + 1 + ins_num + 1,
+           "render_field_ins": ins_num + 1}[name]
+    return (R * S * (12 + 4 + 4) + (R * 12 if name == "render_field_all" else 0)
+            + weight_bytes(packed) + R * out * 4)
+
+
+def against_k1_composite(name, k3_out, packed, pts, vd, z, rd):
+    """K3's (rgb, depth, ins_logits) vs core/rendering.composite of K1's raw
+    for the same points, within COMPOSITE_TOL of each output's scale."""
+    from dmnerf_torch.core.rendering import composite
+    from dmnerf_torch.kernels import field as kf
+    comp = composite(kf.field_forward(packed, pts, vd), z, rd, keep_air=True)
+    for out, got, want in zip(("rgb", "depth", "ins_logits"), k3_out,
+                              (comp.rgb, comp.depth, comp.ins_logits)):
+        err = float((got - want).abs().max())
+        scale = max(1.0, float(want.abs().max()))
+        print(f"{name} {out} vs composite(field_forward(...)): max abs err {err:.3e}, "
+              f"{err / scale:.3e} of max(1, max |{out}|) (tolerance {COMPOSITE_TOL:.0e})")
+        if err > COMPOSITE_TOL * scale:
+            raise AssertionError(f"{name} {out} is not the composite of K1's raw")
+
+
+def wide_render_kernels(dev, card, ro, rd, vd, z):
+    """Phase 3b: K3 and K5 at K=64 (CP 80) on phase 3's
+    rays and fine z-union, against their plain versions and K1's composite;
+    K5's logits equal K3's. Returns {name: its K=64 reading for the kernels
+    line}."""
+    from dmnerf_torch.kernels import render_field as krf
+    from dmnerf_torch.models.fields import FieldConfig, init_field_params
+
+    phase("3b K3/K5 vs plain versions at K=64 (flagship 8x256, bf16, 4096 rays x 192)")
+    cfg = FieldConfig(**FLAGSHIP, ins_num=64)
+    field = init_field_params(torch.Generator().manual_seed(64), cfg, device=dev).eval()
+    packed = krf.pack_field(field)
+    R, S = z.shape
+    pts = ro[:, None] + rd[:, None] * z[:, :, None]
+    out = {}
+    with torch.no_grad():
+        k3, k5 = krf.render_field_all(packed, pts, vd, z, rd), krf.render_field_ins(packed, pts, z, rd)
+        p3, p5 = krf.render_field_all_ref(field, pts, vd, z, rd), krf.render_field_ins_ref(field, pts, z, rd)
+        torch.cuda.synchronize()
+        sig_last = field.density(pts[:, -1])[..., 0]
+        worst = {"render_field_all": max(check("render_field_all K=64", o, g, w, sig_last)
+                                         for o, g, w in zip(("rgb", "depth", "ins_logits"), k3, p3)),
+                 "render_field_ins": check("render_field_ins K=64", "ins_logits", k5, p5, sig_last)}
+        if not torch.equal(k5, k3[2]):
+            raise AssertionError("K5's logits differ from K3's at K=64")
+        print("render_field_ins K=64: logits equal to render_field_all's bit for bit")
+        against_k1_composite("render_field_all K=64", k3, packed, pts, vd, z, rd)
+        fns = {"render_field_all": (lambda: krf.render_field_all(packed, pts, vd, z, rd),
+                                    lambda: krf.render_field_all_ref(field, pts, vd, z, rd)),
+               "render_field_ins": (lambda: krf.render_field_ins(packed, pts, z, rd),
+                                    lambda: krf.render_field_ins_ref(field, pts, z, rd))}
+        for name, (k_fn, p_fn) in fns.items():
+            p1, k1, k2, p2 = cuda_ms(p_fn), cuda_ms(k_fn), cuda_ms(k_fn), cuda_ms(p_fn)
+            print(f"{name} K=64: kernel {min(k1, k2):.3f} ms, plain {min(p1, p2):.3f} ms "
+                  f"(median of 10; R={R}, S={S}; {card})")
+            out[name] = roofline(
+                {"name": f"{name} K=64", "max_abs_err": worst[name], "ms": min(k1, k2),
+                 "plain_ms": min(p1, p2)},
+                field_macs(cfg, name.split("_")[-1]) * R * S,
+                render_bytes(name, R, S, packed, cfg.ins_num))
+    return out
 
 
 # Timing-only builds of the K1/K2 core with one part taken out (their outputs
@@ -353,15 +437,15 @@ def main():
             print(f"{name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
                   f"(median of 10; R=4096, S={z_c.shape[1] if 'sigma' in name else 192}; {card})")
             S_k = z_c.shape[1] if "sigma" in name else z_f.shape[1]
-            # in: points, z and dists per sample (+ view directions per ray);
-            # out: weights per sample (K4) or rgb, depth, logits per ray (K3)
-            nbytes = R * S_k * (12 + 4 + 4) + weight_bytes(pf) + (
-                R * S_k * 4 if "sigma" in name else R * (12 + (3 + 1 + cfg.ins_num + 1) * 4))
             kernels.append(roofline(
                 {"name": name, "route": "cuda", "source": SRC, "replaces": REPLACES,
                  "heads": name.split("_")[-1], "launches": 0, "max_abs_err": worst,
                  "ms": ms, "plain_ms": plain_ms},
-                field_macs(cfg, name.split("_")[-1]) * R * S_k, nbytes))
+                field_macs(cfg, name.split("_")[-1]) * R * S_k,
+                render_bytes(name, R, S_k, pf, cfg.ins_num)))
+        against_k1_composite("render_field_all", all_k, pf, pts_f, vd, z_f, rd)
+        k64 = wide_render_kernels(dev, card, ro, rd, vd, z_f)
+        kernels[-1]["k64"] = k64["render_field_all"]
 
     phase("4 slice: dmnerf_torch.cli.test --render (boxroom128x8, flagship, bf16)")
     from dmnerf_torch.cli import test as cli
@@ -433,6 +517,7 @@ def main():
     secs = time.perf_counter() - t0
     print(f"render: {n * 128 * 128 / secs:.1f} rays/s, {secs / n * 1e3:.2f} ms/view "
           f"({n} views; {card})")
+    profile_device(lambda: sum(1 for _ in render.many(params, K, poses[:4])), 4, "view", card)
 
     kernels += field_kernels_vs_plain(dev, card, ablation_builds)
     train_launches = train_slice(dev)
@@ -442,6 +527,7 @@ def main():
     train_throughput(dev, card)
 
     kernels.append(ins_kernel_vs_plain(fine, pf, pts_f, vd, z_f, rd, card))
+    kernels[-1]["k64"] = k64["render_field_ins"]
     kernels[-1]["launches"] = edit_slice(dev)["render_field_ins"]
     edit_throughput(dev, card, cfg, {"coarse": coarse, "fine": fine})
 
@@ -475,76 +561,98 @@ def grad_errors(field, packed, got, want):
     return rel, max(float((a - b).abs().max()) for _, a, b in pairs)
 
 
-def field_kernels_vs_plain(dev, card, ablation_builds):
-    """Phase 6: K1 and K2 vs their plain versions at the train step's shapes;
-    then the timing-only builds of ABLATIONS beside the real kernels."""
+def field_cases(dev, ins_num, seed, R, Ss):
+    """The flagship field at ins_num from a seed, and for each S in Ss, R rays
+    x S points (sorted z in [1, 12]) with a cotangent g for its raw, all from
+    one numpy generator: yields (field, packed, pts, vd, pf, dirs, ppd, g)."""
     from dmnerf_torch.kernels import field as kf
     from dmnerf_torch.kernels.render_field import pack_field
     from dmnerf_torch.models.fields import FieldConfig, init_field_params
-
-    phase("6 K1/K2 vs plain versions (flagship 8x256, K=32, bf16, 3072 rays x 64 / x 192)")
-    cfg = FieldConfig(**FLAGSHIP, ins_num=32)
-    field = init_field_params(torch.Generator().manual_seed(2), cfg, device=dev)
+    cfg = FieldConfig(**FLAGSHIP, ins_num=ins_num)
+    field = init_field_params(torch.Generator().manual_seed(seed), cfg, device=dev)
     packed = pack_field(field)
-    rng = np.random.default_rng(2)
-    R, C = 3072, cfg.ins_num + 5
+    rng = np.random.default_rng(seed)
     ro = rng.normal(size=(R, 3)) * 0.3
     rd = rng.normal(size=(R, 3))
     rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
-    out, worst_raw, worst_grad = {}, 0.0, 0.0
-    for S in (64, 192):
+    for S in Ss:
         z = np.sort(rng.uniform(1.0, 12.0, (R, S)), -1)
         pts = torch.tensor(ro[:, None] + rd[:, None] * z[..., None], dtype=torch.float32,
                            device=dev)
         vd = torch.tensor(rd[:, None], dtype=torch.float32, device=dev)
         pf, dirs, ppd = kf.flatten_inputs(pts, vd)
-        g = torch.tensor(rng.normal(size=(R * S, C)) * 1e-3, dtype=torch.float32, device=dev)
-        with torch.no_grad():
-            raw_k, raw_p = kf.field_forward(packed, pts, vd), kf.field_forward_ref(field, pts, vd)
-        gk = kf.field_backward(packed, pf, dirs, ppd, g)
-        gk2 = kf.field_backward(packed, pf, dirs, ppd, g)
-        gp = kf.field_backward_ref(packed, pf, dirs, ppd, g)
-        g_ins = g.clone()
-        g_ins[:, :4] = 0.0                      # a loss on the instance logits alone
-        gz = kf.unpack_grads(packed, *kf.field_backward(packed, pf, dirs, ppd, g_ins)[:2])
-        torch.cuda.synchronize()
-        err = (raw_k - raw_p).abs()
-        if raw_k.shape != raw_p.shape or not bool(torch.isfinite(raw_k).all()):
-            raise AssertionError("K1: wrong shape or non-finite raw")
-        col, l2 = raw_errors(raw_k, raw_p)
-        # the check must see a fault confined to the rgb columns
-        faulty = raw_k.clone()
-        faulty[..., :3] -= 0.1 * field.rgb_linear.bias.detach()
-        _, l2_faulty = raw_errors(faulty, raw_p)
-        print(f"K1 P={R * S}: raw max abs err {err.max().item():.3e} (median "
-              f"{err.median().item():.3e}); worst column {col:.3e} of its max|raw| "
-              f"(tolerance {RAW_COL_TOL:.0e}), relative L2 {l2:.3e} (tolerance "
-              f"{RAW_L2_TOL:.0e}); with the rgb bias off by 10%: {l2_faulty:.3e}")
-        if col > RAW_COL_TOL or l2 > RAW_L2_TOL:
-            raise AssertionError("K1 disagrees with its plain version")
-        if l2_faulty <= RAW_L2_TOL:
-            raise AssertionError("the K1 check passes raw with the rgb bias off by 10%")
-        errs, abs_err = grad_errors(field, packed, gk, gp)
-        name, e = max(errs.items(), key=lambda kv: kv[1])
-        print(f"K2 P={R * S}: worst gradient relative L2 err {e:.3e} ({name}; tolerance "
-              f"{GRAD_TOL:.0e}); median over parameters {np.median(list(errs.values())):.3e}; "
-              f"max abs err {abs_err:.3e}")
-        if e > GRAD_TOL or not all(bool(torch.isfinite(t).all()) for t in gk[:2]):
-            raise AssertionError("K2 disagrees with its plain version")
-        if not (torch.equal(gk.dw, gk2.dw) and torch.equal(gk.db, gk2.db)):
-            raise AssertionError("K2: two launches on the same inputs differ")
-        trunk = sum(float(t.abs().sum()) for (n, _), t in zip(field.named_parameters(), gz)
-                    if n.startswith("mlps."))
-        ins_out = float(gz[[n for n, _ in field.named_parameters()].index(
-            "ins_linear.weight")].abs().sum())
-        print(f"K2: bit-identical across two launches; instance-only loss: trunk "
-              f"|grad| sum {trunk}, ins_linear {ins_out:.3e}")
-        if trunk != 0.0 or ins_out == 0.0:
-            raise AssertionError("K2 passes the instance branch's cotangent into the trunk")
-        worst_raw, worst_grad = max(worst_raw, err.max().item()), max(worst_grad, abs_err)
-        out[S] = (packed, field, pts, vd, pf, dirs, ppd, g)
+        g = torch.tensor(rng.normal(size=(R * S, cfg.ins_num + 5)) * 1e-3,
+                         dtype=torch.float32, device=dev)
+        yield field, packed, pts, vd, pf, dirs, ppd, g
 
-    packed, field, pts, vd, pf, dirs, ppd, g = out[192]
+
+def check_field_kernels(case, label):
+    """K1 and K2 vs their plain versions on one case (see field_case); raises
+    outside the bars. Returns (max abs raw error, max abs gradient error)."""
+    from dmnerf_torch.kernels import field as kf
+    field, packed, pts, vd, pf, dirs, ppd, g = case
+    with torch.no_grad():
+        raw_k, raw_p = kf.field_forward(packed, pts, vd), kf.field_forward_ref(field, pts, vd)
+    gk = kf.field_backward(packed, pf, dirs, ppd, g)
+    gk2 = kf.field_backward(packed, pf, dirs, ppd, g)
+    gp = kf.field_backward_ref(packed, pf, dirs, ppd, g)
+    g_ins = g.clone()
+    g_ins[:, :4] = 0.0                      # a loss on the instance logits alone
+    gz = kf.unpack_grads(packed, *kf.field_backward(packed, pf, dirs, ppd, g_ins)[:2])
+    torch.cuda.synchronize()
+    err = (raw_k - raw_p).abs()
+    if raw_k.shape != raw_p.shape or not bool(torch.isfinite(raw_k).all()):
+        raise AssertionError("K1: wrong shape or non-finite raw")
+    col, l2 = raw_errors(raw_k, raw_p)
+    # the check must see a fault confined to the rgb columns
+    faulty = raw_k.clone()
+    faulty[..., :3] -= 0.1 * field.rgb_linear.bias.detach()
+    _, l2_faulty = raw_errors(faulty, raw_p)
+    print(f"K1 {label}: raw max abs err {err.max().item():.3e} (median "
+          f"{err.median().item():.3e}); worst column {col:.3e} of its max|raw| "
+          f"(tolerance {RAW_COL_TOL:.0e}), relative L2 {l2:.3e} (tolerance "
+          f"{RAW_L2_TOL:.0e}); with the rgb bias off by 10%: {l2_faulty:.3e}")
+    if col > RAW_COL_TOL or l2 > RAW_L2_TOL:
+        raise AssertionError("K1 disagrees with its plain version")
+    if l2_faulty <= RAW_L2_TOL:
+        raise AssertionError("the K1 check passes raw with the rgb bias off by 10%")
+    errs, abs_err = grad_errors(field, packed, gk, gp)
+    name, e = max(errs.items(), key=lambda kv: kv[1])
+    print(f"K2 {label}: worst gradient relative L2 err {e:.3e} ({name}; tolerance "
+          f"{GRAD_TOL:.0e}); median over parameters {np.median(list(errs.values())):.3e}; "
+          f"max abs err {abs_err:.3e}")
+    if e > GRAD_TOL or not all(bool(torch.isfinite(t).all()) for t in gk[:2]):
+        raise AssertionError("K2 disagrees with its plain version")
+    if not (torch.equal(gk.dw, gk2.dw) and torch.equal(gk.db, gk2.db)):
+        raise AssertionError("K2: two launches on the same inputs differ")
+    trunk = sum(float(t.abs().sum()) for (n, _), t in zip(field.named_parameters(), gz)
+                if n.startswith("mlps."))
+    ins_out = float(gz[[n for n, _ in field.named_parameters()].index(
+        "ins_linear.weight")].abs().sum())
+    print(f"K2: bit-identical across two launches; instance-only loss: trunk "
+          f"|grad| sum {trunk}, ins_linear {ins_out:.3e}")
+    if trunk != 0.0 or ins_out == 0.0:
+        raise AssertionError("K2 passes the instance branch's cotangent into the trunk")
+    return err.max().item(), abs_err
+
+
+def field_kernels_vs_plain(dev, card, ablation_builds):
+    """Phase 6: K1 and K2 vs their plain versions at the train step's shapes
+    (K=32) and on the coarse shape at K=64; then the timing-only builds of
+    ABLATIONS beside the real kernels."""
+    from dmnerf_torch.kernels import field as kf
+
+    phase("6 K1/K2 vs plain versions (flagship 8x256, K=32, bf16, 3072 rays x 64 / x 192; "
+          "K=64 at 3072 x 64)")
+    worst_raw, worst_grad = 0.0, 0.0
+    for case in field_cases(dev, 32, 2, 3072, (64, 192)):
+        e_raw, e_grad = check_field_kernels(case, f"P={case[4].shape[0]}")
+        worst_raw, worst_grad = max(worst_raw, e_raw), max(worst_grad, e_grad)
+    (wide,) = field_cases(dev, 64, 64, 3072, (64,))
+    wide_err = check_field_kernels(wide, "K=64 P=196608")
+    field, packed, pts, vd, pf, dirs, ppd, g = case
+    cfg = field.cfg
+
 
     def fwd_k():
         with torch.no_grad():
@@ -594,19 +702,41 @@ def field_kernels_vs_plain(dev, card, ablation_builds):
 
     ablation_times(ablation_builds, fwd_k, bwd_k, card)
 
-    P, C, w_bytes = pf.shape[0], cfg.ins_num + 5, weight_bytes(packed)
-    # K1 in: points, a direction per ray, the weights; out: raw fp32
     k1 = roofline({"name": "field_forward", "route": "cuda", "source": FIELD_SRC,
                    "replaces": K1_REPLACES, "launches": 0, "max_abs_err": worst_raw,
-                   "ms": ms1, "plain_ms": plain1},
-                  field_macs(cfg, "all") * P, P * 12 + dirs.shape[0] * 12 + w_bytes + P * C * 4)
-    # K2 in: points, directions, the cotangent g, the weights; out: dW, db fp32
+                   "ms": ms1, "plain_ms": plain1}, *field_work(case, "forward"))
     k2 = roofline({"name": "field_backward", "route": "cuda", "source": FIELD_SRC,
                    "replaces": K2_REPLACES, "launches": 0, "max_abs_err": worst_grad,
-                   "ms": ms2, "plain_ms": plain2},
-                  field_macs(cfg, "backward") * P,
-                  P * 12 + dirs.shape[0] * 12 + P * C * 4 + w_bytes + 2 * w_bytes)
+                   "ms": ms2, "plain_ms": plain2}, *field_work(case, "backward"))
+
+    # K=64 on the coarse shape: K1 at CP 80, K2 on 16-row slabs
+    wf, wp, wpts, wvd, wpf, wdirs, wppd, wg = wide
+    for entry, err, k_fn, p_fn, reps, part in (
+            (k1, wide_err[0], lambda: kf.field_forward(wp, wpts, wvd),
+             lambda: kf.field_forward_ref(wf, wpts, wvd), 10, "forward"),
+            (k2, wide_err[1], lambda: kf.field_backward(wp, wpf, wdirs, wppd, wg),
+             lambda: kf.field_backward_ref(wp, wpf, wdirs, wppd, wg), 5, "backward")):
+        with torch.no_grad():
+            ms, plain = pair(k_fn, p_fn, reps)
+        print(f"{entry['name']} K=64: kernel {ms:.3f} ms, plain {plain:.3f} ms "
+              f"(P={wpf.shape[0]}; {card})")
+        entry["k64"] = roofline({"name": f"{entry['name']} K=64", "max_abs_err": err,
+                                 "ms": ms, "plain_ms": plain}, *field_work(wide, part))
     return [k1, k2]
+
+
+def field_work(case, part):
+    """(multiply-adds, bytes) of K1 (part "forward") or K2 ("backward") on a
+    case of field_cases. K1 in: points, a direction per ray, the weights;
+    out: raw fp32. K2 in: points, directions, the cotangent g, the weights;
+    out: dW, db fp32."""
+    field, packed, _, _, pf, dirs, _, _ = case
+    P, C, w_bytes = pf.shape[0], field.cfg.ins_num + 5, weight_bytes(packed)
+    if part == "forward":
+        return (field_macs(field.cfg, "all") * P,
+                P * 12 + dirs.shape[0] * 12 + w_bytes + P * C * 4)
+    return (field_macs(field.cfg, "backward") * P,
+            P * 12 + dirs.shape[0] * 12 + P * C * 4 + w_bytes + 2 * w_bytes)
 
 
 def ablation_times(builds, fwd_k, bwd_k, card):
@@ -776,18 +906,20 @@ def train_throughput(dev, card):
     print(f"step split over {n} steps ({ms_split:.2f} ms/step with the events on; {card}):")
     for k, v in split.items():
         print(f"  {k}: {v:.3f} ms/step ({100 * v / ms_split:.1f}%)")
-    profile_steps(step, state, arrs, i_train, card)
+    profile_device(lambda: step(state, arrs, 1, i_train, 3), 3, "step", card)
 
 
-def profile_steps(step, state, arrs, i_train, card, n=3):
-    """Device time by kernel over n steps (torch.profiler), and the device's
-    busy share of the wall time. A measurement only: a profiler that sees no
-    device time prints "not measured" and the run goes on."""
+def profile_device(fn, n, unit, card):
+    """Device time by kernel over fn(), which runs n units (steps, views),
+    under torch.profiler, and the device's busy share of the wall time. A
+    measurement only: a profiler that sees no device time prints "not
+    measured" and the run goes on."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(state, arrs, 1, i_train, n)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -802,14 +934,15 @@ def profile_steps(step, state, arrs, i_train, card, n=3):
         if dev_us > 0:
             rows.append((dev_us / 1e3 / n, e.count // n, e.key))
     if not rows:
-        print("profiler: no device time recorded; kernel split not measured")
+        print("profiler: no device time recorded; kernel split and idle share not measured")
         return
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    print(f"profiler, {n} steps ({wall_ms / n:.2f} ms/step wall under the profiler; {card}): "
-          f"device busy {busy:.2f} ms/step, idle share {100 * (1 - busy * n / wall_ms):.1f}%")
+    print(f"profiler, {n} {unit}s ({wall_ms / n:.2f} ms/{unit} wall under the profiler; "
+          f"{card}): device busy {busy:.2f} ms/{unit}, idle share "
+          f"{100 * (1 - busy * n / wall_ms):.1f}%")
     for ms, count, key in rows[:16]:
-        print(f"  {ms:8.3f} ms/step  x{count:<4d} {key[:90]}")
+        print(f"  {ms:8.3f} ms/{unit}  x{count:<4d} {key[:90]}")
 
 
 def ins_kernel_vs_plain(fine, packed, pts, vd, z, rd, card):
@@ -831,8 +964,8 @@ def ins_kernel_vs_plain(fine, packed, pts, vd, z, rd, card):
         # output matmul left out: they add exact zeros to these columns
         vs_k3 = float((got - k3_ins).abs().max())
         print(f"render_field_ins vs render_field_all's logits: max abs diff {vs_k3:.3e}")
-        if vs_k3 > TOL["ins_logits"]:
-            raise AssertionError("K5's logits disagree with K3's")
+        if not torch.equal(got, k3_ins):
+            raise AssertionError("K5's logits differ from K3's")
 
         def k5():
             krf.render_field_ins(packed, pts, z, rd)
@@ -849,12 +982,11 @@ def ins_kernel_vs_plain(fine, packed, pts, vd, z, rd, card):
     ms, k3_ms, plain_ms = min(a1, a2), min(b1, b2), min(p1, p2)
     print(f"render_field_ins: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, K3 at the same "
           f"shape {k3_ms:.3f} ms (K5/K3 {ms / k3_ms:.3f}; median of 10; R={R}, S={S}; {card})")
-    # in: points, z and dists per sample, the weights; out: logits per ray
-    nbytes = R * S * (12 + 4 + 4) + weight_bytes(packed) + R * (fine.cfg.ins_num + 1) * 4
     return roofline({"name": "render_field_ins", "route": "cuda", "source": SRC,
                      "replaces": REPLACES, "heads": "ins", "launches": 0, "max_abs_err": worst,
                      "ms": ms, "plain_ms": plain_ms},
-                    field_macs(fine.cfg, "ins") * R * S, nbytes)
+                    field_macs(fine.cfg, "ins") * R * S,
+                    render_bytes("render_field_ins", R, S, packed, fine.cfg.ins_num))
 
 
 def translation(dx):
@@ -1076,6 +1208,11 @@ def edit_throughput(dev, card, cfg, params):
           f"{card}):")
     for k, v in split.items():
         print(f"  {k}: {v:.3f} ms ({100 * v / total:.1f}%), {len(events.get(k, []))} calls")
+
+    def two_views():
+        for _ in runner._prefetch_map(dispatch, poses[:2], 128 * 128, dev):
+            pass
+    profile_device(two_views, 2, "view", card)
 
     print("chunk sweep, 128x128, 4 poses each:")
     for chunk in (1024, 2048, 4096, 8192):

@@ -23,7 +23,8 @@
 //   bf16 tensor cores with fp32 accumulators in registers. The weights (1.40
 //   MB bf16 for the flagship field, far more than a block's shared memory)
 //   stream through a ring of slabs in shared memory by cp.async (K1: 2
-//   stages of 64 rows; K2, which also holds the ReLU masks: 2 of 32),
+//   stages of 64 rows; K2, which also holds the ReLU masks: 2 of 32, or of
+//   16 where those do not fit in a block's shared memory, CP > 64 at W 256),
 //   prefetched across layer boundaries, so each weight is read from L2 once
 //   per 128 points (4,608 x 1.40 MB = 6.45 GB per call at 589,824 points)
 //   with the next slab in flight. The epilogues (bias, ReLU, bf16 rounding)
@@ -37,8 +38,9 @@
 //   it (the accumulators hold the whole output), so a tile needs two
 //   activation buffers: H (the trunk, then ins_f/ins_h) and Bf (the
 //   encodings, rgb_f/rgb_h, and K2's cotangent g). K1 takes the density rows
-//   of the output layer while h is still in H and keeps those 3 output
-//   columns' accumulators in registers until rgb_h and ins_h are done.
+//   of the output layer while h is still in H and keeps them in registers
+//   until rgb_h and ins_h are done. That forward (forward_tile) lives in
+//   field_tile.cuh, which render_field.cu's K3 and K5 run too.
 // - K2's per-tile pass (field_bwd_tile_kernel) recomputes the forward on the
 //   same core, stores every bf16 activation to a scratch array `act`
 //   [P, ACT] (the dW pass reads it) by bulk asynchronous copies, one per row,
@@ -70,32 +72,21 @@
 #include <algorithm>
 #include <cstring>
 
-#include "field_core.cuh"
+#include "field_tile.cuh"
 
-using core::Plan;
 using core::Ring;
-using core::Seg;
-using core::THREADS;
-using core::TM;
 
 namespace {
 
 // weight ring of each kernel: stages x slab depth (shared memory: K2 also
-// holds the ReLU masks)
+// holds the ReLU masks, and takes the shallower K2_KS_SHALLOW slabs where a g
+// tile wider than the view encoding leaves no room for K2_KS)
 constexpr int K1_STAGES = 2, K1_KS = 64;
-constexpr int K2_STAGES = 2, K2_KS = 32;
+constexpr int K2_STAGES = 2, K2_KS = 32, K2_KS_SHALLOW = 16;
 constexpr int MAXJ = MAXD + 5;          // dW jobs: D trunk matrices + 5 head matrices
 constexpr int BM = 128, BN = 256, BK = 32, DW_STAGES = 3;   // dW GEMM tiles
 constexpr int NJ = BN / 32;             // 8-column tiles per dW warp
 constexpr int DW_THREADS = 256;         // the dW GEMM's block: 8 warps
-
-// Column layout of K2's scratch arrays (bf16 elements per point row).
-struct Layout {
-    int ACT, DYW;
-    int a_x, a_hs[MAXD], a_hh, a_rgbf, a_encd, a_insf;    // act columns
-    int y_dy[MAXD], y_rgbf, y_rh, y_insf, y_ih, y_gb;      // dys columns
-    int NB;             // dys columns [0, NB) are the packed biases' order
-};
 
 Layout make_layout(const Meta& m) {
     Layout L;
@@ -124,37 +115,7 @@ Layout make_layout(const Meta& m) {
     return L;
 }
 
-// ---- the weight plans (the order the kernels below consume segments in) ------
-
-struct Planner {
-    Plan p;
-    int ksl;              // the ring's slab depth
-    explicit Planner(int ks) : ksl(ks) { p.n = 0; p.stage_elems = 0; }
-    void add(int w_off, int ldw, int r0, int rows, int trans) {
-        const Seg s{w_off, ldw, r0, rows, trans};
-        p.s[p.n++] = s;
-        p.stage_elems = std::max(p.stage_elems, core::slab_elems(s, ksl));
-    }
-};
-
-// forward_tile's segments; with_out: K1's output layer too
-void plan_forward(Planner& B, const Meta& m, bool with_out) {
-    const int W = m.W, HW = m.W / 2;
-    B.add(m.off_t[0], W, 0, m.XP, 0);
-    for (int i = 1; i < m.D; ++i) {
-        B.add(m.off_t[i], W, 0, W, 0);
-        if (i == m.skip + 1) B.add(m.off_t[i], W, W, m.XP, 0);
-    }
-    B.add(m.off_rgbf, W, 0, W, 0);
-    B.add(m.off_rh, HW, 0, W + m.DP, 0);
-    if (with_out) B.add(m.off_out, m.CP, W, W, 0);             // density rows, from h
-    B.add(m.off_insf, W, 0, W, 0);
-    B.add(m.off_ih, HW, 0, W, 0);
-    if (with_out) {
-        B.add(m.off_out, m.CP, 0, HW, 0);                      // rgb_out rows
-        B.add(m.off_out, m.CP, HW, HW, 0);                     // ins_out rows
-    }
-}
+// ---- the backward's weight plan ------------------------------------------------
 
 // field_bwd_tile_kernel's backward segments
 void plan_backward(Planner& B, const Meta& m, bool need_x, bool need_d) {
@@ -173,141 +134,6 @@ void plan_backward(Planner& B, const Meta& m, bool need_x, bool need_d) {
     if (need_x) B.add(m.off_t[0], W, 0, m.XP, 1);
 }
 
-// ---- the tile's forward ---------------------------------------------------------
-
-// Shared memory of a tile: H [TM, W+SPAD], Bf [TM, W+E+SPAD] with E =
-// max(DP, CP), then the ring, then (K2) the mask words.
-struct Bufs {
-    bf16* H; int ldh;
-    bf16* Bf; int ldb;
-    bf16* ring;
-    uint32_t* masks;      // K2: (D + 1) slots of MW words per thread
-};
-
-__host__ __device__ inline int ld_h(const Meta& m) { return m.W + core::SPAD; }
-__host__ __device__ inline int ld_b(const Meta& m) {
-    return m.W + (m.DP > m.CP ? m.DP : m.CP) + core::SPAD;
-}
-
-size_t tile_smem(const Meta& m, const Plan& p, int stages, bool masks) {
-    return ((size_t)TM * (ld_h(m) + ld_b(m)) + (size_t)stages * p.stage_elems) * sizeof(bf16)
-        + (masks ? (size_t)(m.D + 1) * core::MW * THREADS * sizeof(uint32_t) : 0);
-}
-
-__device__ __forceinline__ Bufs carve(unsigned char* smem, const Meta& m, const Plan& p,
-                                      int stages) {
-    Bufs B;
-    B.ldh = ld_h(m);
-    B.ldb = ld_b(m);
-    B.H = reinterpret_cast<bf16*>(smem);
-    B.Bf = B.H + TM * B.ldh;
-    B.ring = B.Bf + TM * B.ldb;
-    B.masks = reinterpret_cast<uint32_t*>(B.ring + stages * p.stage_elems);
-    return B;
-}
-
-// The scratch rows of a tile (K2) or nothing (K1).
-struct Save {
-    bf16* act;            // this tile's first row of act, or null
-    const Layout* L;
-    __device__ __forceinline__ void put(const bf16* src, int lds, int ncols, int col) const {
-        if (act) {
-            core::publish();
-            core::store_rows(src, lds, ncols, act + col, L->ACT);
-        }
-    }
-};
-
-__device__ __forceinline__ uint32_t* slot(const Bufs& B, int s, bool on) {
-    return on ? B.masks + s * core::MW * THREADS : nullptr;
-}
-
-// The forward of one tile of TM rows, nv of them points p_tile[3r:3r+3],
-// row r looking along vdirs[3 * ((row0 + r) / ppd)]. Ends with ins_h in
-// H[:, 0:W/2] and rgb_h in Bf[:, 0:W/2]. With OUT (K1) acc_out holds the
-// output layer (without its bias) on return. With SAVE (K2) every bf16
-// activation goes to the scratch rows and every ReLU mask to B.masks (slot i
-// for trunk layer i; slot D word 0 rgb_h and word 1 ins_h, one word each
-// at W <= 256).
-template <bool OUT, bool SAVE, class RingT>
-__device__ __forceinline__ void forward_tile(RingT& R, const Bufs& B, core::Acc& acc,
-                                             core::AccT<core::NTO>& acc_out, const float* p_tile, int nv,
-                                             const float* vdirs, int row0, int ppd,
-                                             const float* __restrict__ b, const Meta& m,
-                                             const Save& save, const Layout* L) {
-    const int W = m.W, XP = m.XP, DP = m.DP, HW = W / 2;
-    const int pos_ch = 3 * (1 + 2 * m.F), view_ch = 3 * (1 + 2 * m.FV);
-    const int tid = threadIdx.x;
-    bf16* H = B.H;
-    bf16* Bf = B.Bf;
-    const int ldh = B.ldh, ldb = B.ldb;
-
-    // the position encoding -> Bf[:, 0:XP]
-    for (int i = tid; i < TM * XP; i += THREADS) {
-        const int r = i / XP, j = i % XP;
-        const float v = (r < nv && j < pos_ch) ? pe_channel(p_tile + r * 3, j) : 0.0f;
-        Bf[r * ldb + j] = __float2bfloat16_rn(v);
-    }
-    if (SAVE) save.put(Bf, ldb, XP, L->a_x);
-
-    // trunk: layer 0 reads the encoding, layer skip+1 reads [h, x]; every
-    // layer writes over its input in H
-    core::zero(acc);
-    core::run_seg(R, acc, Bf, ldb);
-    core::sync_write();
-    core::store_act(acc, W, b + m.boff_t, true, H, ldh, slot(B, 0, SAVE));
-    if (SAVE) save.put(H, ldh, W, L->a_hs[0]);
-    for (int i = 1; i < m.D; ++i) {
-        core::zero(acc);
-        core::run_seg(R, acc, H, ldh);
-        if (i == m.skip + 1) core::run_seg(R, acc, Bf, ldb);
-        core::sync_write();
-        core::store_act(acc, W, b + m.boff_t + i * W, true, H, ldh, slot(B, i, SAVE));
-        if (SAVE) save.put(H, ldh, W, L->a_hs[i]);
-    }
-
-    // the view encoding -> Bf[:, W:W+DP], beside rgb_f
-    for (int i = tid; i < TM * DP; i += THREADS) {
-        const int r = i / DP, j = i % DP;
-        const float v = (r < nv && j < view_ch)
-            ? pe_channel(vdirs + (size_t)((row0 + r) / ppd) * 3, j) : 0.0f;
-        Bf[r * ldb + W + j] = __float2bfloat16_rn(v);
-    }
-    // rgb_f = h @ Wrgbf + b (bf16, no activation) -> Bf[:, 0:W]
-    core::zero(acc);
-    core::run_seg(R, acc, H, ldh);
-    core::sync_write();
-    core::store_act(acc, W, b + m.boff_rgbf, false, Bf, ldb, nullptr);
-    if (SAVE) save.put(Bf, ldb, W + DP, L->a_rgbf);            // [rgb_f | enc_d]
-    // rgb_h = relu([rgb_f, enc_d] @ Wrh + b) -> Bf[:, 0:W/2]
-    core::zero(acc);
-    core::run_seg(R, acc, Bf, ldb);
-    core::sync_write();
-    core::store_act(acc, HW, b + m.boff_rh, true, Bf, ldb, slot(B, m.D, SAVE));
-    if (SAVE) save.put(Bf, ldb, HW, L->a_hh);
-    if (OUT) {   // the density rows of the output layer, while h is in H
-        core::zero(acc_out);
-        core::run_seg(R, acc_out, H, ldh);
-    }
-    // ins_f = h @ Winsf + b -> H
-    core::zero(acc);
-    core::run_seg(R, acc, H, ldh);
-    core::sync_write();
-    core::store_act(acc, W, b + m.boff_insf, false, H, ldh, nullptr);
-    if (SAVE) save.put(H, ldh, W, L->a_insf);
-    // ins_h = relu(ins_f @ Wih + b) -> H[:, 0:W/2]
-    core::zero(acc);
-    core::run_seg(R, acc, H, ldh);
-    core::sync_write();
-    core::store_act(acc, HW, b + m.boff_ih, true, H, ldh,
-                    SAVE ? slot(B, m.D, true) + THREADS : nullptr);
-    if (SAVE) save.put(H, ldh, HW, L->a_hh + HW);
-    if (OUT) {   // + [rgb_h | ins_h] @ Wout[0:W]
-        core::run_seg(R, acc_out, Bf, ldb);
-        core::run_seg(R, acc_out, H, ldh);
-    }
-}
-
 // K1: raw [P, C] for points pts [P, 3] and directions vdirs [P / ppd, 3].
 __global__ void __launch_bounds__(THREADS, 1)
 field_forward_kernel(const float* __restrict__ pts, const float* __restrict__ vdirs, int P,
@@ -315,15 +141,15 @@ field_forward_kernel(const float* __restrict__ pts, const float* __restrict__ vd
                      const Meta m, const __grid_constant__ Plan plan,
                      float* __restrict__ raw) {
     extern __shared__ __align__(128) unsigned char smem[];
-    const Bufs B = carve(smem, m, plan, K1_STAGES);
+    const Bufs B = carve(smem, m, plan, K1_STAGES, false);
     const int p0 = blockIdx.x * TM;
     const int nv = min(TM, P - p0);
     Ring<K1_STAGES, K1_KS> R;
     R.start(B.ring, &plan, w);
     core::Acc acc;
     core::AccT<core::NTO> acc_out;
-    forward_tile<true, false>(R, B, acc, acc_out, pts + (size_t)p0 * 3, nv, vdirs, p0, ppd, b,
-                              m, Save{nullptr, nullptr}, nullptr);
+    forward_tile<H_ALL, true, false>(R, B, acc, acc_out, pts + (size_t)p0 * 3, nv, vdirs, p0,
+                                     ppd, b, m, Save{nullptr, nullptr, nullptr});
     // raw = acc_out + bo: rgb 0:3, sigma 3, ins 4:C
     const float* bo = b + m.boff_o;
     const int C = m.C;
@@ -350,7 +176,8 @@ __device__ __forceinline__ void store_f32(core::Acc& acc, int n, float* dst, int
 // ReLU masks to shared memory), then the backward through the heads and the
 // trunk (every bf16 dy to `dys`). gx [P_pad, XP] / gd [P_pad, DP] (fp32
 // encoding cotangents) are written only when non-null; the plan has their
-// segments exactly then.
+// segments exactly then. KS: the ring's slab depth.
+template <int KS>
 __global__ void __launch_bounds__(THREADS, 1)
 field_bwd_tile_kernel(const float* __restrict__ pts, const float* __restrict__ vdirs, int P,
                       int ppd, const bf16* __restrict__ w, const float* __restrict__ b,
@@ -360,7 +187,8 @@ field_bwd_tile_kernel(const float* __restrict__ pts, const float* __restrict__ v
                       bf16* __restrict__ dys, float* __restrict__ gx,
                       float* __restrict__ gd) {
     extern __shared__ __align__(128) unsigned char smem[];
-    const Bufs B = carve(smem, m, plan, K2_STAGES);
+    const Bufs B = carve(smem, m, plan, K2_STAGES, true);
+    uint32_t* masks = reinterpret_cast<uint32_t*>(B.tail);
     const int W = m.W, XP = m.XP, DP = m.DP, CP = m.CP, C = m.C, D = m.D, HW = m.W / 2;
     const int p0 = blockIdx.x * TM;
     const int nv = min(TM, P - p0);
@@ -369,15 +197,15 @@ field_bwd_tile_kernel(const float* __restrict__ pts, const float* __restrict__ v
     bf16* H = B.H;
     bf16* Bf = B.Bf;
     const int ldh = B.ldh, ldb = B.ldb;
-    Ring<K2_STAGES, K2_KS> R;
+    Ring<K2_STAGES, KS> R;
     R.start(B.ring, &plan, w);
     core::Acc acc;
-    core::AccT<core::NTO> unused;
+    core::AccT<1> unused;
 
     // ---- forward, saving every activation to act ------------------------------
-    const Save save{act + (size_t)p0 * L.ACT, &L};
-    forward_tile<false, true>(R, B, acc, unused, pts + (size_t)p0 * 3, nv, vdirs, p0, ppd, b, m,
-                              save, &L);
+    const Save save{act + (size_t)p0 * L.ACT, &L, masks};
+    forward_tile<H_ALL, false, true>(R, B, acc, unused, pts + (size_t)p0 * 3, nv, vdirs, p0,
+                                     ppd, b, m, save);
 
     // ---- backward -------------------------------------------------------------
     // gb = bf16(g) [TM, CP] -> G = Bf[:, W:W+CP] and dys
@@ -391,7 +219,7 @@ field_bwd_tile_kernel(const float* __restrict__ pts, const float* __restrict__ v
     core::publish();
     core::store_rows(G, ldb, CP, yrow + L.y_gb, L.DYW);
 
-    const uint32_t* hh_mask = B.masks + D * core::MW * THREADS;
+    const uint32_t* hh_mask = save.slot(D);
     // d_rgb_h = mask(rgb_h) * (gb @ Wout[0:W/2]^T) -> H[:, 0:W/2]
     core::zero(acc);
     core::run_seg(R, acc, G, ldb);
@@ -429,7 +257,7 @@ field_bwd_tile_kernel(const float* __restrict__ pts, const float* __restrict__ v
     core::run_seg(R, acc, G, ldb);
     core::run_seg(R, acc, Bf, ldb);
     core::sync_write();
-    core::store_grad(acc, W, H, ldh, B.masks + (D - 1) * core::MW * THREADS);
+    core::store_grad(acc, W, H, ldh, save.slot(D - 1));
     core::publish();
     core::store_rows(H, ldh, W, yrow + L.y_dy[D - 1], L.DYW);
 
@@ -445,7 +273,7 @@ field_bwd_tile_kernel(const float* __restrict__ pts, const float* __restrict__ v
         core::zero(acc);
         core::run_seg(R, acc, H, ldh);
         core::sync_write();
-        core::store_grad(acc, W, H, ldh, B.masks + (i - 1) * core::MW * THREADS);
+        core::store_grad(acc, W, H, ldh, save.slot(i - 1));
         core::publish();
         core::store_rows(H, ldh, W, yrow + L.y_dy[i - 1], L.DYW);
     }
@@ -614,11 +442,21 @@ __global__ void reduce_splits_kernel(const float* __restrict__ partial, int n_sp
 int read_meta(const int* meta, int n_meta, Meta* m) {
     if (n_meta != META_INTS) return (int)cudaErrorInvalidValue;
     memcpy(m, meta, sizeof(Meta));
+    // kernels/render_field.py::check_kernel_shape holds the wrappers to these
     if (m->D < 1 || m->D > MAXD || m->W % 32 || m->W > core::MAXW || m->XP % 16
         || m->DP % 16 || m->CP % 16 || m->XP > m->W || m->DP > m->W / 2
-        || m->CP > m->W / 2 || m->CP > 64)
+        || m->CP > core::MAXCP)
         return (int)cudaErrorInvalidValue;
     return 0;
+}
+
+// the most dynamic shared memory a block of this device may take
+int max_smem(int* bytes) {
+    int dev;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    return (int)err;
 }
 
 }  // namespace
@@ -645,11 +483,10 @@ int field_forward(const float* pts, const float* vdirs, int P, int ppd, const bf
     if (int err = read_meta(meta, n_meta, &m)) return err;
     if (P < 1 || ppd < 1) return (int)cudaErrorInvalidValue;
     Planner pb(K1_KS);
-    plan_forward(pb, m, true);
+    plan_forward(pb, m, H_ALL, true);
     const size_t smem = tile_smem(m, pb.p, K1_STAGES, false);
     cudaError_t err = cudaFuncSetAttribute(field_forward_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     field_forward_kernel<<<(P + TM - 1) / TM, THREADS, smem, (cudaStream_t)stream>>>(
         pts, vdirs, P, ppd, w, b, m, pb.p, raw);
@@ -679,15 +516,26 @@ int field_backward(const float* pts, const float* vdirs, int P, int ppd, const b
     const int n_split = (P_pad + psplit - 1) / psplit;
     cudaError_t err;
 
+    int smem_max;
+    if (int e = max_smem(&smem_max)) return e;
+    auto plan_smem = [&](Planner& pb) {
+        plan_forward(pb, m, H_ALL, false);
+        plan_backward(pb, m, gx != nullptr, gd != nullptr);
+        return tile_smem(m, pb.p, K2_STAGES, true)
+            + (size_t)(m.D + 1) * core::MW * THREADS * sizeof(uint32_t);
+    };
     Planner pb(K2_KS);
-    plan_forward(pb, m, false);
-    plan_backward(pb, m, gx != nullptr, gd != nullptr);
-    const size_t smem = tile_smem(m, pb.p, K2_STAGES, true);
-    err = cudaFuncSetAttribute(field_bwd_tile_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    size_t smem = plan_smem(pb);
+    const bool shallow = smem > (size_t)smem_max;    // at W 256: CP > 64
+    if (shallow) {
+        pb = Planner(K2_KS_SHALLOW);
+        smem = plan_smem(pb);
+    }
+    auto kernel = shallow ? field_bwd_tile_kernel<K2_KS_SHALLOW> : field_bwd_tile_kernel<K2_KS>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    field_bwd_tile_kernel<<<tiles, THREADS, smem, st>>>(pts, vdirs, P, ppd, w, b, m, L, pb.p,
-                                                         g, act, dys, gx, gd);
+    kernel<<<tiles, THREADS, smem, st>>>(pts, vdirs, P, ppd, w, b, m, L, pb.p, g, act, dys, gx,
+                                         gd);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
     const int dw_smem = DW_STAGES * BK * (BM + BN + 2 * core::SPAD) * (int)sizeof(bf16);

@@ -1,8 +1,8 @@
-// Device code of the field kernels: the packed-weight layout and the in-kernel
-// positional encoding (render_field.cu's K3/K4/K5 and, through
-// field_core.cuh, field.cu's K1/K2), and the bf16 wmma matmul core with its
-// epilogues and the forward of one tile through the trunk and the heads
-// (tile_forward) that K3/K4/K5 run.
+// Device code of the field kernels: the packed-weight layout (Meta) and the
+// in-kernel positional encoding that every kernel uses, and the first bf16
+// wmma matmul core with its epilogues and the forward of one tile through the
+// trunk (tile_forward), which only render_field.cu's K4 still runs; K1, K2,
+// K3 and K5 run field_core.cuh's core through field_tile.cuh.
 //
 // Matmuls are nvcuda::wmma bf16 16x16x16 fragments with fp32 accumulation
 // over 64-point tiles whose activations live in shared memory (rows padded by
@@ -53,13 +53,13 @@ __device__ __forceinline__ float pe_channel(const float* p, int j) {
     return rem < 3 ? sinf(xb) : cosf(xb);
 }
 
-// acc[RT] += A [TP, K] (ld lda, shared) @ Wm [K, N] (row-major, global) for
+// acc[RT] += A [TP, K] (ld lda, shared) @ Wm [K, ldw] (row-major, global) for
 // column tile ct.
 __device__ __forceinline__ void mma_segment(Acc (&acc)[RT], const bf16* A, int lda, int K,
-                                            const bf16* Wm, int N, int ct) {
+                                            const bf16* Wm, int ldw, int ct) {
     for (int k = 0; k < K; k += 16) {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-        wmma::load_matrix_sync(bfr, Wm + (size_t)k * N + ct * 16, N);
+        wmma::load_matrix_sync(bfr, Wm + (size_t)k * ldw + ct * 16, ldw);
 #pragma unroll
         for (int r = 0; r < RT; ++r) {
             wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> afr;
@@ -69,21 +69,21 @@ __device__ __forceinline__ void mma_segment(Acc (&acc)[RT], const bf16* A, int l
     }
 }
 
-// out[TP, N] = [A1 | A2] @ Wm, A1 [TP, K1] (ld lda1) and A2 [TP, K2] (ld lda2)
-// in shared memory, Wm [K1+K2, N] row-major bf16 in global memory (L2).
-// Column tiles are dealt to warps; each warp keeps the RT row tiles of its
-// column tile in registers so one weight fragment feeds RT products.
+// out[TP, N] = [A1 | A2] @ Wm[:, 0:N], A1 [TP, K1] (ld lda1) and A2 [TP, K2]
+// (ld lda2) in shared memory, Wm [K1+K2, ldw] row-major bf16 in global memory
+// (L2). Column tiles are dealt to warps; each warp keeps the RT row tiles of
+// its column tile in registers so one weight fragment feeds RT products.
 template <class Epilogue>
 __device__ __forceinline__ void matmul(const bf16* A1, int lda1, int K1,
                                        const bf16* A2, int lda2, int K2,
-                                       const bf16* Wm, int N, Epilogue epi) {
+                                       const bf16* Wm, int ldw, int N, Epilogue epi) {
     const int warp = threadIdx.x / 32;
     for (int ct = warp; ct < N / 16; ct += NWARPS) {
         Acc acc[RT];
 #pragma unroll
         for (int r = 0; r < RT; ++r) wmma::fill_fragment(acc[r], 0.0f);
-        mma_segment(acc, A1, lda1, K1, Wm, N, ct);
-        mma_segment(acc, A2, lda2, K2, Wm + (size_t)K1 * N, N, ct);
+        mma_segment(acc, A1, lda1, K1, Wm, ldw, ct);
+        mma_segment(acc, A2, lda2, K2, Wm + (size_t)K1 * ldw, ldw, ct);
         epi(acc, ct);
     }
 }
@@ -118,27 +118,15 @@ struct StoreF32 {
     }
 };
 
-// Which heads tile_forward runs after the trunk: none (K4: sigma only), all
-// (K3) or the instance branch alone (K5: no view encoding, no rgb branch).
-enum Heads { H_NONE, H_ALL, H_INS };
-
-// The field forward of one tile of TP rows, nv of them points (_fwd_body up
-// to the output layer): row r is the point p_tile[3r:3r+3] and looks along
-// vdirs[3 * ((row0 + r) / ppd)] (read with H_ALL only). bufA, bufB and bufC
-// are [TP, W+PAD] bf16; xenc (ld ldx) takes the position encoding and may be
-// bufC, which nothing else uses until the trunk (whose last reader of xenc is
-// layer skip+1) is done. Returns the buffer holding the trunk output h; the
-// other of bufA/bufB is free. With H_ALL, bufC[:, 0:W] then holds the hidden
-// pair [rgb_h | ins_h] (the view encoding passes through
-// bufC[:, W/2:W/2+DP]); with H_INS, bufC[:, W/2:W] holds ins_h and
-// bufC[:, 0:W/2] is not written.
-template <Heads HEADS>
-__device__ __forceinline__ bf16* tile_forward(const float* p_tile, int nv, const float* vdirs,
-                                              int row0, int ppd, const bf16* w, const float* b,
-                                              const Meta& m, bf16* bufA, bf16* bufB,
-                                              bf16* bufC, bf16* xenc, int ldx, float* scratch) {
-    const int W = m.W, XP = m.XP, DP = m.DP, HW = m.W / 2, LDA = m.W + PAD;
-    const int pos_ch = 3 * (1 + 2 * m.F), view_ch = 3 * (1 + 2 * m.FV);
+// The trunk of one tile of TP rows, nv of them points (_density_body up to
+// the density head): row r is the point p_tile[3r:3r+3]. bufA and bufB are
+// [TP, W+PAD] bf16, xenc [TP, ldx] takes the position encoding. Returns the
+// buffer holding the trunk output h; the other of bufA/bufB is free.
+__device__ __forceinline__ bf16* tile_forward(const float* p_tile, int nv, const bf16* w,
+                                              const float* b, const Meta& m, bf16* bufA,
+                                              bf16* bufB, bf16* xenc, int ldx, float* scratch) {
+    const int W = m.W, XP = m.XP, LDA = m.W + PAD;
+    const int pos_ch = 3 * (1 + 2 * m.F);
     const int tid = threadIdx.x;
 
     for (int i = tid; i < TP * XP; i += NTHREADS) {
@@ -151,43 +139,16 @@ __device__ __forceinline__ bf16* tile_forward(const float* p_tile, int nv, const
     // trunk: layer 0 reads the encoding, layer skip+1 reads [h, x]
     bf16* h = bufA;
     bf16* spare = bufB;
-    matmul(xenc, ldx, XP, nullptr, 0, 0, w + m.off_t[0], W,
+    matmul(xenc, ldx, XP, nullptr, 0, 0, w + m.off_t[0], W, W,
            StoreBf16{b + m.boff_t, h, LDA, true, scratch});
     __syncthreads();
     for (int i = 1; i < m.D; ++i) {
         const bool sk = (i == m.skip + 1);
-        matmul(h, LDA, W, sk ? xenc : nullptr, ldx, sk ? XP : 0, w + m.off_t[i], W,
+        matmul(h, LDA, W, sk ? xenc : nullptr, ldx, sk ? XP : 0, w + m.off_t[i], W, W,
                StoreBf16{b + m.boff_t + i * W, spare, LDA, true, scratch});
         __syncthreads();
         bf16* t = h; h = spare; spare = t;
     }
-    if (HEADS == H_NONE) return h;
-
-    if (HEADS == H_ALL) {
-        // view encoding per row, in bufC's right half until rgb_h has read it
-        for (int i = tid; i < TP * DP; i += NTHREADS) {
-            const int r = i / DP, j = i % DP;
-            const float v = (r < nv && j < view_ch)
-                ? pe_channel(vdirs + (size_t)((row0 + r) / ppd) * 3, j) : 0.0f;
-            bufC[r * LDA + HW + j] = __float2bfloat16_rn(v);
-        }
-        // rgb_f = h @ Wrgbf + b (bf16, no activation) -> spare
-        matmul(h, LDA, W, nullptr, 0, 0, w + m.off_rgbf, W,
-               StoreBf16{b + m.boff_rgbf, spare, LDA, false, scratch});
-        __syncthreads();
-        // rgb_h = relu([rgb_f, enc_d] @ Wrh + b) -> bufC[:, 0:W/2]
-        matmul(spare, LDA, W, bufC + HW, LDA, DP, w + m.off_rh, HW,
-               StoreBf16{b + m.boff_rh, bufC, LDA, true, scratch});
-        __syncthreads();
-    }
-    // ins_f = h @ Winsf + b -> spare
-    matmul(h, LDA, W, nullptr, 0, 0, w + m.off_insf, W,
-           StoreBf16{b + m.boff_insf, spare, LDA, false, scratch});
-    __syncthreads();
-    // ins_h = relu(ins_f @ Wih + b) -> bufC[:, W/2:W]
-    matmul(spare, LDA, W, nullptr, 0, 0, w + m.off_ih, HW,
-           StoreBf16{b + m.boff_ih, bufC + HW, LDA, true, scratch});
-    __syncthreads();
     return h;
 }
 

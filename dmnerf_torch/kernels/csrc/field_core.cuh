@@ -1,8 +1,8 @@
-// The matmul core of the training kernels (field.cu: K1 and both passes of
-// K2): 128-point tiles on bf16 tensor cores (mma.sync m16n8k16, operands by
-// ldmatrix) with the weights staged in shared memory by cp.async through a
-// ring of slabs, so the next slab is in flight while the current one is
-// multiplied.
+// The matmul core of the field kernels (field.cu: K1 and both passes of K2;
+// render_field.cu: K3 and K5, through field_tile.cuh): 128-point tiles on
+// bf16 tensor cores (mma.sync m16n8k16, operands by ldmatrix) with the
+// weights staged in shared memory by cp.async through a ring of slabs, so the
+// next slab is in flight while the current one is multiplied.
 //
 // - A block of THREADS = 512 threads (16 warps, at most 128 registers each)
 //   owns TM = 128 rows (points). For an output [TM, N], warp w computes MT
@@ -24,12 +24,13 @@
 //   of W and its fragments are ldmatrix without .trans, the forward's are row
 //   blocks read with .trans.
 // - The ring cuts the plan into slabs of KSL reduction steps and keeps
-//   STAGES - 1 of them in flight across matmul and layer boundaries: every
-//   thread walks the same plan, copies its share of each slab with 16-byte
-//   cp.async, and one __syncthreads per slab both publishes the slab and
-//   frees the stage that the next copy overwrites.
+//   STAGES - 1 of them in flight across matmul and layer boundaries (and,
+//   for a block that walks several tiles, across tiles: the plan is read
+//   once per tile): every thread walks the same plan, copies its share of
+//   each slab with 16-byte cp.async, and one __syncthreads per slab both
+//   publishes the slab and frees the stage that the next copy overwrites.
 // - The weights are read once per 128 points, twice the 64 points per read of
-//   the tile_forward core (field_common.cuh) that K3/K4/K5 still use.
+//   the tile_forward core (field_common.cuh) that K4 still uses.
 
 #pragma once
 
@@ -47,7 +48,8 @@ constexpr int SPAD = 8;                // bf16 padding of every shared-memory ro
 constexpr int MAXW = 256;              // widest layer the register tiles hold
 constexpr int NT = MAXW / 8 / WN;      // 8-column tiles per warp at N = MAXW
 constexpr int MW = NT * MT * 4 / 32;   // mask words per thread at N = MAXW
-constexpr int NTO = (64 / 8 + WN - 1) / WN;   // tiles per warp of an output <= 64 wide
+constexpr int MAXCP = MAXW / 2;        // widest output layer (4 + K + 1 padded to 16)
+constexpr int NTO = (MAXCP / 8 + WN - 1) / WN;   // its 8-column tiles per warp
 constexpr int MAXSEG = 56;
 
 // One segment of the weight plan (element offsets into the packed weights).
@@ -125,7 +127,10 @@ __host__ __device__ inline int slab_elems(const Seg& s, int ksl) {
     return s.trans ? s.rows * (ksl + SPAD) : ksl * (s.ldw + SPAD);
 }
 
-template <int STAGES, int KSL>
+// LAPS: the block consumes the plan once per tile of several (K3/K5), and
+// the producer runs on into the next pass while the last slabs of one are
+// consumed.
+template <int STAGES, int KSL, bool LAPS = false>
 struct Ring {
     bf16* base;            // STAGES * plan.stage_elems bf16 of shared memory
     const Plan* plan;
@@ -133,6 +138,7 @@ struct Ring {
     int t;                 // slabs consumed
     int cseg;              // consumer's segment
     int pseg, pslab;       // producer's next slab
+    int laps;              // LAPS: passes through the plan the producer has not finished
 
     __device__ __forceinline__ bf16* stage(int i) const { return base + i * plan->stage_elems; }
 
@@ -158,14 +164,20 @@ struct Ring {
                     cp_async16(dst + r * (KSL + SPAD) + col, src + (size_t)r * s.ldw + col);
                 }
             }
-            if (++pslab * KSL >= red) { pslab = 0; ++pseg; }
+            if (++pslab * KSL >= red) {
+                pslab = 0;
+                if (++pseg == plan->n && LAPS && --laps > 0) pseg = 0;
+            }
         }
         cp_async_commit();
     }
 
-    __device__ __forceinline__ void start(bf16* smem_base, const Plan* p, const bf16* wts) {
+    // n_laps (LAPS): how many times the block consumes the plan
+    __device__ __forceinline__ void start(bf16* smem_base, const Plan* p, const bf16* wts,
+                                          int n_laps = 1) {
         base = smem_base; plan = p; w = wts;
         t = cseg = pseg = pslab = 0;
+        laps = n_laps;
 #pragma unroll
         for (int i = 0; i < STAGES - 1; ++i) fetch(i);
     }
@@ -177,6 +189,13 @@ struct Ring {
         __syncthreads();
         fetch((t + STAGES - 1) % STAGES);
         return stage(t++ % STAGES);
+    }
+
+    // the consumer's next segment (LAPS: the plan again after its end)
+    __device__ __forceinline__ Seg next_seg() {
+        const Seg s = plan->s[cseg++];
+        if (LAPS && cseg == plan->n) cseg = 0;
+        return s;
     }
 };
 
@@ -250,13 +269,14 @@ __device__ __forceinline__ void k16(AccT<N>& acc, int nt, const uint32_t (&a)[MT
     }
 }
 
-// acc += A [TM, red] (shared, ld lda) @ B, B the plan's next segment, whose
-// seg_out columns this warp holds tiles(seg_out) <= N tiles of.
-template <int N, int STAGES, int KSL>
-__device__ __forceinline__ void run_seg(Ring<STAGES, KSL>& R, AccT<N>& acc, const bf16* A,
-                                        int lda) {
-    const Seg s = R.plan->s[R.cseg++];
-    const int red = seg_red(s), nt = tiles(seg_out(s));
+// acc += A [TM, red] (shared, ld lda) @ B, B the plan's next segment, over
+// its first min(seg_out, ncols) columns, of which this warp holds tiles(.) <=
+// N tiles.
+template <int N, int STAGES, int KSL, bool LAPS>
+__device__ __forceinline__ void run_seg(Ring<STAGES, KSL, LAPS>& R, AccT<N>& acc, const bf16* A,
+                                        int lda, int ncols = MAXW) {
+    const Seg s = R.next_seg();
+    const int red = seg_red(s), nt = tiles(min(seg_out(s), ncols));
     const int lane = threadIdx.x % 32, c0 = warp_n() * 8;
     const bf16* arow = A + (row0() + (lane & 15)) * lda + (lane >> 4) * 8;
     // this lane's ldmatrix row of B for tile pair 0 at reduction step 0

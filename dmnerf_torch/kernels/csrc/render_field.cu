@@ -16,170 +16,242 @@
 // fit in a block's shared memory, so the Pallas design of keeping every
 // weight on chip does not carry over.
 //
-// What the design does about that:
-// - One block renders one ray. It walks the ray's samples in sub-tiles of 64
-//   points; each sub-tile's activations stay in shared memory as bf16: two
-//   ping-pong buffers and a third that holds the position encoding (the skip
-//   layer's second input) during the trunk and the rgb/ins hidden pair after
-//   it, so two blocks fit on an SM. Rows are padded by 16 bytes so fragment
-//   loads do not conflict on banks. Each layer's weights are read from L2 for
-//   every sub-tile, straight into tensor-core fragments: the weights of both
-//   fields fit in L2 many times over, so after the first blocks the matmuls
-//   read no device memory. Staging weights through shared memory, wider
-//   sub-tiles (more reuse of each weight fragment), wgmma, TMA and a
-//   persistent schedule are later work.
-// - Matmuls are nvcuda::wmma bf16 16x16x16 fragments with fp32 accumulation.
-//   Every width is padded with zero rows to a multiple of 16 by the packer
-//   (kernels/render_field.py::pack_field). Bias, ReLU and the bf16 rounding
-//   run in an epilogue that goes through a 16x16 fp32 scratch tile per warp,
-//   and round exactly where the JAX package stores bf16: after each trunk
-//   ReLU, after the rgb/ins feature layers and after the hidden layers.
-// - Positional encoding is computed in the kernel from the fp32 points, in the
-//   reference channel order, with precise sinf/cosf (arguments reach x*2^9,
-//   so fast-math intrinsics would be wrong); the packer needs no permutation.
-// - Compositing is a scan, not the TPU's log-space triangular matmul: each
-//   output channel's thread walks the samples in order carrying the
-//   transmittance T_{i+1} = T_i * ((1 - alpha_i) + 1e-10) and its sum across
-//   sub-tiles (the literal exclusive cumprod of core/rendering.composite).
+// K3 and K5 (composite_kernel) run the field on K1's core: field_tile.cuh's
+// forward_tile, the very function of field.cu's K1, on 128-point tiles with
+// the weights staged through a ring of shared-memory slabs (field_core.cuh).
+// - One block takes G consecutive rays, whose G*S points are contiguous in
+//   pts [R,S,3], and walks them in 128-point tiles; a tile may hold the end
+//   of one ray and the start of the next, so each weight slab is read once
+//   per 128 points whatever S is. G is chosen per launch (group_rays) to
+//   leave the fewest padded rows in the block's last tile, up to 8 rays and
+//   one thread per (ray, output channel): 2 at S = 192 or 64 (no padding).
+// - After a tile's output layer its fp32 raw [128, CP] (bias added, the same
+//   sums as K1's raw) is staged in shared memory over H and Bf, which the
+//   tile no longer needs, and alpha is computed per row. Then one thread per
+//   (ray of the block, output channel) walks that ray's rows of the tile in
+//   sample order, carrying the transmittance
+//   T_{i+1} = T_i * ((1 - alpha_i) + 1e-10) (the literal exclusive cumprod
+//   of core/rendering.composite) and its channel's sum across tiles in shared
+//   memory, and writes the ray's output after the block's last tile. The
+//   scan is small beside the tile's matmuls.
+// - The output layer's register tile holds up to 128 columns (field_tile.cuh),
+//   so K3 and K5 take K <= 123 at any width.
+// K4 (sigma_kernel) still runs the wmma core (field_common.cuh): one block per
+// ray, 64-point sub-tiles, wmma fragments read from L2, and one thread's scan
+// of the weights.
+// - Positional encoding is computed in the kernels from the fp32 points, in
+//   the reference channel order, with precise sinf/cosf (arguments reach
+//   x*2^9, so fast-math intrinsics would be wrong); the packer needs no
+//   permutation.
 // - Outputs carry no lane padding: weights [R,S] (sigma), rgb [R,3], depth
 //   [R] and instance logits [R,K+1] (all), or instance logits [R,K+1] (ins).
 //
-// The device code of the tile (Meta, pe_channel, the wmma matmul and its
-// epilogues, and tile_forward: a tile through the trunk and the heads) lives
-// in field_common.cuh, whose Meta and pe_channel field.cu (K1/K2) uses too.
 // Plain C interface for ctypes; each entry returns cudaGetLastError() after
 // its launch so a refused launch is reported to the wrapper.
 
 #include <cstring>
 
-#include "field_common.cuh"
+#include "field_tile.cuh"
+
+using core::Ring;
 
 namespace {
 
-// ALL and INS: three activation buffers (the encoding lives in the third
-// during the trunk, the hidden pair or ins_h after it); sigma: two, plus the
-// encoding. All: one fp32 16x16 tile per warp.
-size_t smem_bytes(const Meta& m, bool heads) {
+// ---- K4: the wmma core -----------------------------------------------------------
+
+// two activation buffers, the position encoding, one fp32 16x16 tile per warp
+// (the density column's tile is staged in the activation buffer h is not in)
+size_t sigma_smem(const Meta& m) {
     const size_t act = (size_t)TP * (m.W + PAD) * sizeof(bf16);
-    const size_t enc = heads ? 0 : (size_t)TP * (m.XP + PAD) * sizeof(bf16);
-    return (heads ? 3 : 2) * act + enc + NWARPS * 256 * sizeof(float);
+    const size_t enc = (size_t)TP * (m.XP + PAD) * sizeof(bf16);
+    return 2 * act + enc + NWARPS * 256 * sizeof(float);
 }
 
-// One block = one ray. H_NONE: weights [R,S] (K4). H_ALL: rgb [R,3],
-// depth [R], instance logits [R,K+1] (K3). H_INS: instance logits [R,K+1] (K5).
-template <Heads HEADS>
+// One block = one ray: weights [R,S].
 __global__ void __launch_bounds__(NTHREADS, 2)
-render_field_kernel(const float* __restrict__ pts, const float* __restrict__ vdirs,
-                    const float* __restrict__ zv, const float* __restrict__ dists,
-                    int S, const bf16* __restrict__ w, const float* __restrict__ b,
-                    const Meta m, float* __restrict__ out_w, float* __restrict__ out_rgb,
-                    float* __restrict__ out_depth, float* __restrict__ out_ins) {
+sigma_kernel(const float* __restrict__ pts, const float* __restrict__ dists, int S,
+             const bf16* __restrict__ w, const float* __restrict__ b, const Meta m,
+             float* __restrict__ out_w) {
     extern __shared__ __align__(128) unsigned char smem[];
-    constexpr bool ALL = HEADS == H_ALL, INS = HEADS == H_INS;
-    const int W = m.W, XP = m.XP, CP = m.CP, C = m.C, HW = m.W / 2;
-    const int LDA = W + PAD;                                  // activation row stride
-    const int LDX = HEADS != H_NONE ? LDA : XP + PAD;         // encoding row stride
+    const int W = m.W, XP = m.XP, CP = m.CP;
+    const int LDA = W + PAD, LDX = XP + PAD;
     bf16* bufA = reinterpret_cast<bf16*>(smem);
     bf16* bufB = bufA + TP * LDA;
-    bf16* bufC = bufB + TP * LDA;          // ALL/INS: hidden pair after the trunk
-    // the position encoding: in ALL/INS, columns [0, XP) of bufC, which
-    // nothing else uses until the trunk (its last reader is layer skip+1) is done
-    bf16* xenc = bufC;
-    float* scratch = reinterpret_cast<float*>(bufC + TP * LDX);
+    bf16* xenc = bufB + TP * LDA;
+    float* scratch = reinterpret_cast<float*>(xenc + TP * LDX);
     float* alpha = scratch;                           // reused after the MLP
-    float* zt = scratch + TP;
     const float* bo = b + m.boff_o;
 
     const int ray = blockIdx.x;
     const int tid = threadIdx.x;
     float T = 1.0f;      // transmittance, carried across sub-tiles
-    float acc = 0.0f;    // this thread's output channel (ALL/INS), carried likewise
 
     for (int s0 = 0; s0 < S; s0 += TP) {
         const int nv = min(TP, S - s0);
         const float* p_tile = pts + ((size_t)ray * S + s0) * 3;
-
-        // the trunk and, in ALL/INS, the heads; every row looks along the ray
-        bf16* h = tile_forward<HEADS>(p_tile, nv, ALL ? vdirs + (size_t)ray * 3 : nullptr, 0,
-                                      TP, w, b, m, bufA, bufB, bufC, xenc, LDX, scratch);
-        // [TP, CP] fp32 raw in the activation buffer that h is not in
+        bf16* h = tile_forward(p_tile, nv, w, b, m, bufA, bufB, xenc, LDX, scratch);
+        // [TP, 16] fp32 in the activation buffer that h is not in: columns
+        // 0:16 of h @ Wout[W:2W] (the density rows face column 3 alone)
         float* stage = reinterpret_cast<float*>(h == bufA ? bufB : bufA);
-
-        if (ALL) {
-            // raw = [rgb_h, ins_h, h] @ Wout: rgb 0:3, sigma 3, ins 4:C
-            matmul(bufC, LDA, W, h, LDA, W, w + m.off_out, CP, StoreF32{stage, CP});
-        } else if (INS) {
-            // [ins_h, h] @ Wout[W/2:2W] (ins_out rows, then the density rows,
-            // contiguous in the pack): sigma 3, ins 4:C; columns 0:3 unused
-            matmul(bufC + HW, LDA, HW, h, LDA, W, w + m.off_out + (size_t)HW * CP, CP,
-                   StoreF32{stage, CP});
-        } else {
-            // sigma only: h @ Wout[W:2W] (the density rows; column 3)
-            matmul(h, LDA, W, nullptr, 0, 0, w + m.off_out + (size_t)W * CP, CP,
-                   StoreF32{stage, CP});
-        }
+        matmul(h, LDA, W, nullptr, 0, 0, w + m.off_out + (size_t)W * CP, CP, 16,
+               StoreF32{stage, 16});
         __syncthreads();
 
         if (tid < nv) {
-            const float sigma = stage[tid * CP + 3] + bo[3];
+            const float sigma = stage[tid * 16 + 3] + bo[3];
             const float dist = dists[(size_t)ray * S + s0 + tid];
             alpha[tid] = 1.0f - expf(-fmaxf(sigma, 0.0f) * dist);
-            zt[tid] = zv[(size_t)ray * S + s0 + tid];
         }
         __syncthreads();
 
-        if (HEADS == H_NONE) {
-            if (tid == 0) {
-                float* wrow = out_w + (size_t)ray * S + s0;
-                for (int i = 0; i < nv; ++i) {
-                    const float a = alpha[i];
-                    wrow[i] = a * T;
-                    T = T * ((1.0f - a) + 1e-10f);
-                }
-            }
-        } else if (tid < C && (ALL || tid >= 4)) {
-            const float bc = bo[tid];
+        if (tid == 0) {
+            float* wrow = out_w + (size_t)ray * S + s0;
             for (int i = 0; i < nv; ++i) {
                 const float a = alpha[i];
-                const float wgt = a * T;
-                float v;
-                if (tid < 3) v = 1.0f / (1.0f + expf(-(stage[i * CP + tid] + bc)));
-                else if (tid == 3) v = zt[i];
-                else v = stage[i * CP + tid] + bc;
-                acc += wgt * v;
+                wrow[i] = a * T;
                 T = T * ((1.0f - a) + 1e-10f);
             }
         }
-        __syncthreads();   // the next sub-tile overwrites stage, alpha and zt
-    }
-
-    if (HEADS != H_NONE && tid < C) {
-        if (tid < 3) { if (ALL) out_rgb[(size_t)ray * 3 + tid] = acc; }
-        else if (tid == 3) { if (ALL) out_depth[ray] = acc; }
-        else out_ins[(size_t)ray * (C - 4) + (tid - 4)] = acc;
+        __syncthreads();   // the next sub-tile overwrites stage and alpha
     }
 }
 
-// o0, o1, o2: weights, -, - (H_NONE); rgb, depth, ins (H_ALL); -, -, ins (H_INS).
+// ---- K3, K5: K1's core ------------------------------------------------------------
+
+constexpr int STAGES = 2, KS = 64;      // the weight ring: K1's
+constexpr int MAXG = 8;                 // rays per block at most
+
+// Rays per block: of 1 .. min(MAXG, R, THREADS / C), the count whose G*S
+// points leave the smallest share of padded rows in their last 128-point
+// tile (the fewest rays on a tie).
+int group_rays(int R, int S, int C) {
+    const int gmax = std::max(1, std::min({MAXG, R, THREADS / C}));
+    int best = 1;
+    double best_pad = 1.0;
+    for (int g = 1; g <= gmax; ++g) {
+        const long n = (long)g * S, padded = (n + TM - 1) / TM * TM;
+        const double pad = (double)(padded - n) / padded;
+        if (pad < best_pad) { best = g; best_pad = pad; }
+    }
+    return best;
+}
+
+// a tile's fp32 raw [TM, CP + 4] (4 columns of padding against bank
+// conflicts), staged over H and Bf
+__host__ __device__ inline int stage_ld(const Meta& m) { return m.CP + 4; }
+__host__ __device__ inline size_t stage_bytes(const Meta& m) {
+    return (size_t)TM * stage_ld(m) * sizeof(float);
+}
+
+// composite state after the ring: alpha [TM], then T and the sum [2, THREADS]
+size_t composite_smem(const Meta& m, const Plan& p) {
+    return tile_smem(m, p, STAGES, false, stage_bytes(m))
+        + (size_t)(TM + 2 * THREADS) * sizeof(float);
+}
+
+// G rays per block, their points in TM-point tiles through forward_tile.
+// H_ALL: rgb [R,3], depth [R], instance logits [R,K+1] (K3). H_INS: instance
+// logits [R,K+1] (K5).
 template <Heads HEADS>
-int launch(const float* pts, const float* vdirs, const float* z, const float* dists,
-           int R, int S, const bf16* w, const float* b, const int* meta, int n_meta,
-           float* o0, float* o1, float* o2, void* stream) {
+__global__ void __launch_bounds__(THREADS, 1)
+composite_kernel(const float* __restrict__ pts, const float* __restrict__ vdirs,
+                 const float* __restrict__ zv, const float* __restrict__ dists, int R, int S,
+                 int G, const bf16* __restrict__ w, const float* __restrict__ b, const Meta m,
+                 const __grid_constant__ Plan plan, float* __restrict__ out_rgb,
+                 float* __restrict__ out_depth, float* __restrict__ out_ins) {
+    extern __shared__ __align__(128) unsigned char smem[];
+    const Bufs B = carve(smem, m, plan, STAGES, false, stage_bytes(m));
+    float* alpha = reinterpret_cast<float*>(B.tail);
+    float* carry = alpha + TM;
+    float* stage = reinterpret_cast<float*>(B.H);     // fp32 raw [TM, lds], over H and Bf
+    const int lds = stage_ld(m);
+    const int C = m.C, tid = threadIdx.x;
+    const float* bo = b + m.boff_o;
+
+    const int ray0 = blockIdx.x * G, nr = min(G, R - ray0);
+    const int n = nr * S;                             // the block's points
+    const int q0 = ray0 * S;                          // and the first one's index
+    const int tiles = (n + TM - 1) / TM;
+    // this thread's ray of the block and output channel in the composite
+    const int g = tid / C, c = tid % C;
+    const bool mine = g < nr && (HEADS == H_ALL || c >= 4);
+    carry[tid] = 1.0f;
+    carry[THREADS + tid] = 0.0f;
+
+    Ring<STAGES, KS, true> Rg;
+    Rg.start(B.ring, &plan, w, tiles);
+    core::Acc acc;
+    core::AccT<core::NTO> acc_out;
+    for (int t = 0; t < tiles; ++t) {
+        const int p0 = t * TM, nv = min(TM, n - p0);
+        forward_tile<HEADS, true, false>(Rg, B, acc, acc_out, pts + (size_t)(q0 + p0) * 3, nv,
+                                         vdirs, q0 + p0, S, b, m,
+                                         Save{nullptr, nullptr, nullptr});
+        __syncthreads();                 // every warp has read ins_h in H
+        core::for_pairs(acc_out, m.CP, [&](int r, int cc, float v0, float v1, int) {
+            *reinterpret_cast<float2*>(stage + r * lds + cc) =
+                make_float2(v0 + bo[cc], v1 + bo[cc + 1]);
+        });
+        __syncthreads();
+        if (tid < nv)
+            alpha[tid] = 1.0f - expf(-fmaxf(stage[tid * lds + 3], 0.0f) * dists[q0 + p0 + tid]);
+        __syncthreads();
+        // this ray's rows of the tile, in sample order
+        const int i0 = max(g * S - p0, 0), i1 = min((g + 1) * S - p0, nv);
+        if (mine && i0 < i1) {
+            float T = carry[tid], sum = carry[THREADS + tid];
+            for (int i = i0; i < i1; ++i) {
+                const float a = alpha[i];
+                const float wgt = a * T;
+                float v;
+                if (c < 3) v = 1.0f / (1.0f + expf(-stage[i * lds + c]));
+                else if (c == 3) v = zv[q0 + p0 + i];
+                else v = stage[i * lds + c];
+                sum += wgt * v;
+                T = T * ((1.0f - a) + 1e-10f);
+            }
+            carry[tid] = T;
+            carry[THREADS + tid] = sum;
+        }
+        __syncthreads();   // the next tile writes its encoding over the stage
+    }
+
+    if (mine) {
+        const int ray = ray0 + g;
+        const float sum = carry[THREADS + tid];
+        if (c < 3) out_rgb[(size_t)ray * 3 + c] = sum;
+        else if (c == 3) out_depth[ray] = sum;
+        else out_ins[(size_t)ray * (C - 4) + (c - 4)] = sum;
+    }
+}
+
+// kernels/render_field.py::check_kernel_shape holds the wrappers to these
+int read_meta(const int* meta, int n_meta, int R, int S, Meta* m) {
     if (n_meta != META_INTS) return (int)cudaErrorInvalidValue;
-    Meta m;
-    memcpy(&m, meta, sizeof(Meta));
-    if (m.D < 1 || m.D > MAXD || m.W % 32 || m.XP % 16 || m.DP % 16 || m.CP % 16
-        || m.XP > m.W || m.DP > m.W / 2 || m.CP > m.W / 2 || R < 1 || S < 1)
+    memcpy(m, meta, sizeof(Meta));
+    if (m->D < 1 || m->D > MAXD || m->W % 32 || m->W > core::MAXW || m->XP % 16
+        || m->DP % 16 || m->CP % 16 || m->XP > m->W || m->DP > m->W / 2
+        || m->CP > core::MAXCP || R < 1 || S < 1)
         return (int)cudaErrorInvalidValue;
-    const size_t smem = smem_bytes(m, HEADS != H_NONE);
-    cudaError_t err = cudaFuncSetAttribute(render_field_kernel<HEADS>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+    return 0;
+}
+
+template <Heads HEADS>
+int launch_composite(const float* pts, const float* vdirs, const float* z, const float* dists,
+                     int R, int S, const bf16* w, const float* b, const int* meta, int n_meta,
+                     float* rgb, float* depth, float* ins, void* stream) {
+    Meta m;
+    if (int err = read_meta(meta, n_meta, R, S, &m)) return err;
+    Planner pb(KS);
+    plan_forward(pb, m, HEADS, true);
+    const size_t smem = composite_smem(m, pb.p);
+    auto kernel = composite_kernel<HEADS>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return (int)err;
-    constexpr bool ALL = HEADS == H_ALL;
-    render_field_kernel<HEADS><<<R, NTHREADS, smem, (cudaStream_t)stream>>>(
-        pts, vdirs, z, dists, S, w, b, m, HEADS == H_NONE ? o0 : nullptr,
-        ALL ? o0 : nullptr, ALL ? o1 : nullptr, o2);
+    const int G = group_rays(R, S, m.C);
+    kernel<<<(R + G - 1) / G, THREADS, smem, (cudaStream_t)stream>>>(
+        pts, vdirs, z, dists, R, S, G, w, b, m, pb.p, rgb, depth, ins);
     return (int)cudaGetLastError();
 }
 
@@ -191,8 +263,16 @@ extern "C" {
 int render_field_sigma(const float* pts, const float* z, const float* dists, int R, int S,
                        const bf16* w, const float* b, const int* meta, int n_meta,
                        float* weights, void* stream) {
-    return launch<H_NONE>(pts, nullptr, z, dists, R, S, w, b, meta, n_meta,
-                          weights, nullptr, nullptr, stream);
+    (void)z;
+    Meta m;
+    if (int err = read_meta(meta, n_meta, R, S, &m)) return err;
+    const size_t smem = sigma_smem(m);
+    cudaError_t err = cudaFuncSetAttribute(sigma_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    sigma_kernel<<<R, NTHREADS, smem, (cudaStream_t)stream>>>(pts, dists, S, w, b, m, weights);
+    return (int)cudaGetLastError();
 }
 
 // K3: rgb [R,3], depth [R], ins logits [R,K+1] <- pts [R,S,3], viewdirs [R,3],
@@ -201,16 +281,16 @@ int render_field_all(const float* pts, const float* vdirs, const float* z,
                      const float* dists, int R, int S, const bf16* w, const float* b,
                      const int* meta, int n_meta, float* rgb, float* depth, float* ins,
                      void* stream) {
-    return launch<H_ALL>(pts, vdirs, z, dists, R, S, w, b, meta, n_meta,
-                         rgb, depth, ins, stream);
+    return launch_composite<H_ALL>(pts, vdirs, z, dists, R, S, w, b, meta, n_meta, rgb, depth,
+                                   ins, stream);
 }
 
 // K5: ins logits [R,K+1] <- pts [R,S,3], z [R,S], dists [R,S] (all fp32).
 int render_field_ins(const float* pts, const float* z, const float* dists, int R, int S,
                      const bf16* w, const float* b, const int* meta, int n_meta,
                      float* ins, void* stream) {
-    return launch<H_INS>(pts, nullptr, z, dists, R, S, w, b, meta, n_meta,
-                         nullptr, nullptr, ins, stream);
+    return launch_composite<H_INS>(pts, nullptr, z, dists, R, S, w, b, meta, n_meta, nullptr,
+                                   nullptr, ins, stream);
 }
 
 const char* render_field_error_string(int err) {

@@ -36,7 +36,7 @@ import torch.nn.functional as F
 
 from dmnerf_torch.core.encoding import encoding_dim, positional_encoding
 from dmnerf_torch.kernels.render_field import (PackedField, Params, _as_field, _device_kind,
-                                               _ru, pack_field)
+                                               check_kernel_shape, pack_field)
 from dmnerf_torch.models.fields import FieldConfig
 
 # launches of each kernel since the last reset (the CPU plain path adds none)
@@ -292,12 +292,7 @@ def _check(packed: PackedField, pts: torch.Tensor, dirs: torch.Tensor, g=None):
                              f"{tuple(t.shape)}")
     if P < 1:
         raise ValueError("field kernels: no points")
-    W = cfg.netwidth
-    if (W % 32 or cfg.netdepth > 16 or _ru(cfg.pos_ch, 16) > W
-            or _ru(cfg.view_ch, 16) > W // 2 or _ru(cfg.ins_num + 5, 16) > W // 2):
-        raise ValueError(f"field kernels: netwidth {W} must be a multiple of 32, at least "
-                         "the padded position encoding, and twice the padded view "
-                         "encoding and output columns; netdepth at most 16")
+    check_kernel_shape(cfg, "field kernels")
 
 
 def _raise_on(rc: int, lib, name: str) -> None:

@@ -1,18 +1,27 @@
 """Fused field + composite for the eval render and edit paths: CUDA kernels
-K3, K4 and K5.
+K3, K4 and K5, the weight packing of every field kernel, and the limits of
+the shapes the kernels take.
 
 Port of dmnerf_tpu/ops/pallas/render_field.py. Three kernels in
 csrc/render_field.cu replace the TPU kernel `_composite_kernel`:
 
 - render_field_sigma (K4, heads="sigma"): trunk + density head, then the
   compositing weights [R, S]. The coarse pass needs nothing else: at eval its
-  weights only drive importance sampling.
+  weights only drive importance sampling. It runs the wmma core
+  (csrc/field_common.cuh: one block per ray, 64-point sub-tiles, wmma).
 - render_field_all (K3, heads="all"): the whole field, then per ray rgb [R,3],
   depth [R] and instance logits [R,K+1]. The raw [R,S,C] tensor never reaches
   device memory.
 - render_field_ins (K5, heads="ins"): trunk, density and the instance branch
   (no view directions, no rgb branch), then per ray the instance logits
   [R,K+1]. The edit path's accumulated-label passes composite nothing else.
+
+K3 and K5 run the field through K1's tile forward (csrc/field_tile.cuh on the
+mma.sync core of csrc/field_core.cuh): a block takes a few whole rays and
+walks their points in 128-point tiles, then composites each ray's rows in
+sample order. check_kernel_shape holds every field kernel's wrapper (K1-K5)
+to the widths the CUDA sources take: up to 256 wide, and up to ins_num 123 at
+any width.
 
 Beside each kernel is its plain PyTorch version (render_field_sigma_ref /
 render_field_all_ref / render_field_ins_ref): the field module plus
@@ -42,6 +51,8 @@ LAUNCHES: Dict[str, int] = {"render_field_sigma": 0, "render_field_all": 0,
                             "render_field_ins": 0}
 
 MAX_DEPTH = 16          # trunk layers the kernel's Meta block describes
+MAX_WIDTH = 256         # the widest layer the kernels' register tiles hold (csrc MAXW)
+MAX_OUT = 128           # the widest output layer, 4+ins_num+1 padded to 16 (csrc MAXCP)
 _ALIGN = 128            # bf16 elements between packed matrices (256 bytes)
 
 
@@ -172,6 +183,25 @@ def render_field_ins_ref(field: DMNeRFField, pts: torch.Tensor, z: torch.Tensor,
 
 # ---- kernel wrappers ----------------------------------------------------------
 
+def check_kernel_shape(cfg: FieldConfig, who: str) -> None:
+    """Raise ValueError naming the first limit of the CUDA field kernels
+    (K1-K5) that a field of `cfg` breaks: what csrc's read_meta accepts."""
+    W, HW = cfg.netwidth, cfg.netwidth // 2
+    XP, DP, CP = _ru(cfg.pos_ch, 16), _ru(cfg.view_ch, 16), _ru(cfg.ins_num + 5, 16)
+    limits = (
+        (W % 32 == 0, f"netwidth {W} must be a multiple of 32"),
+        (W <= MAX_WIDTH, f"netwidth {W} must be at most {MAX_WIDTH}"),
+        (cfg.netdepth <= MAX_DEPTH, f"netdepth {cfg.netdepth} must be at most {MAX_DEPTH}"),
+        (XP <= W, f"the position encoding padded to {XP} must be at most netwidth {W}"),
+        (DP <= HW, f"the view encoding padded to {DP} must be at most netwidth/2 = {HW}"),
+        (CP <= MAX_OUT, f"the output columns 4+ins_num+1 padded to {CP} (ins_num "
+                        f"{cfg.ins_num}) must be at most {MAX_OUT}"),
+    )
+    for ok, limit in limits:
+        if not ok:
+            raise ValueError(f"{who}: {limit}")
+
+
 def _check(packed: PackedField, pts, z, rays_d, viewdirs=None):
     cfg = packed.field.cfg
     if cfg.compute_dtype != torch.bfloat16:
@@ -200,12 +230,7 @@ def _check(packed: PackedField, pts, z, rays_d, viewdirs=None):
         need("viewdirs", viewdirs, (R, 1, 3))
     if R < 1 or S < 1:
         raise ValueError(f"render_field: empty input (R={R}, S={S})")
-    W = cfg.netwidth
-    if (W % 32 or _ru(cfg.pos_ch, 16) > W or _ru(cfg.view_ch, 16) > W // 2
-            or _ru(cfg.ins_num + 5, 16) > W // 2):
-        raise ValueError(f"render_field: netwidth {W} must be a multiple of 32, at "
-                         "least the padded position encoding, and twice the padded "
-                         "view encoding and output columns")
+    check_kernel_shape(cfg, "render_field")
 
 
 def _device_kind(t: torch.Tensor) -> str:

@@ -1,6 +1,8 @@
 """The port's CUDA kernels on an NVIDIA card against their plain versions:
-the render kernels K3/K4, the edit kernel K5 and the training kernels K1/K2,
-and the edit path's launches of K1 and K5.
+the render kernels K3/K4, the edit kernel K5 and the training kernels K1/K2
+(up to ins_num 123 at width 256, 128 and 64), K3 and K5 against the composite of K1's
+raw at shapes whose rays cross tiles and blocks, and the edit path's
+launches of K1 and K5.
 
 Imports no jax, so the machine with the card runs it without the JAX package's
 conftest:  python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -67,6 +69,57 @@ def test_kernels_match_plain_versions_on_the_card(width, ins_num, S):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("width,ins_num,R,S", [
+    (256, 64, 64, 192), (256, 123, 64, 192), (256, 32, 37, 16), (256, 32, 13, 100),
+    (256, 32, 9, 200), (256, 64, 5, 200), (256, 32, 1, 192), (256, 123, 1, 100),
+    (128, 65, 64, 128), (64, 123, 13, 100)])
+def test_render_kernels_on_k1s_core_at_any_grouping(width, ins_num, R, S):
+    """K3 and K5 walk G whole rays per block in 128-point tiles, so a tile
+    may hold the end of one ray and the start of the next, and the last
+    block may hold fewer rays: S = 16, 100, 192 and 200, R prime, and R = 1.
+    At width 256 up to ins_num 123 (CP 128, the widest output the kernels
+    take); at replica64_stress's width 128 with ins_num 65 (CP 80, more than
+    half the width); at width 64 with ins_num 123, where the fp32 raw that
+    K3/K5 stage needs more room than their activation buffers. K4, K3 and K5 against their plain versions at
+    test_kernels_match_plain_versions_on_the_card's bars; K5's logits equal
+    K3's bit for bit (the rgb rows of the output layer add exact zeros to
+    them); and K3 equals core/rendering.composite of K1's raw (K1 and K3 run
+    the same tile forward, so the raw is the same to the last bit) up to the
+    fp32 rounding of the scan and of torch's sums: 2e-5 of each output's
+    largest magnitude (at least 1)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from dmnerf_torch.core.rendering import composite
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = FieldConfig(netdepth=8, netwidth=width, multires=10, multires_views=4,
+                      ins_num=ins_num)
+    field = init_field_params(torch.Generator().manual_seed(6), cfg, device="cuda")
+    packed = krf.pack_field(field)
+    pts, vd, z, rd = _rays(R, S, seed=R + S)
+    krf.reset_launches()
+    with torch.no_grad():
+        k3 = krf.render_field_all(packed, pts, vd, z, rd)
+        k5 = krf.render_field_ins(packed, pts, z, rd)
+        pairs = [(krf.render_field_sigma(packed, pts, z, rd),
+                  krf.render_field_sigma_ref(field, pts, z, rd))]
+        pairs += list(zip(k3, krf.render_field_all_ref(field, pts, vd, z, rd)))
+        pairs.append((k5, krf.render_field_ins_ref(field, pts, z, rd)))
+        comp = composite(kf.field_forward(packed, pts, vd), z, rd, keep_air=True)
+        step = field.density(pts[:, -1])[..., 0].abs() < 0.05
+    torch.cuda.synchronize()
+    assert krf.LAUNCHES == {"render_field_sigma": 1, "render_field_all": 1,
+                            "render_field_ins": 1}
+    for got, want in pairs:
+        assert got.shape == want.shape and torch.isfinite(got).all()
+        off = (got - want).abs().reshape(R, -1).amax(1) > 2e-2
+        assert not (off & ~step).any() and off.sum() <= max(2, R // 32), off.sum()
+    assert torch.equal(k5, k3[2])
+    for got, want in zip(k3, (comp.rgb, comp.depth, comp.ins_logits)):
+        err = float((got - want).abs().max())
+        assert err <= 2e-5 * max(1.0, float(want.abs().max())), err
+
+
+@pytest.mark.cuda
 def test_f32_precision_has_no_kernel():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -84,7 +137,9 @@ def test_f32_precision_has_no_kernel():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("width,ins_num,R,S", [(64, 11, 37, 100), (256, 32, 16, 70),
-                                               (256, 32, 2, 50)])
+                                               (256, 32, 2, 50), (256, 64, 16, 70),
+                                               (256, 123, 16, 70), (128, 65, 16, 70),
+                                               (64, 123, 37, 100)])
 def test_field_kernels_match_plain_versions_on_the_card(width, ins_num, R, S):
     """K1 vs DMNeRFField.forward and K2 vs field_backward_ref on the same
     card (TF32 off). Both round to bf16 at the same places; the order of fp32
@@ -98,7 +153,10 @@ def test_field_kernels_match_plain_versions_on_the_card(width, ins_num, R, S):
     (the plain version moves by 1.1e-2 with f64 in place of f32 accumulation
     at width 256). K2 is bit-identical across launches, and an
     instance-logit loss gives the trunk exactly zero. R*S is not a multiple
-    of the kernels' 128-point tile, and 100 points leave one partial tile."""
+    of the kernels' 128-point tile, and 100 points leave one partial tile.
+    At width 256 ins_num 64 and 123 (CP 80 and 128) take K2's shallower
+    weight slabs; width 128 with ins_num 65 is replica64_stress's shape, and
+    width 64 with ins_num 123 an output layer twice as wide as the trunk."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -220,6 +220,18 @@ def test_flatten_inputs_and_validation():
         kf.field_forward(packed, pts.to("meta"), torch.zeros(4, 1, 3, device="meta"))
     with pytest.raises(ValueError):
         kf.make_pallas_field(f32_field.cfg)(field, pts, torch.zeros(4, 1, 3))
+    # the limits K1/K2 share with K3-K5 (render_field.check_kernel_shape): up
+    # to ins_num 123 (CP 128) at any width (replica64_stress: 65 at 128), no
+    # layer wider than 256
+    wide = dict(netdepth=2, netwidth=256, multires=10, multires_views=4)
+    for width, ins_num in ((256, 64), (256, 123), (128, 65), (64, 123)):
+        shape = tf.FieldConfig(**{**wide, "netwidth": width}, ins_num=ins_num)
+        kf._check(pack_field(tf.DMNeRFField(shape)), p, d, torch.zeros(20, ins_num + 5))
+    for over, limit in (({"ins_num": 124}, r"\(ins_num 124\) must be at most 128"),
+                        ({"ins_num": 4, "netwidth": 288}, "netwidth 288 must be at most 256")):
+        wp = pack_field(tf.DMNeRFField(tf.FieldConfig(**{**wide, **over})))
+        with pytest.raises(ValueError, match="field kernels: .*" + limit):
+            kf._check(wp, p, d)
 
 
 def _chip_smoke():

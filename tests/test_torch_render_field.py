@@ -1,9 +1,11 @@
 """dmnerf_torch/kernels/render_field: the plain versions of kernels K3/K4 vs
 the JAX package's Pallas kernel (interpret mode on the CPU) and vs
-apply_field + composite; the kernel's weight packing, checked by an
-emulation that reads the packed buffers at the offsets the CUDA source reads;
-and the wrappers' dispatch and validation. The kernels themselves run on a
-card only: tests/test_torch_cuda.py."""
+apply_field + composite, and those of K1/K3/K4/K5 at the flagship width with
+ins_num 64 and at the replica64 stress scene's width 128 with ins_num 65;
+the kernel's weight packing, checked by an emulation that reads
+the packed buffers at the offsets the CUDA source reads; and the wrappers'
+dispatch and validation, with the shape limits every field kernel shares.
+The kernels themselves run on a card only: tests/test_torch_cuda.py."""
 
 import jax
 import jax.numpy as jnp
@@ -14,6 +16,7 @@ import torch
 from dmnerf_tpu.core import rendering as jrend
 from dmnerf_tpu.models import fields as jf
 from dmnerf_tpu.ops.pallas import render_field as jrf
+from dmnerf_tpu.ops.pallas.field_kernels import make_pallas_field as jax_pallas_field
 from dmnerf_torch.core.encoding import positional_encoding
 from dmnerf_torch.core.rendering import alpha_weights, sample_dists
 from dmnerf_torch.kernels import render_field as krf
@@ -21,6 +24,12 @@ from dmnerf_torch.models import fields as tf
 from dmnerf_torch.models.convert import state_dict_from_jax
 
 SMALL = dict(netdepth=3, netwidth=32, multires=4, multires_views=2, ins_num=4, skip=1)
+# the flagship field with 64 instance slots: 4+64+1 output columns pad to CP
+# 80, past the 64 that one register tile of the CUDA kernels' output holds
+WIDE64 = dict(netdepth=8, netwidth=256, multires=10, multires_views=4, ins_num=64, skip=4)
+# configs/stress/replica64_stress.txt: width 128, and the replica loader's
+# ins_num is the palette's length, 64 objects + 1, so CP 80 > netwidth/2
+STRESS64 = dict(netdepth=8, netwidth=128, multires=10, multires_views=4, ins_num=65, skip=4)
 
 
 def _field(dtype_t, seed=0, dtype_j=jnp.float32, **over):
@@ -83,6 +92,54 @@ def test_all_ref_matches_jax_kernel_and_composite():
             np.testing.assert_allclose(g, np.asarray(w), atol=tol, rtol=1e-4)
 
 
+@pytest.mark.parametrize("kernel", ["K1", "K3", "K4", "K5"])
+def test_plain_versions_match_jax_at_ins_num_64(kernel):
+    """The plain versions of K1 (field_forward_ref), K3, K4 and K5 at the
+    flagship width with ins_num 64 vs the JAX package's Pallas kernels
+    (interpret mode, f32) on 8 rays x 16 samples. Only the order of f32
+    sums differs through 9 layers of width 256: 1e-4 abs and relative on raw
+    and logits (a few units), 1e-5 abs on weights and rgb (in [0, 1]), 1e-4
+    on depth (world units up to 6)."""
+    _plain_vs_jax(kernel, WIDE64, seed=5)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K3", "K4", "K5"])
+def test_plain_versions_match_jax_at_the_replica64_stress_shape(kernel):
+    """The same at configs/stress/replica64_stress.txt's shape (width 128,
+    ins_num 65: the output layer is wider than half the width), at the
+    same tolerances."""
+    _plain_vs_jax(kernel, STRESS64, seed=7)
+
+
+def _plain_vs_jax(kernel, shape, seed):
+    from dmnerf_torch.kernels import field as kf
+    cfg_j, params, field = _field(torch.float32, seed=seed, **shape)
+    pts, vd, z, rd = _rays(R=8, S=16, seed=6)
+    tp, tv, tz, trd = _t(pts, vd, z, rd)
+    jp, jv, jz, jrd = (jnp.asarray(x) for x in (pts, vd, z, rd))
+    with torch.no_grad():
+        if kernel == "K1":
+            got = [kf.field_forward_ref(field, tp, tv)]
+            want = [jax_pallas_field(cfg_j)(params, jp, jv)]
+            tols = [1e-4]
+        elif kernel == "K3":
+            got = krf.render_field_all_ref(field, tp, tv, tz, trd)
+            want = jrf.make_render_field(cfg_j, heads="all")(params, jp, jv, jz, jrd)
+            tols = [1e-5, 1e-4, 1e-4]
+        elif kernel == "K4":
+            got = [krf.render_field_sigma_ref(field, tp, tz, trd)]
+            want = [jrf.make_render_field(cfg_j, heads="sigma")(params, jp, jz, jrd)]
+            tols = [1e-5]
+        else:
+            got = [krf.render_field_ins_ref(field, tp, tz, trd)]
+            want = [jrf.make_render_field(cfg_j, heads="ins")(params, jp, jz, jrd)]
+            tols = [1e-4]
+    for g, w, tol in zip(got, want, tols):
+        w = np.asarray(w)
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), w, atol=tol, rtol=1e-4)
+
+
 def _emulate(packed, pts, vd, z, rd, heads):
     """The CUDA kernel's math on the packed buffers, with the offsets read
     from packed.meta exactly as csrc/render_field.cu's Meta struct does."""
@@ -137,7 +194,7 @@ def test_packing_emulation_matches_plain_version(over):
     packed = krf.pack_field(field)
     assert packed.w.dtype == torch.bfloat16 and packed.b.dtype == torch.float32
     assert len(packed.meta) == 36
-    pts, vd, z, rd = _t(*_rays(R=8, S=70))   # S spans two of the kernel's 64-point tiles
+    pts, vd, z, rd = _t(*_rays(R=8, S=70))   # K4's two 64-point sub-tiles; rays across K3's tiles
     with torch.no_grad():
         pairs = [(_emulate(packed, pts, vd, z, rd, "sigma"),
                   krf.render_field_sigma_ref(field, pts, z, rd))]
@@ -195,3 +252,22 @@ def test_wrapper_validation_rejects_what_the_kernel_does_not_take():
         rf_ins(field, pts, vd, z, rd)
     with pytest.raises(ValueError):
         krf.make_render_field(f32_field.cfg, heads="ins")(field, pts, z, rd)
+    # the limits every field kernel shares (check_kernel_shape): the output
+    # columns 4+ins_num+1 pad to at most 128 at any width, so ins_num 64 and
+    # 123 are taken at width 256, 65 at 128 (replica64_stress) and 123 at 64,
+    # and 124 is not; no layer wider than 256
+    wide = dict(netdepth=2, netwidth=256, multires=10, multires_views=4)
+    for width, ins_num in ((256, 64), (256, 123), (128, 65), (64, 123)):
+        shape = tf.FieldConfig(**{**wide, "netwidth": width}, ins_num=ins_num)
+        krf.check_kernel_shape(shape, "render_field")
+        krf._check(krf.pack_field(tf.DMNeRFField(shape)), pts, z, rd, vd)
+    for width in (256, 64):
+        bad = krf.pack_field(tf.DMNeRFField(tf.FieldConfig(**{**wide, "netwidth": width},
+                                                           ins_num=124)))
+        with pytest.raises(ValueError, match=r"padded to 144 \(ins_num 124\) must be at "
+                                             r"most 128"):
+            krf._check(bad, pts, z, rd, vd)
+    with pytest.raises(ValueError, match="netwidth 288 must be at most 256"):
+        krf.check_kernel_shape(tf.FieldConfig(**{**wide, "netwidth": 288}, ins_num=4), "x")
+    with pytest.raises(ValueError, match="netwidth 48 must be a multiple of 32"):
+        krf.check_kernel_shape(tf.FieldConfig(**{**wide, "netwidth": 48}, ins_num=4), "x")
