@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA card (H100, sm_90a): the render
 path (kernels K3/K4), the training step (kernels K1/K2) and the edit path
-(kernels K1/K5).
+(kernels K1/K5), each in bf16 and, through the kernels' f32 builds, in f32.
 
     python3 chip_smoke.py
 
@@ -37,7 +37,9 @@ Phases (each fails the run by raising; nothing is caught):
    port never calls it). 6b: K1 and K2 timed through builds of their core
    with the weight slab loads, the per-slab barrier, or both taken out, and
    on a 4 x 4 warp grid (built in parallel since phase 2; timing only, the
-   first three are wrong by design).
+   first three are wrong by design). 6c: K4 on phase 3's rays through builds
+   at 1, 4 and 8 rays per block beside the real build's choice (2), its
+   weights equal at each (timing only).
 7. the training slice through its entry point: dmnerf_torch.cli.train on
    boxroom128x8 at flagship width (N_train 3072, 64+128 samples, penalizer,
    bf16) for 30 steps with one in-train eval; every printed loss finite, K1
@@ -69,12 +71,21 @@ Phases (each fails the run by raising; nothing is caught):
    composites and the rest (CUDA events); torch.profiler over 2 views; and
    the chunk over {1024, 2048, 4096, 8192} at 128x128 with its peak device
    memory.
-Phases 3, 6 and 9 also print each kernel's bound (the larger of its
-operations over the bf16 tensor-core peak and its bytes over the memory
-rate), its TFLOP/s and its share of the bound. The line before the last is a
-JSON object with one entry per kernel (its K=64 reading under "k64"); the
-last line is {"ok": true, "device": {...}}. The run fails if it loaded jax
-or the JAX package.
+12. the f32 builds (precision f32) at the flagship field, K=32: K4, K3 and K5
+   on phase 3's rays and K1/K2 on 3072 rays x 64 points against their plain
+   f32 versions (F32_TOL; K2 bit-identical across launches) with their
+   median times; at the train step's fine shape, 3072 rays x 192 (589,824
+   points), K1 and K2 against their plain f32 versions the same way and the
+   peak device memory of K2's f32 build; then through the entry points: dmnerf_torch.cli.train for
+   3 steps, dmnerf_torch.cli.test --render of its .tar and a
+   manipulator_eval, each launching only f32 builds, as many as the bf16
+   runs launch bf16 ones.
+Phases 3, 6, 9 and 12 also print each kernel's bound (the larger of its
+operations over the peak of its type, bf16 tensor cores or fp32 CUDA cores,
+and its bytes over the memory rate), its TFLOP/s and its share of the bound.
+The line before the last is a JSON object with one entry per kernel and
+build (its K=64 reading under "k64"); the last line is {"ok": true, "device":
+{...}}. The run fails if it loaded jax or the JAX package.
 """
 
 import json
@@ -147,12 +158,23 @@ EDIT_FRAC_TOL = 1e-1
 # with f64 in place of f32 accumulation differs from itself by 1.1e-2 at the
 # flagship width (CPU, 3700 points); an NVIDIA H100 (700 W) measured 1.2e-2-1.7e-2.
 GRAD_TOL = 3e-2
+# The f32 builds vs their plain f32 versions: nothing is rounded below f32 on
+# either side, so only the order of the fp32 sums differs. Raw and render
+# outputs within F32_TOL of max(1, the largest magnitude of the plain
+# output), gradients within F32_TOL relative L2; rays whose plain last-sample
+# |sigma| < F32_STEP sit on the last-sample step and are exempt.
+F32_TOL = 1e-4
+F32_STEP = 1e-3
 # Published dense peaks of an H100 SXM at 700 W (NVIDIA's data sheet): the
-# least time a kernel could take is the larger of its operations over the bf16
-# tensor-core rate and its bytes (each input read once, each output written
+# least time a kernel could take is the larger of its operations over the
+# rate of their type (bf16 on the tensor cores; fp32 on the CUDA cores for
+# the f32 builds) and its bytes (each input read once, each output written
 # once) over the memory rate.
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# the render kernels' f32 launch counts, in a run that launches only bf16 ones
+F32_NONE = {"render_field_sigma_f32": 0, "render_field_all_f32": 0, "render_field_ins_f32": 0}
 
 
 def check(name, out, got, want, sigma_last):
@@ -198,10 +220,11 @@ def field_macs(cfg, part, need_x=False, need_d=False):
     return fwd + dx + total
 
 
-def roofline(entry, macs, nbytes):
-    """Adds the bound (ms, and whether operations or bytes set it), the
-    achieved TFLOP/s and the library yardstick (none) to a kernels entry."""
-    t_ops, t_bytes = 2.0 * macs / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def roofline(entry, macs, nbytes, peak=PEAK_BF16_FLOPS):
+    """Adds the bound (ms, and whether operations or bytes set it; operations
+    at the rate peak), the achieved TFLOP/s and the library yardstick (none)
+    to a kernels entry."""
+    t_ops, t_bytes = 2.0 * macs / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     entry.update(bound_ms=max(t_ops, t_bytes),
                  bound_by="operations" if t_ops >= t_bytes else "bytes",
                  tflops=2.0 * macs / (entry["ms"] * 1e-3) / 1e12, library_ms=None)
@@ -285,43 +308,98 @@ def wide_render_kernels(dev, card, ro, rd, vd, z):
     return out
 
 
-# Timing-only builds of the K1/K2 core with one part taken out (their outputs
-# are wrong by design and are not checked), and with the 4 x 4 warp grid in
-# place of 2 x 8: where the kernels' time goes, and what the grid gives.
+# Timing-only builds, each the real sources with one patch: {name: (the
+# library, the file patched, [(old, new)])}. The K1/K2 core with one part
+# taken out (their outputs are wrong by design and are not checked), and with
+# the 4 x 4 warp grid in place of 2 x 8: where the kernels' time goes, and
+# what the grid gives.
+_SLAB_LOADS = ("            if (!s.trans) {            // rows r0+k0 .. +ks, every column",
+               "            if (t > STAGES) {} else if (!s.trans) {            // rows r0+k0 .. +ks, every column")
+_SLAB_BARRIER = ("        cp_async_wait<STAGES - 2>();\n        __syncthreads();",
+                 "        cp_async_wait<STAGES - 2>();")
 ABLATIONS = {
-    "weight slab loads out": [(
-        "            if (!s.trans) {            // rows r0+k0 .. +ks, every column",
-        "            if (t > STAGES) {} else if (!s.trans) {            // rows r0+k0 .. +ks, every column")],
-    "per-slab barrier out": [(
-        "        cp_async_wait<STAGES - 2>();\n        __syncthreads();",
-        "        cp_async_wait<STAGES - 2>();")],
+    "weight slab loads out": ("field", "field_core.cuh", [_SLAB_LOADS]),
+    "per-slab barrier out": ("field", "field_core.cuh", [_SLAB_BARRIER]),
+    "loads and barrier out": ("field", "field_core.cuh", [_SLAB_LOADS, _SLAB_BARRIER]),
+    "4 x 4 warp grid": ("field", "field_core.cuh",
+                        [("constexpr int WM = 2, WN = 8;", "constexpr int WM = 4, WN = 4;")]),
 }
-ABLATIONS["loads and barrier out"] = ABLATIONS["weight slab loads out"] + ABLATIONS["per-slab barrier out"]
-ABLATIONS["4 x 4 warp grid"] = [("constexpr int WM = 2, WN = 8;", "constexpr int WM = 4, WN = 4;")]
+# K4 at a fixed count of rays per block in place of group_rays' choice (2 at
+# S = 64): the sweep behind that rule (its weights must equal the real build's)
+for _G in (1, 4, 8):
+    ABLATIONS[f"K4 with G={_G} rays per block"] = ("render_field", "render_field.cu", [(
+        "const int G = group_rays(", f"const int G = HEADS == H_SIGMA ? {_G} : group_rays(")])
+CHILDREN = []                           # the processes this script starts
 
 
 def start_ablation_builds():
     """One nvcc per ABLATIONS entry, started now (they build while the real
-    kernels are checked): {name: (library path, process)}."""
+    kernels are checked): {name: (library name, library path, process)}."""
     import shutil
     from dmnerf_torch.kernels import build
     root = os.path.join(REPO, "build", "ablation")
     shutil.rmtree(root, ignore_errors=True)
     out = {}
-    for i, (name, patches) in enumerate(ABLATIONS.items()):
+    for i, (name, (lib, fname, patches)) in enumerate(ABLATIONS.items()):
         d = os.path.join(root, str(i))
         shutil.copytree(build.CSRC, d)
-        core = open(os.path.join(d, "field_core.cuh")).read()
+        text = open(os.path.join(d, fname)).read()
         for old, new in patches:
-            if old not in core:
-                raise AssertionError(f"ablation {name!r}: field_core.cuh has no {old!r}")
-            core = core.replace(old, new)
-        open(os.path.join(d, "field_core.cuh"), "w").write(core)
-        so = os.path.join(d, "libfield.so")
-        out[name] = (so, subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-o", so, os.path.join(d, "field.cu")],
+            if old not in text:
+                raise AssertionError(f"ablation {name!r}: {fname} has no {old!r}")
+            text = text.replace(old, new)
+        open(os.path.join(d, fname), "w").write(text)
+        so = os.path.join(d, f"lib{lib}.so")
+        out[name] = (lib, so, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", so, os.path.join(d, f"{lib}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        CHILDREN.append(out[name][2])
     return out
+
+
+def ablation_libs(builds, lib):
+    """{name: the bound library} of the ABLATIONS builds of library lib,
+    waiting for each build."""
+    from dmnerf_torch.kernels import build
+    entries, error = {"field": (build.FIELD_ENTRIES, "field_error_string"),
+                      "render_field": (build.RENDER_FIELD_ENTRIES,
+                                       "render_field_error_string")}[lib]
+    out = {}
+    for name, (which, so, proc) in builds.items():
+        if which != lib:
+            continue
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise AssertionError(f"ablation build {name!r} failed:\n{log}")
+        out[name] = build.bind(so, entries, error)
+    return out
+
+
+def k4_rays_sweep(builds, packed, pts, z, rd, want, card):
+    """Phase 6c: K4 on phase 3's coarse rays at group_rays' choice (the real
+    build) and through the ABLATIONS builds at a fixed count of rays per
+    block, in turns real, each, each reversed, real (the better of each
+    pair); the weights must equal the real build's bit for bit."""
+    from dmnerf_torch.kernels import build
+    from dmnerf_torch.kernels import render_field as krf
+
+    phase("6c K4 by rays per block (timing only)")
+    libs = {"real build (group_rays)": build.load_render_field(),
+            **ablation_libs(builds, "render_field")}
+    real, times = build.load_render_field, {}
+    try:
+        with torch.no_grad():
+            for name in [*libs, *reversed(libs)]:
+                build.load_render_field = lambda lib=libs[name]: lib
+                if not torch.equal(krf.render_field_sigma(packed, pts, z, rd), want):
+                    raise AssertionError(f"K4 through {name!r} differs from the real build")
+                ms = cuda_ms(lambda: krf.render_field_sigma(packed, pts, z, rd))
+                times[name] = min(ms, times.get(name, ms))
+    finally:
+        build.load_render_field = real
+    R, S = z.shape
+    for name, ms in times.items():
+        print(f"  render_field_sigma, {name}: {ms:.3f} ms (R={R}, S={S}; weights equal; {card})")
 
 
 def phase(name):
@@ -476,7 +554,7 @@ def main():
         if table.shape != (3, 9) or not np.isfinite(table[:, 0]).all():
             raise AssertionError(f"test_results.txt: shape {table.shape}, PSNR {table[:, 0]}")
         if launches != {"render_field_sigma": expected, "render_field_all": expected,
-                        "render_field_ins": 0}:
+                        "render_field_ins": 0, **F32_NONE}:
             raise AssertionError(f"launches {launches}, expected {expected} of K4 and K3")
         for k in kernels:
             k["launches"] = launches[k["name"]]
@@ -520,6 +598,7 @@ def main():
     profile_device(lambda: sum(1 for _ in render.many(params, K, poses[:4])), 4, "view", card)
 
     kernels += field_kernels_vs_plain(dev, card, ablation_builds)
+    k4_rays_sweep(ablation_builds, pc, pts_c, z_c, rd, w_k, card)
     train_launches = train_slice(dev)
     for k in kernels:
         if k["name"] in train_launches:
@@ -530,6 +609,7 @@ def main():
     kernels[-1]["k64"] = k64["render_field_ins"]
     kernels[-1]["launches"] = edit_slice(dev)["render_field_ins"]
     edit_throughput(dev, card, cfg, {"coarse": coarse, "fine": fine})
+    kernels += f32_builds(dev, card, ro, rd, vd, z_c, z_f)
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "dmnerf_tpu"))
     if loaded:
@@ -561,14 +641,15 @@ def grad_errors(field, packed, got, want):
     return rel, max(float((a - b).abs().max()) for _, a, b in pairs)
 
 
-def field_cases(dev, ins_num, seed, R, Ss):
-    """The flagship field at ins_num from a seed, and for each S in Ss, R rays
-    x S points (sorted z in [1, 12]) with a cotangent g for its raw, all from
-    one numpy generator: yields (field, packed, pts, vd, pf, dirs, ppd, g)."""
+def field_cases(dev, ins_num, seed, R, Ss, dtype=torch.bfloat16):
+    """The flagship field at ins_num (compute dtype dtype) from a seed, and for
+    each S in Ss, R rays x S points (sorted z in [1, 12]) with a cotangent g
+    for its raw, all from one numpy generator: yields (field, packed, pts,
+    vd, pf, dirs, ppd, g)."""
     from dmnerf_torch.kernels import field as kf
     from dmnerf_torch.kernels.render_field import pack_field
     from dmnerf_torch.models.fields import FieldConfig, init_field_params
-    cfg = FieldConfig(**FLAGSHIP, ins_num=ins_num)
+    cfg = FieldConfig(**FLAGSHIP, ins_num=ins_num, compute_dtype=dtype)
     field = init_field_params(torch.Generator().manual_seed(seed), cfg, device=dev)
     packed = pack_field(field)
     rng = np.random.default_rng(seed)
@@ -740,8 +821,9 @@ def field_work(case, part):
 
 
 def ablation_times(builds, fwd_k, bwd_k, card):
-    """Phase 6b: K1 and K2 at P=589,824 through each ABLATIONS build, between
-    two timings of the real build, in one stretch of the run."""
+    """Phase 6b: K1 and K2 at P=589,824 through each ABLATIONS build of
+    field.cu, between two timings of the real build, in one stretch of the
+    run."""
     from dmnerf_torch.kernels import build
 
     phase("6b where K1/K2's time goes: the core with a part taken out, or on a 4 x 4 warp "
@@ -749,11 +831,7 @@ def ablation_times(builds, fwd_k, bwd_k, card):
     real = build.load_field
     rows = [("real kernels", cuda_ms(fwd_k), cuda_ms(bwd_k, 5))]
     try:
-        for name, (so, proc) in builds.items():
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                raise AssertionError(f"ablation build {name!r} failed:\n{log}")
-            lib = build.bind_field(so)
+        for name, lib in ablation_libs(builds, "field").items():
             build.load_field = lambda lib=lib: lib
             rows.append((name, cuda_ms(fwd_k), cuda_ms(bwd_k, 5)))
     finally:
@@ -763,14 +841,14 @@ def ablation_times(builds, fwd_k, bwd_k, card):
         print(f"  {name}: K1 {ms1:.3f} ms, K2 {ms2:.3f} ms (P=589824; {card})")
 
 
-def train_cfg(tmp, name, n_iters, extra=()):
+def train_cfg(tmp, name, n_iters, extra=(), precision="bf16"):
     path = os.path.join(tmp, f"{name}.txt")
     with open(path, "w") as f:
         f.write("\n".join([
             f"expname = {name}", f"basedir = {tmp}", "log_time = run",
             "datadir = ./data/synthetic/boxroom128x8", "N_train = 3072", "N_samples = 64",
             "N_importance = 128", "N_test = 4096", "near = 1.0", "far = 12.0",
-            "precision = bf16", "penalize", "tolerance = 0.05", "deta_w = 0.05",
+            f"precision = {precision}", "penalize", "tolerance = 0.05", "deta_w = 0.05",
             "lrate = 5e-4", f"n_iters = {n_iters}", "seed = 3", *extra]
             + [f"{k} = {v}" for k, v in FLAGSHIP.items()]) + "\n")
     return path
@@ -801,7 +879,8 @@ def train_slice(dev):
         print(f"metrics.jsonl: {len(lines)} lines, last {lines[-1]}")
         if len(lines) != 6 or not np.isfinite(losses).all():
             raise AssertionError("train: a printed loss is not finite, or lines are missing")
-        if launches != {"field_forward": 60, "field_backward": 60}:
+        if launches != {"field_forward": 60, "field_backward": 60,
+                        "field_forward_f32": 0, "field_backward_f32": 0}:
             raise AssertionError(f"launches {launches}, expected 60 of each (2 per step)")
         if not os.path.isdir(os.path.join(ldir, "testset_000015")):
             raise AssertionError("train: no in-train eval at step 15")
@@ -989,6 +1068,182 @@ def ins_kernel_vs_plain(fine, packed, pts, vd, z, rd, card):
                     render_bytes("render_field_ins", R, S, packed, fine.cfg.ins_num))
 
 
+def held_f32(name, got, want, sigma_last=None):
+    """The max abs error of an f32 build's output per ray (per point for raw)
+    over the rays off the last-sample step, held to F32_TOL of max(1, max
+    |want|); at most MAX_STEP_RAYS rays may be exempt."""
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} or non-finite")
+    err = (got - want).abs().reshape(got.shape[0], -1).amax(1)
+    step = (sigma_last.abs() < F32_STEP if sigma_last is not None
+            else torch.zeros_like(err, dtype=torch.bool))
+    worst, scale = float(err[~step].max()), max(1.0, float(want.abs().max()))
+    print(f"{name} {tuple(got.shape)}: max abs err {worst:.3e}, {worst / scale:.3e} of "
+          f"max(1, max |want|) (tolerance {F32_TOL:.0e}); {int(step.sum())} rays exempt at the "
+          f"last-sample step (raw max {float(err.max()):.3e})")
+    if worst > F32_TOL * scale or int(step.sum()) > MAX_STEP_RAYS:
+        raise AssertionError(f"{name} disagrees with its plain f32 version")
+    return worst
+
+
+def f32_builds(dev, card, ro, rd, vd, z_c, z_f):
+    """Phase 12: the f32 builds of K1-K5 against their plain f32 versions,
+    then the train, render and edit paths in f32 through their entry points.
+    Returns the kernels-line entries of the f32 builds."""
+    from dmnerf_torch.cli import test as cli_test
+    from dmnerf_torch.cli import train as cli_train
+    from dmnerf_torch.edit import runner
+    from dmnerf_torch.kernels import field as kf
+    from dmnerf_torch.kernels import render_field as krf
+    from dmnerf_torch.models.fields import FieldConfig, init_field_params
+
+    phase("12 the f32 builds vs their plain f32 versions (flagship 8x256, K=32, 4096 rays; "
+          "3072 rays x 64 / x 192), then cli.train, cli.test --render and an edit in f32")
+    cfg = FieldConfig(**FLAGSHIP, ins_num=32, compute_dtype=torch.float32)
+    gen = torch.Generator().manual_seed(12)
+    coarse, fine = (init_field_params(gen, cfg, device=dev).eval() for _ in range(2))
+    pc, pf = krf.pack_field(coarse), krf.pack_field(fine)
+    R = z_c.shape[0]
+    pts_c = ro[:, None] + rd[:, None] * z_c[:, :, None]
+    pts_f = ro[:, None] + rd[:, None] * z_f[:, :, None]
+    entries = []
+
+    def timed(entry, k_fn, p_fn, work, reps=3):
+        # plain, kernel, kernel, plain: both see the same slice of the run
+        p1, k1, k2, p2 = (cuda_ms(p_fn, reps, 1), cuda_ms(k_fn, reps, 1), cuda_ms(k_fn, reps, 1),
+                          cuda_ms(p_fn, reps, 1))
+        entry.update(route="cuda", launches=0, ms=min(k1, k2), plain_ms=min(p1, p2))
+        print(f"{entry['name']}: kernel {entry['ms']:.3f} ms, plain {entry['plain_ms']:.3f} ms "
+              f"(median of {reps}; {card})")
+        entries.append(roofline(entry, *work, peak=PEAK_FP32_FLOPS))
+
+    with torch.no_grad():
+        sig_c = coarse.density(pts_c[:, -1])[..., 0]
+        sig_f = fine.density(pts_f[:, -1])[..., 0]
+        for name, outs, k_fn, p_fn, S, sig in (
+                ("render_field_sigma", ("weights",),
+                 lambda: krf.render_field_sigma(pc, pts_c, z_c, rd),
+                 lambda: krf.render_field_sigma_ref(coarse, pts_c, z_c, rd), z_c.shape[1], sig_c),
+                ("render_field_all", ("rgb", "depth", "ins_logits"),
+                 lambda: krf.render_field_all(pf, pts_f, vd, z_f, rd),
+                 lambda: krf.render_field_all_ref(fine, pts_f, vd, z_f, rd), z_f.shape[1], sig_f),
+                ("render_field_ins", ("ins_logits",),
+                 lambda: krf.render_field_ins(pf, pts_f, z_f, rd),
+                 lambda: krf.render_field_ins_ref(fine, pts_f, z_f, rd), z_f.shape[1], sig_f)):
+            got, want = k_fn(), p_fn()
+            torch.cuda.synchronize()
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            worst = max(held_f32(f"{name}_f32 {o}", a, b, sig) for o, a, b in zip(outs, got, want))
+            heads = name.split("_")[-1]
+            timed({"name": f"{name}_f32", "source": SRC, "replaces": REPLACES, "heads": heads,
+                   "max_abs_err": worst}, k_fn, p_fn,
+                  (field_macs(cfg, heads) * R * S, render_bytes(name, R, S, pf, cfg.ins_num)))
+
+    def check_k1_k2(case):
+        """K1's raw and K2's gradients against their plain f32 versions on a
+        case of field_cases, K2 bit-identical across two launches, and the
+        peak device memory of K2's first launch. Returns (max abs raw error,
+        max abs gradient error)."""
+        field, packed, pts, cvd, pts_flat, dirs, ppd, g = case
+        P, C = pts_flat.shape[0], field.cfg.ins_num + 5
+        with torch.no_grad():
+            raw_k, raw_p = kf.field_forward(packed, pts, cvd), kf.field_forward_ref(field, pts, cvd)
+        e_raw = held_f32(f"field_forward_f32 raw P={P}", raw_k.reshape(-1, C),
+                         raw_p.reshape(-1, C))
+        del raw_k, raw_p
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        gk = kf.field_backward(packed, pts_flat, dirs, ppd, g)
+        torch.cuda.synchronize()
+        print(f"field_backward_f32 P={P}: peak device memory of the call "
+              f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB (scratch, "
+              f"partials and outputs; {card})")
+        gk2 = kf.field_backward(packed, pts_flat, dirs, ppd, g)
+        gp = kf.field_backward_ref(packed, pts_flat, dirs, ppd, g)
+        torch.cuda.synchronize()
+        rel, e_grad = grad_errors(field, packed, gk, gp)
+        worst_name, e = max(rel.items(), key=lambda kv: kv[1])
+        print(f"field_backward_f32 P={P}: worst gradient relative L2 err {e:.3e} "
+              f"({worst_name}; tolerance {F32_TOL:.0e}); max abs err {e_grad:.3e}")
+        if e > F32_TOL or not all(bool(torch.isfinite(t).all()) for t in gk[:2]):
+            raise AssertionError(f"K2's f32 build disagrees with its plain version at P={P}")
+        if not (torch.equal(gk.dw, gk2.dw) and torch.equal(gk.db, gk2.db)):
+            raise AssertionError(f"K2's f32 build: two launches on the same inputs differ (P={P})")
+        return e_raw, e_grad
+
+    # the train step's coarse (3072 x 64) and fine (3072 x 192) shapes; the
+    # times at the coarse one
+    cases = list(field_cases(dev, 32, 2, 3072, (64, 192), torch.float32))
+    errs = [check_k1_k2(c) for c in cases]
+    e_raw, e_grad = (max(e[i] for e in errs) for i in range(2))
+    case = cases[0]
+    field, packed, pts, cvd, pts_flat, dirs, ppd, g = case
+    del cases
+    with torch.no_grad():
+        timed({"name": "field_forward_f32", "source": FIELD_SRC, "replaces": K1_REPLACES,
+               "max_abs_err": e_raw}, lambda: kf.field_forward(packed, pts, cvd),
+              lambda: kf.field_forward_ref(field, pts, cvd), field_work(case, "forward"))
+        timed({"name": "field_backward_f32", "source": FIELD_SRC, "replaces": K2_REPLACES,
+               "max_abs_err": e_grad}, lambda: kf.field_backward(packed, pts_flat, dirs, ppd, g),
+              lambda: kf.field_backward_ref(packed, pts_flat, dirs, ppd, g),
+              field_work(case, "backward"))
+
+    def counted(what, fn, want):
+        kf.reset_launches()
+        krf.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in {**kf.LAUNCHES, **krf.LAUNCHES}.items() if v}
+        print(f"{what} in f32: {time.perf_counter() - t0:.1f} s; launches {got}")
+        if got != want:
+            raise AssertionError(f"{what} in f32: launches {got}, expected {want}")
+        return out, got
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = train_cfg(tmp, "f32", 2, ["i_print = 3", "i_save = 3", "i_test = 0"],
+                         precision="f32")
+        _, train_l = counted("cli.train, 3 steps", lambda: cli_train.main(
+            ["--config", path, "--device", "cuda"]),
+            {"field_forward_f32": 6, "field_backward_f32": 6})
+        lines = [json.loads(l) for l in open(os.path.join(tmp, "f32", "run", "metrics.jsonl"))]
+        if not np.isfinite([l[k] for l in lines for k in ("total_loss", "psnr_fine")]).all():
+            raise AssertionError(f"f32 train: a printed loss is not finite: {lines}")
+        views = 2 * (128 * 128 // 4096)              # 2 test views x 4 chunks
+        savedir, render_l = counted("cli.test --render", lambda: cli_test.main(
+            ["--config", path, "--render", "--device", "cuda"]),
+            {"render_field_sigma_f32": views, "render_field_all_f32": views})
+        table = np.loadtxt(os.path.join(savedir, "test_results.txt"))
+        print(f"f32 render from {os.path.basename(savedir)}: PSNR {table[:, 0]}")
+        if not savedir.endswith("render_test_000003") or not np.isfinite(table[:, 0]).all():
+            raise AssertionError("f32 render: no finite PSNR from the trained 000003.tar")
+
+        args, scene, _ = cli_train.load(["--config", path, "--device", "cuda"])
+        args.ins_num = scene.ins_num
+        args.target_label, args.use_pallas, args.mani_type = 1, True, "rigid"
+        ecfg = FieldConfig.from_args(args)
+        if ecfg.compute_dtype != torch.float32:
+            raise AssertionError("precision f32 did not give an f32 field")
+        gen = torch.Generator().manual_seed(11)
+        params = {k: init_field_params(gen, ecfg, device=dev).eval() for k in ("coarse", "fine")}
+        sel = scene.i_test
+        chunks = len(sel) * -(-scene.H * scene.W // args.N_test)
+        trans_dicts = {"transformations": [{"transformation": translation(0.3).tolist(),
+                                            "mode": "translation"}]}
+        res, edit_l = counted("manipulator_eval (1 object)", lambda: runner.manipulator_eval(
+            ecfg, params, scene.poses[sel], scene.hwk, trans_dicts, os.path.join(tmp, "edit"),
+            scene.ins_rgbs, args, gt_rgbs=scene.images[sel], gt_labels=scene.gt_labels[sel],
+            device=dev), {"field_forward_f32": chunks * 4, "render_field_ins_f32": chunks * 2})
+        table = np.loadtxt(os.path.join(tmp, "edit", "translation", "test_results.txt"))
+        print(f"f32 edit: PSNR {table[:, 0]}")
+        if not np.isfinite(table[:, 0]).all() or not np.isfinite(res[0]):
+            raise AssertionError("f32 edit: PSNR not finite")
+    for entry in entries:
+        entry["launches"] = {**edit_l, **render_l, **train_l}[entry["name"]]   # K1: the train run's
+    return entries
+
+
 def translation(dx):
     t = np.eye(4)
     t[0, 3] = dx
@@ -1031,7 +1286,8 @@ def edit_slice(dev):
             got = {**kf.LAUNCHES, **krf.LAUNCHES}
             want = {"field_forward": views * n_chunks * 2 * (1 + n_obj), "field_backward": 0,
                     "render_field_sigma": 0, "render_field_all": 0,
-                    "render_field_ins": views * n_chunks * (1 + n_obj)}
+                    "render_field_ins": views * n_chunks * (1 + n_obj),
+                    "field_forward_f32": 0, "field_backward_f32": 0, **F32_NONE}
             print(f"{what}, {views} views x {n_chunks} chunks, {n_obj} object(s): "
                   f"{time.perf_counter() - t0:.1f} s; launches {got}")
             if got != want:
@@ -1222,4 +1478,10 @@ def edit_throughput(dev, card, cfg, params):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        for child in CHILDREN:          # the ablation builds of a run that failed early
+            if child.poll() is None:
+                child.kill()
+                child.wait()

@@ -1,4 +1,4 @@
-# Copied from dmnerf_tpu/config.py.
+# Copied from dmnerf_tpu/config.py (the help of use_pallas and pallas_train without its TPU timings).
 """Config / flag system.
 
 Reads the reference's ini-style ``.txt`` config files verbatim (the 43 files under
@@ -120,8 +120,8 @@ FLAG_SPECS: List[FlagSpec] = [
     FlagSpec("n_iters", int, 500000, "training iterations (reference: 500k)"),
     FlagSpec("data_devices", int, 0, "0 = all local devices; else mesh size"),
     FlagSpec("resume", bool, False, "resume training from latest checkpoint", store_true=True),
-    FlagSpec("use_pallas", bool, True, "use the fused Pallas field kernel on eval/render paths (measured 1.4x the XLA path on v5e; --use_pallas False for the XLA path)"),
-    FlagSpec("pallas_train", bool, True, "use the fused Pallas fwd+bwd field kernel in training (measured 40 vs 54 ms/step on v5e; --pallas_train False for the XLA path)"),
+    FlagSpec("use_pallas", bool, True, "use the fused field kernels on eval/render paths (--use_pallas False for the plain path)"),
+    FlagSpec("pallas_train", bool, True, "use the fused fwd+bwd field kernels in training (--pallas_train False for the plain path)"),
     FlagSpec("scan_steps", int, 0, "training steps per device dispatch (lax.scan); 0 = auto (largest divisor of the print/save/eval cadences <= 100)"),
     FlagSpec("profile_steps", int, 0, "capture a jax.profiler trace of this many training dispatches into {logdir}/profile (0 = off)"),
     FlagSpec("remat", bool, False, "rematerialize MLP activations in backward "

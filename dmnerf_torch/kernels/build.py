@@ -79,44 +79,48 @@ def build(name: str) -> tuple[Path, float]:
     return build_all([name])[name]
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_K4 = [_P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P]
+_K3 = [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P]
+_K1 = [_P, _P, _I, _I, _P, _P, _P, _I, _P, _P]
+_K2 = [_P, _P, _I, _I, _P, _P, _P, _I, _P,
+       _P, _I, _P, _I, _P, _P,
+       _P, _I, _P, _I, _I,
+       _P, _P, _P]
+# argument types of each entry point of csrc/render_field.cu and csrc/field.cu
+RENDER_FIELD_ENTRIES = {
+    "render_field_sigma": _K4, "render_field_sigma_f32": _K4,
+    "render_field_all": _K3, "render_field_all_f32": _K3,
+    "render_field_ins": _K4, "render_field_ins_f32": _K4,
+}
+FIELD_ENTRIES = {
+    "field_tile_rows": [], "field_tile_rows_f32": [], "field_scratch_widths": [_P, _I, _P, _P],
+    "field_forward": _K1, "field_forward_f32": _K1,
+    "field_backward": _K2, "field_backward_f32": _K2,
+}
+
+
+def bind(so, entries: dict, error: str) -> ctypes.CDLL:
+    """The library so with the argument types of each of its entries (all
+    return an int) and of its error-string function `error`."""
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in entries.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, _I
+    err = getattr(lib, error)
+    err.argtypes, err.restype = [_I], ctypes.c_char_p
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def load_render_field() -> ctypes.CDLL:
-    """csrc/render_field.cu, built if needed, with its argument types set."""
-    so, _ = build("render_field")
-    lib = ctypes.CDLL(str(so))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.render_field_sigma.argtypes = [p, p, p, i, i, p, p, p, i, p, p]
-    lib.render_field_sigma.restype = i
-    lib.render_field_all.argtypes = [p, p, p, p, i, i, p, p, p, i, p, p, p, p]
-    lib.render_field_all.restype = i
-    lib.render_field_ins.argtypes = [p, p, p, i, i, p, p, p, i, p, p]
-    lib.render_field_ins.restype = i
-    lib.render_field_error_string.argtypes = [i]
-    lib.render_field_error_string.restype = ctypes.c_char_p
-    return lib
+    """csrc/render_field.cu (K3, K4, K5 and their f32 builds), built if
+    needed, with its argument types set."""
+    return bind(build("render_field")[0], RENDER_FIELD_ENTRIES, "render_field_error_string")
 
 
 @functools.lru_cache(maxsize=None)
 def load_field() -> ctypes.CDLL:
-    """csrc/field.cu (K1, K2), built if needed, with its argument types set."""
-    return bind_field(build("field")[0])
-
-
-def bind_field(so) -> ctypes.CDLL:
-    """A library built from csrc/field.cu, with its argument types set."""
-    lib = ctypes.CDLL(str(so))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.field_tile_rows.argtypes = []
-    lib.field_tile_rows.restype = i
-    lib.field_scratch_widths.argtypes = [p, i, p, p]
-    lib.field_scratch_widths.restype = i
-    lib.field_forward.argtypes = [p, p, i, i, p, p, p, i, p, p]
-    lib.field_forward.restype = i
-    lib.field_backward.argtypes = [p, p, i, i, p, p, p, i, p,
-                                   p, i, p, i, p, p,
-                                   p, i, p, i, i,
-                                   p, p, p]
-    lib.field_backward.restype = i
-    lib.field_error_string.argtypes = [i]
-    lib.field_error_string.restype = ctypes.c_char_p
-    return lib
+    """csrc/field.cu (K1, K2 and their f32 builds), built if needed, with its
+    argument types set."""
+    return bind(build("field")[0], FIELD_ENTRIES, "field_error_string")

@@ -66,6 +66,14 @@
 // - The instance branch passes no cotangent into the trunk (reference
 //   dm_nerf.py:95): d(ins_feat) only feeds the ins_feat dW and bias.
 //
+// - The f32 builds (field_forward_f32, field_backward_f32; the JAX kernels
+//   with compute_dtype float32) run the same code on the core's float build:
+//   64-point tiles, fp32 FFMA on the CUDA cores, fp32 activations and
+//   scratch (act/dys twice the bytes), and slabs half as deep (shared
+//   memory holds f32 H and Bf of 64 rows); the dW GEMM multiplies in fp32.
+//   Nothing is rounded below fp32, so the f32 kernels differ from the plain
+//   f32 path only in the order of their sums.
+//
 // Plain C interface for ctypes; each entry returns the first CUDA error of
 // its launches (cudaGetLastError after each) so the wrapper can raise.
 
@@ -78,11 +86,13 @@ using core::Ring;
 
 namespace {
 
-// weight ring of each kernel: stages x slab depth (shared memory: K2 also
-// holds the ReLU masks, and takes the shallower K2_KS_SHALLOW slabs where a g
-// tile wider than the view encoding leaves no room for K2_KS)
-constexpr int K1_STAGES = 2, K1_KS = 64;
-constexpr int K2_STAGES = 2, K2_KS = 32, K2_KS_SHALLOW = 16;
+// weight ring of each kernel: stages x slab depth, per element type (shared
+// memory: K2 also holds the ReLU masks, and takes slabs half as deep where a
+// g tile wider than the view encoding leaves no room for K2_KS; the float
+// build's tiles take twice the bytes per row, so its slabs are half as deep)
+constexpr int K1_STAGES = 2, K2_STAGES = 2;
+template <class T> constexpr int K1_KS = sizeof(T) == 2 ? 64 : 32;
+template <class T> constexpr int K2_KS = sizeof(T) == 2 ? 32 : 16;
 constexpr int MAXJ = MAXD + 5;          // dW jobs: D trunk matrices + 5 head matrices
 constexpr int BM = 128, BN = 256, BK = 32, DW_STAGES = 3;   // dW GEMM tiles
 constexpr int NJ = BN / 32;             // 8-column tiles per dW warp
@@ -118,7 +128,8 @@ Layout make_layout(const Meta& m) {
 // ---- the backward's weight plan ------------------------------------------------
 
 // field_bwd_tile_kernel's backward segments
-void plan_backward(Planner& B, const Meta& m, bool need_x, bool need_d) {
+template <class T>
+void plan_backward(Planner<T>& B, const Meta& m, bool need_x, bool need_d) {
     const int W = m.W, HW = m.W / 2;
     B.add(m.off_out, m.CP, 0, HW, 1);                          // d_rgb_h
     B.add(m.off_out, m.CP, HW, HW, 1);                         // d_ins_h
@@ -135,21 +146,23 @@ void plan_backward(Planner& B, const Meta& m, bool need_x, bool need_d) {
 }
 
 // K1: raw [P, C] for points pts [P, 3] and directions vdirs [P / ppd, 3].
+template <class T>
 __global__ void __launch_bounds__(THREADS, 1)
 field_forward_kernel(const float* __restrict__ pts, const float* __restrict__ vdirs, int P,
-                     int ppd, const bf16* __restrict__ w, const float* __restrict__ b,
+                     int ppd, const T* __restrict__ w, const float* __restrict__ b,
                      const Meta m, const __grid_constant__ Plan plan,
                      float* __restrict__ raw) {
     extern __shared__ __align__(128) unsigned char smem[];
-    const Bufs B = carve(smem, m, plan, K1_STAGES, false);
+    constexpr int TM = core::TM<T>;
+    const Bufs<T> B = carve<T>(smem, m, plan, K1_STAGES, false);
     const int p0 = blockIdx.x * TM;
     const int nv = min(TM, P - p0);
-    Ring<K1_STAGES, K1_KS> R;
+    Ring<T, K1_STAGES, K1_KS<T>> R;
     R.start(B.ring, &plan, w);
-    core::Acc acc;
-    core::AccT<core::NTO> acc_out;
+    core::Acc<T> acc;
+    core::AccT<T, core::NTO> acc_out;
     forward_tile<H_ALL, true, false>(R, B, acc, acc_out, pts + (size_t)p0 * 3, nv, vdirs, p0,
-                                     ppd, b, m, Save{nullptr, nullptr, nullptr});
+                                     ppd, b, m, Save<T>{nullptr, nullptr, nullptr});
     // raw = acc_out + bo: rgb 0:3, sigma 3, ins 4:C
     const float* bo = b + m.boff_o;
     const int C = m.C;
@@ -164,7 +177,9 @@ field_forward_kernel(const float* __restrict__ pts, const float* __restrict__ vd
 
 // Epilogue: fp32 accumulators to the tile's rows of a global [rows, ld]
 // array, added to what is there when add.
-__device__ __forceinline__ void store_f32(core::Acc& acc, int n, float* dst, int ld, bool add) {
+template <int M>
+__device__ __forceinline__ void store_f32(float (&acc)[M][core::NT][4], int n, float* dst, int ld,
+                                          bool add) {
     core::for_pairs(acc, n, [&](int r, int c, float v0, float v1, int) {
         float2* q = reinterpret_cast<float2*>(dst + (size_t)r * ld + c);
         if (add) { const float2 o = *q; v0 += o.x; v1 += o.y; }
@@ -177,44 +192,45 @@ __device__ __forceinline__ void store_f32(core::Acc& acc, int n, float* dst, int
 // trunk (every bf16 dy to `dys`). gx [P_pad, XP] / gd [P_pad, DP] (fp32
 // encoding cotangents) are written only when non-null; the plan has their
 // segments exactly then. KS: the ring's slab depth.
-template <int KS>
+template <class T, int KS>
 __global__ void __launch_bounds__(THREADS, 1)
 field_bwd_tile_kernel(const float* __restrict__ pts, const float* __restrict__ vdirs, int P,
-                      int ppd, const bf16* __restrict__ w, const float* __restrict__ b,
+                      int ppd, const T* __restrict__ w, const float* __restrict__ b,
                       const Meta m, const __grid_constant__ Layout L,
                       const __grid_constant__ Plan plan,
-                      const float* __restrict__ g, bf16* __restrict__ act,
-                      bf16* __restrict__ dys, float* __restrict__ gx,
+                      const float* __restrict__ g, T* __restrict__ act,
+                      T* __restrict__ dys, float* __restrict__ gx,
                       float* __restrict__ gd) {
     extern __shared__ __align__(128) unsigned char smem[];
-    const Bufs B = carve(smem, m, plan, K2_STAGES, true);
+    constexpr int TM = core::TM<T>;
+    const Bufs<T> B = carve<T>(smem, m, plan, K2_STAGES, true);
     uint32_t* masks = reinterpret_cast<uint32_t*>(B.tail);
     const int W = m.W, XP = m.XP, DP = m.DP, CP = m.CP, C = m.C, D = m.D, HW = m.W / 2;
     const int p0 = blockIdx.x * TM;
     const int nv = min(TM, P - p0);
     const int tid = threadIdx.x;
-    bf16* yrow = dys + (size_t)p0 * L.DYW;
-    bf16* H = B.H;
-    bf16* Bf = B.Bf;
+    T* yrow = dys + (size_t)p0 * L.DYW;
+    T* H = B.H;
+    T* Bf = B.Bf;
     const int ldh = B.ldh, ldb = B.ldb;
-    Ring<K2_STAGES, KS> R;
+    Ring<T, K2_STAGES, KS> R;
     R.start(B.ring, &plan, w);
-    core::Acc acc;
-    core::AccT<1> unused;
+    core::Acc<T> acc;
+    core::AccT<T, 1> unused;
 
     // ---- forward, saving every activation to act ------------------------------
-    const Save save{act + (size_t)p0 * L.ACT, &L, masks};
+    const Save<T> save{act + (size_t)p0 * L.ACT, &L, masks};
     forward_tile<H_ALL, false, true>(R, B, acc, unused, pts + (size_t)p0 * 3, nv, vdirs, p0,
                                      ppd, b, m, save);
 
     // ---- backward -------------------------------------------------------------
-    // gb = bf16(g) [TM, CP] -> G = Bf[:, W:W+CP] and dys
-    bf16* G = Bf + W;
+    // gb = T(g) [TM, CP] -> G = Bf[:, W:W+CP] and dys
+    T* G = Bf + W;
     core::sync_write();              // [rgb_f | enc_d] in Bf has been stored
     for (int i = tid; i < TM * CP; i += THREADS) {
         const int r = i / CP, c = i % CP;
         const float v = (r < nv && c < C) ? g[(size_t)(p0 + r) * C + c] : 0.0f;
-        G[r * ldb + c] = __float2bfloat16_rn(v);
+        G[r * ldb + c] = core::from_float<T>(v);
     }
     core::publish();
     core::store_rows(G, ldb, CP, yrow + L.y_gb, L.DYW);
@@ -323,16 +339,19 @@ Jobs make_jobs(const Meta& m, const Layout& L) {
 // K2, dW pass: per (BM x BN tile of one job's dW, range of psplit points) an
 // fp32 partial of act^T @ dys into partial_w[blockIdx.y], and for the first
 // row tile of each job the bias partial into partial_b[blockIdx.y]. 8 warps
-// as 2 (rows of dW) x 4 (columns), 64 x 32 each; A = act^T is read from the
-// [points, K] slabs with ldmatrix .trans.
+// as 2 (rows of dW) x 4 (columns), 64 x 32 each; in bf16 A = act^T is read
+// from the [points, K] slabs with ldmatrix .trans, in float each thread
+// multiplies the values of its fragment positions point by point (FFMA).
+template <class T>
 __global__ void __launch_bounds__(DW_THREADS, 1)
-dw_partial_kernel(const bf16* __restrict__ act, int ACT, const bf16* __restrict__ dys, int DYW,
+dw_partial_kernel(const T* __restrict__ act, int ACT, const T* __restrict__ dys, int DYW,
                   const float* __restrict__ g, int P, int C, int P_pad, int psplit,
                   const Jobs J, float* __restrict__ partial_w, int n_w,
                   float* __restrict__ partial_b, int n_b) {
     extern __shared__ __align__(128) unsigned char smem[];
-    typedef bf16 ATile[BK][BM + core::SPAD];
-    typedef bf16 BTile[BK][BN + core::SPAD];
+    constexpr int EPC = 16 / sizeof(T);         // elements per 16-byte copy
+    typedef T ATile[BK][BM + core::SPAD<T>];
+    typedef T BTile[BK][BN + core::SPAD<T>];
     ATile* As = reinterpret_cast<ATile*>(smem);
     BTile* Bs = reinterpret_cast<BTile*>(smem + DW_STAGES * sizeof(ATile));
     const int t = blockIdx.x;
@@ -348,24 +367,24 @@ dw_partial_kernel(const bf16* __restrict__ act, int ACT, const bf16* __restrict_
 
     const int p_begin = blockIdx.y * psplit, p_end = min(P_pad, p_begin + psplit);
     const int nsteps = (p_end - p_begin) / BK;
-    const bf16* ap = act + J.a_off[j] + m0;
-    const bf16* yp = dys + J.y_off[j] + n0;
+    const T* ap = act + J.a_off[j] + m0;
+    const T* yp = dys + J.y_off[j] + n0;
 
     auto load = [&](int s, int step) {
         const int p = p_begin + step * BK;
-        for (int i = tid; i < BK * (BM / 8); i += DW_THREADS) {
-            const int r = i / (BM / 8), c = (i % (BM / 8)) * 8;
+        for (int i = tid; i < BK * (BM / EPC); i += DW_THREADS) {
+            const int r = i / (BM / EPC), c = (i % (BM / EPC)) * EPC;
             const bool va = m0 + c < K;
             core::cp_async16_zfill(&As[s][r][c], ap + (size_t)(p + r) * ACT + (va ? c : 0), va);
         }
-        for (int i = tid; i < BK * (BN / 8); i += DW_THREADS) {
-            const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
+        for (int i = tid; i < BK * (BN / EPC); i += DW_THREADS) {
+            const int r = i / (BN / EPC), c = (i % (BN / EPC)) * EPC;
             const bool vb = n0 + c < N;
             core::cp_async16_zfill(&Bs[s][r][c], yp + (size_t)(p + r) * DYW + (vb ? c : 0), vb);
         }
     };
 
-    core::AccT<2 * NJ> acc;     // [mi / 2][(mi % 2) * NJ + nj]: 4 x NJ tiles of 16 x 8
+    float acc[2][2 * NJ][4];    // [mi / 2][(mi % 2) * NJ + nj]: 4 x NJ tiles of 16 x 8
     core::zero(acc);
     float bsum = 0.0f;
 #pragma unroll
@@ -380,27 +399,54 @@ dw_partial_kernel(const bf16* __restrict__ act, int ACT, const bf16* __restrict_
             load((step + DW_STAGES - 1) % DW_STAGES, step + DW_STAGES - 1);
         core::cp_async_commit();
         const int s = step % DW_STAGES;
+        if constexpr (sizeof(T) == 2) {
 #pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-            uint32_t a[4][4];
-#pragma unroll
-            for (int mi = 0; mi < 4; ++mi)
-                core::ldsm_x4_t(a[mi], &As[s][kk + (lane & 7) + ((lane >> 4) & 1) * 8]
-                                           [wm + mi * 16 + ((lane >> 3) & 1) * 8]);
-#pragma unroll
-            for (int nj = 0; nj < NJ; ++nj) {
-                uint32_t b0, b1;
-                core::ldsm_x2_t(b0, b1, &Bs[s][kk + (lane & 15)][wn + nj * 8]);
+            for (int kk = 0; kk < BK; kk += 16) {
+                uint32_t a[4][4];
 #pragma unroll
                 for (int mi = 0; mi < 4; ++mi)
-                    core::mma16816(acc[mi / 2][(mi % 2) * NJ + nj], a[mi], b0, b1);
+                    core::ldsm_x4_t(a[mi], &As[s][kk + (lane & 7) + ((lane >> 4) & 1) * 8]
+                                               [wm + mi * 16 + ((lane >> 3) & 1) * 8]);
+#pragma unroll
+                for (int nj = 0; nj < NJ; ++nj) {
+                    uint32_t b0, b1;
+                    core::ldsm_x2_t(b0, b1, &Bs[s][kk + (lane & 15)][wn + nj * 8]);
+#pragma unroll
+                    for (int mi = 0; mi < 4; ++mi)
+                        core::mma16816(acc[mi / 2][(mi % 2) * NJ + nj], a[mi], b0, b1);
+                }
+            }
+        } else {
+            // the same positions as the fragments: rows wm + 16 mi + lane / 4
+            // + 8 h, columns wn + 8 nj + 2 (lane % 4) + {0, 1}
+#pragma unroll 4
+            for (int kk = 0; kk < BK; ++kk) {
+                float a[4][2];
+#pragma unroll
+                for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+                    for (int h = 0; h < 2; ++h)
+                        a[mi][h] = As[s][kk][wm + mi * 16 + lane / 4 + h * 8];
+#pragma unroll
+                for (int nj = 0; nj < NJ; ++nj) {
+                    const float2 b2 = *reinterpret_cast<const float2*>(
+                        &Bs[s][kk][wn + nj * 8 + 2 * (lane % 4)]);
+#pragma unroll
+                    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+                        for (int h = 0; h < 2; ++h) {
+                            float* d = acc[mi / 2][(mi % 2) * NJ + nj] + 2 * h;
+                            d[0] = fmaf(a[mi][h], b2.x, d[0]);
+                            d[1] = fmaf(a[mi][h], b2.y, d[1]);
+                        }
+                }
             }
         }
         // the bias sums in a fixed order, slab by slab and row by row: of
         // this dy slab, or for the output bias of the fp32 g rows it covers
         if (bias && !bias_g && tid < BN) {
 #pragma unroll 8
-            for (int r = 0; r < BK; ++r) bsum += __bfloat162float(Bs[s][r][tid]);
+            for (int r = 0; r < BK; ++r) bsum += core::to_float(Bs[s][r][tid]);
         } else if (bias_g && tid < C) {
             const int p = p_begin + step * BK;
             float v[BK];
@@ -459,14 +505,92 @@ int max_smem(int* bytes) {
     return (int)err;
 }
 
+template <class T>
+int launch_forward(const float* pts, const float* vdirs, int P, int ppd, const T* w,
+                   const float* b, const int* meta, int n_meta, float* raw, void* stream) {
+    Meta m;
+    if (int err = read_meta(meta, n_meta, &m)) return err;
+    if (P < 1 || ppd < 1) return (int)cudaErrorInvalidValue;
+    Planner<T> pb(K1_KS<T>);
+    plan_forward(pb, m, H_ALL, true);
+    const size_t smem = tile_smem<T>(m, pb.p, K1_STAGES, false);
+    cudaError_t err = cudaFuncSetAttribute(field_forward_kernel<T>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    constexpr int TM = core::TM<T>;
+    field_forward_kernel<T><<<(P + TM - 1) / TM, THREADS, smem, (cudaStream_t)stream>>>(
+        pts, vdirs, P, ppd, w, b, m, pb.p, raw);
+    return (int)cudaGetLastError();
+}
+
+template <class T>
+int launch_backward(const float* pts, const float* vdirs, int P, int ppd, const T* w,
+                    const float* b, const int* meta, int n_meta, const float* g, T* act,
+                    int act_w, T* dys, int dy_w, float* gx, float* gd, float* partial_w,
+                    int n_w, float* partial_b, int n_b, int psplit, float* dw, float* db,
+                    void* stream) {
+    Meta m;
+    if (int err = read_meta(meta, n_meta, &m)) return err;
+    const Layout L = make_layout(m);
+    const Jobs J = make_jobs(m, L);
+    if (P < 1 || ppd < 1 || psplit < BK || psplit % BK || act_w != L.ACT || dy_w != L.DYW
+        || n_b != L.NB + m.CP || n_w < m.off_out + 2 * m.W * m.CP)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    constexpr int TM = core::TM<T>;
+    const int tiles = (P + TM - 1) / TM, P_pad = tiles * TM;
+    const int n_split = (P_pad + psplit - 1) / psplit;
+    cudaError_t err;
+
+    int smem_max;
+    if (int e = max_smem(&smem_max)) return e;
+    auto plan_smem = [&](Planner<T>& pb) {
+        plan_forward(pb, m, H_ALL, false);
+        plan_backward(pb, m, gx != nullptr, gd != nullptr);
+        return tile_smem<T>(m, pb.p, K2_STAGES, true)
+            + (size_t)mask_slots<T>(m) * THREADS * sizeof(uint32_t);
+    };
+    constexpr int KS = K2_KS<T>;
+    Planner<T> pb(KS);
+    size_t smem = plan_smem(pb);
+    const bool shallow = smem > (size_t)smem_max;    // bf16 at W 256: CP > 64
+    if (shallow) {
+        pb = Planner<T>(KS / 2);
+        smem = plan_smem(pb);
+    }
+    auto kernel = shallow ? field_bwd_tile_kernel<T, KS / 2> : field_bwd_tile_kernel<T, KS>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<tiles, THREADS, smem, st>>>(pts, vdirs, P, ppd, w, b, m, L, pb.p, g, act, dys, gx,
+                                         gd);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+    const int dw_smem = DW_STAGES * BK * (BM + BN + 2 * core::SPAD<T>) * (int)sizeof(T);
+    err = cudaFuncSetAttribute(dw_partial_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, dw_smem);
+    if (err != cudaSuccess) return (int)err;
+    dw_partial_kernel<T><<<dim3(J.tile0[J.n], n_split), DW_THREADS, dw_smem, st>>>(
+        act, L.ACT, dys, L.DYW, g, P, m.C, P_pad, psplit, J, partial_w, n_w, partial_b, n_b);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+    reduce_splits_kernel<<<std::min((n_w + 255) / 256, 4096), 256, 0, st>>>(
+        partial_w, n_split, n_w, dw);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    reduce_splits_kernel<<<(n_b + 255) / 256, 256, 0, st>>>(partial_b, n_split, n_b, db);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Points per tile of K1/K2 (the wrapper pads K2's scratch rows to it).
-int field_tile_rows() { return TM; }
+// Points per tile of K1/K2 (the wrapper pads K2's scratch rows to it): of
+// the bf16 build, and of the f32 build.
+int field_tile_rows() { return core::TM<bf16>; }
+int field_tile_rows_f32() { return core::TM<float>; }
 
-// Scratch widths (bf16 per point) of field_backward: act and dys.
+// Scratch widths (elements per point, either build) of field_backward: act
+// and dys.
 int field_scratch_widths(const int* meta, int n_meta, int* act_w, int* dy_w) {
     Meta m;
     if (int err = read_meta(meta, n_meta, &m)) return err;
@@ -476,81 +600,44 @@ int field_scratch_widths(const int* meta, int n_meta, int* act_w, int* dy_w) {
     return 0;
 }
 
-// K1: raw [P, C] <- pts [P, 3], vdirs [ceil(P / ppd), 3] (fp32).
+// K1: raw [P, C] <- pts [P, 3], vdirs [ceil(P / ppd), 3] (fp32), bf16 weights.
 int field_forward(const float* pts, const float* vdirs, int P, int ppd, const bf16* w,
                   const float* b, const int* meta, int n_meta, float* raw, void* stream) {
-    Meta m;
-    if (int err = read_meta(meta, n_meta, &m)) return err;
-    if (P < 1 || ppd < 1) return (int)cudaErrorInvalidValue;
-    Planner pb(K1_KS);
-    plan_forward(pb, m, H_ALL, true);
-    const size_t smem = tile_smem(m, pb.p, K1_STAGES, false);
-    cudaError_t err = cudaFuncSetAttribute(field_forward_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    field_forward_kernel<<<(P + TM - 1) / TM, THREADS, smem, (cudaStream_t)stream>>>(
-        pts, vdirs, P, ppd, w, b, m, pb.p, raw);
-    return (int)cudaGetLastError();
+    return launch_forward<bf16>(pts, vdirs, P, ppd, w, b, meta, n_meta, raw, stream);
+}
+
+// K1's f32 build: the same with fp32 weights.
+int field_forward_f32(const float* pts, const float* vdirs, int P, int ppd, const float* w,
+                      const float* b, const int* meta, int n_meta, float* raw, void* stream) {
+    return launch_forward<float>(pts, vdirs, P, ppd, w, b, meta, n_meta, raw, stream);
 }
 
 // K2: dw [n_w], db [n_b] (the packed layouts, fp32) and, when gx / gd are
 // non-null, the encoding cotangents gx [P_pad, XP], gd [P_pad, DP] (fp32)
-// <- pts, vdirs as for K1, g [P, C] fp32. Scratch: act [P_pad, act_w] and
-// dys [P_pad, dy_w] bf16, partial_w [ceil(P_pad / psplit), n_w] and
-// partial_b [ceil(P_pad / psplit), n_b] fp32 zero-filled, with P_pad = P
-// rounded up to field_tile_rows() and psplit a multiple of 32.
+// <- pts, vdirs as for K1, g [P, C] fp32, bf16 weights. Scratch: act
+// [P_pad, act_w] and dys [P_pad, dy_w] bf16, partial_w [ceil(P_pad /
+// psplit), n_w] and partial_b [ceil(P_pad / psplit), n_b] fp32 zero-filled,
+// with P_pad = P rounded up to field_tile_rows() and psplit a multiple of 32.
 int field_backward(const float* pts, const float* vdirs, int P, int ppd, const bf16* w,
                    const float* b, const int* meta, int n_meta, const float* g,
                    bf16* act, int act_w, bf16* dys, int dy_w, float* gx, float* gd,
                    float* partial_w, int n_w, float* partial_b, int n_b, int psplit,
                    float* dw, float* db, void* stream) {
-    Meta m;
-    if (int err = read_meta(meta, n_meta, &m)) return err;
-    const Layout L = make_layout(m);
-    const Jobs J = make_jobs(m, L);
-    if (P < 1 || ppd < 1 || psplit < BK || psplit % BK || act_w != L.ACT || dy_w != L.DYW
-        || n_b != L.NB + m.CP || n_w < m.off_out + 2 * m.W * m.CP)
-        return (int)cudaErrorInvalidValue;
-    cudaStream_t st = (cudaStream_t)stream;
-    const int tiles = (P + TM - 1) / TM, P_pad = tiles * TM;
-    const int n_split = (P_pad + psplit - 1) / psplit;
-    cudaError_t err;
+    return launch_backward<bf16>(pts, vdirs, P, ppd, w, b, meta, n_meta, g, act, act_w, dys,
+                                 dy_w, gx, gd, partial_w, n_w, partial_b, n_b, psplit, dw, db,
+                                 stream);
+}
 
-    int smem_max;
-    if (int e = max_smem(&smem_max)) return e;
-    auto plan_smem = [&](Planner& pb) {
-        plan_forward(pb, m, H_ALL, false);
-        plan_backward(pb, m, gx != nullptr, gd != nullptr);
-        return tile_smem(m, pb.p, K2_STAGES, true)
-            + (size_t)(m.D + 1) * core::MW * THREADS * sizeof(uint32_t);
-    };
-    Planner pb(K2_KS);
-    size_t smem = plan_smem(pb);
-    const bool shallow = smem > (size_t)smem_max;    // at W 256: CP > 64
-    if (shallow) {
-        pb = Planner(K2_KS_SHALLOW);
-        smem = plan_smem(pb);
-    }
-    auto kernel = shallow ? field_bwd_tile_kernel<K2_KS_SHALLOW> : field_bwd_tile_kernel<K2_KS>;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<tiles, THREADS, smem, st>>>(pts, vdirs, P, ppd, w, b, m, L, pb.p, g, act, dys, gx,
-                                         gd);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-    const int dw_smem = DW_STAGES * BK * (BM + BN + 2 * core::SPAD) * (int)sizeof(bf16);
-    err = cudaFuncSetAttribute(dw_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               dw_smem);
-    if (err != cudaSuccess) return (int)err;
-    dw_partial_kernel<<<dim3(J.tile0[J.n], n_split), DW_THREADS, dw_smem, st>>>(
-        act, L.ACT, dys, L.DYW, g, P, m.C, P_pad, psplit, J, partial_w, n_w, partial_b, n_b);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-    reduce_splits_kernel<<<std::min((n_w + 255) / 256, 4096), 256, 0, st>>>(
-        partial_w, n_split, n_w, dw);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    reduce_splits_kernel<<<(n_b + 255) / 256, 256, 0, st>>>(partial_b, n_split, n_b, db);
-    return (int)cudaGetLastError();
+// K2's f32 build: the same with fp32 weights and fp32 act / dys, P_pad = P
+// rounded up to field_tile_rows_f32().
+int field_backward_f32(const float* pts, const float* vdirs, int P, int ppd, const float* w,
+                       const float* b, const int* meta, int n_meta, const float* g,
+                       float* act, int act_w, float* dys, int dy_w, float* gx, float* gd,
+                       float* partial_w, int n_w, float* partial_b, int n_b, int psplit,
+                       float* dw, float* db, void* stream) {
+    return launch_backward<float>(pts, vdirs, P, ppd, w, b, meta, n_meta, g, act, act_w, dys,
+                                  dy_w, gx, gd, partial_w, n_w, partial_b, n_b, psplit, dw, db,
+                                  stream);
 }
 
 const char* field_error_string(int err) {

@@ -1,20 +1,29 @@
-// The matmul core of the field kernels (field.cu: K1 and both passes of K2;
-// render_field.cu: K3 and K5, through field_tile.cuh): 128-point tiles on
-// bf16 tensor cores (mma.sync m16n8k16, operands by ldmatrix) with the
-// weights staged in shared memory by cp.async through a ring of slabs, so the
-// next slab is in flight while the current one is multiplied.
+// The matmul core of every field kernel (field.cu: K1 and both passes of K2;
+// render_field.cu: K3, K4 and K5, through field_tile.cuh), in two builds
+// chosen by the element type T of the weights and activations:
+// - bf16: 128-point tiles on the tensor cores (mma.sync m16n8k16, operands by
+//   ldmatrix), fp32 accumulation;
+// - float: 64-point tiles on the CUDA cores (fp32 FFMA, products and sums in
+//   fp32: the JAX kernels' compute_dtype float32). Its tile is half as tall
+//   because a tile's activations take twice the bytes, and the shared memory
+//   of a block holds H and Bf of 64 rows at width 256 beside the weight ring
+//   (the JAX package halves its f32 backward tile likewise).
+// Both builds put every value in the same thread and register, so the
+// epilogues, the ReLU mask bits and the tile forward are one code.
 //
 // - A block of THREADS = 512 threads (16 warps, at most 128 registers each)
-//   owns TM = 128 rows (points). For an output [TM, N], warp w computes MT
+//   owns TM<T> rows (points). For an output [TM, N], warp w computes MT<T>
 //   16-row tiles from row 16 MT (w % WM) and every WN-th 8-column tile from
-//   tile w / WM: fp32 accumulators in registers. With WM x WN = 2 x 8 a warp
+//   tile w / WM: fp32 accumulators in registers, each thread the values at
+//   the positions of an m16n8 fragment. With WM x WN = 2 x 8 a bf16 warp
 //   holds 64 rows, so each B fragment feeds 4 products and each A fragment
 //   up to 4 (chip_smoke.py phase 6b times a 4 x 4 grid, 2 products per
 //   fragment, beside it). Epilogues (bias, ReLU, bf16 rounding, ReLU mask
 //   bits) run on those registers. Sixteen warps, four per scheduler, hide
 //   the latency of the ldmatrix -> mma chains and of the per-slab barrier.
-// - Activations live in shared memory, rows padded by 8 bf16 so that the 8
-//   row addresses of one ldmatrix fall in distinct 16-byte bank groups.
+// - Activations live in shared memory, rows padded by 16 bytes so that the 8
+//   row addresses of one ldmatrix (or of one float4 load) fall in distinct
+//   16-byte bank groups.
 // - The weights a block reads form a Plan: the ordered list of segments of
 //   the packed matrices (kernels/render_field.py::pack_field) that its
 //   matmuls consume. A segment is either W[r0:r0+rows, :] read as B (the
@@ -29,8 +38,8 @@
 //   once per tile): every thread walks the same plan, copies its share of
 //   each slab with 16-byte cp.async, and one __syncthreads per slab both
 //   publishes the slab and frees the stage that the next copy overwrites.
-// - The weights are read once per 128 points, twice the 64 points per read of
-//   the tile_forward core (field_common.cuh) that K4 still uses.
+// - The weights are read once per tile from L2: per 128 points in bf16, per
+//   64 in float.
 
 #pragma once
 
@@ -40,17 +49,28 @@
 
 namespace core {
 
-constexpr int TM = 128;                // rows (points) of a tile
 constexpr int WM = 2, WN = 8;          // the warp grid of a tile's output
 constexpr int THREADS = WM * WN * 32;
-constexpr int MT = TM / WM / 16;       // 16-row tiles per warp
-constexpr int SPAD = 8;                // bf16 padding of every shared-memory row
 constexpr int MAXW = 256;              // widest layer the register tiles hold
 constexpr int NT = MAXW / 8 / WN;      // 8-column tiles per warp at N = MAXW
-constexpr int MW = NT * MT * 4 / 32;   // mask words per thread at N = MAXW
 constexpr int MAXCP = MAXW / 2;        // widest output layer (4 + K + 1 padded to 16)
 constexpr int NTO = (MAXCP / 8 + WN - 1) / WN;   // its 8-column tiles per warp
 constexpr int MAXSEG = 56;
+
+// per build: rows of a tile, 16-row tiles per warp, the padding of every
+// shared-memory row (16 bytes), mask words per thread at N = MAXW
+template <class T> constexpr int TM = sizeof(T) == 2 ? 128 : 64;
+template <class T> constexpr int MT = TM<T> / WM / 16;
+template <class T> constexpr int SPAD = 16 / sizeof(T);
+template <class T> constexpr int MW = NT * MT<T> * 4 / 32;
+
+__device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(float v) { return v; }
+template <class T> __device__ __forceinline__ T from_float(float v);
+template <> __device__ __forceinline__ bf16 from_float<bf16>(float v) {
+    return __float2bfloat16_rn(v);
+}
+template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
 
 // One segment of the weight plan (element offsets into the packed weights).
 // trans 0: B = W[r0:r0+rows, 0:ldw], reduction over the rows, ldw outputs.
@@ -61,7 +81,7 @@ struct Seg {
 
 struct Plan {
     int n;                 // segments
-    int stage_elems;       // bf16 elements of one ring stage (the largest slab)
+    int stage_elems;       // elements of one ring stage (the largest slab)
     Seg s[MAXSEG];
 };
 
@@ -122,46 +142,48 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], 
 
 // ---- the weight ring ------------------------------------------------------------
 
-// bf16 elements of one slab of s in a ring of KSL-step slabs
+// elements of one slab of s in a ring of KSL-step slabs
+template <class T>
 __host__ __device__ inline int slab_elems(const Seg& s, int ksl) {
-    return s.trans ? s.rows * (ksl + SPAD) : ksl * (s.ldw + SPAD);
+    return s.trans ? s.rows * (ksl + SPAD<T>) : ksl * (s.ldw + SPAD<T>);
 }
 
-// LAPS: the block consumes the plan once per tile of several (K3/K5), and
+// LAPS: the block consumes the plan once per tile of several (K3/K4/K5), and
 // the producer runs on into the next pass while the last slabs of one are
 // consumed.
-template <int STAGES, int KSL, bool LAPS = false>
+template <class T, int STAGES, int KSL, bool LAPS = false>
 struct Ring {
-    bf16* base;            // STAGES * plan.stage_elems bf16 of shared memory
+    static constexpr int EPC = 16 / sizeof(T);   // elements per 16-byte copy
+    T* base;               // STAGES * plan.stage_elems elements of shared memory
     const Plan* plan;
-    const bf16* w;         // packed weights (global)
+    const T* w;            // packed weights (global)
     int t;                 // slabs consumed
     int cseg;              // consumer's segment
     int pseg, pslab;       // producer's next slab
     int laps;              // LAPS: passes through the plan the producer has not finished
 
-    __device__ __forceinline__ bf16* stage(int i) const { return base + i * plan->stage_elems; }
+    __device__ __forceinline__ T* stage(int i) const { return base + i * plan->stage_elems; }
 
     // copy the producer's next slab into stage i (every thread its share),
     // and commit a cp.async group (an empty one past the end of the plan)
     __device__ __forceinline__ void fetch(int i) {
         if (pseg < plan->n) {
             const Seg s = plan->s[pseg];
-            bf16* dst = stage(i);
+            T* dst = stage(i);
             const int red = seg_red(s), k0 = pslab * KSL, ks = min(KSL, red - k0);
             if (!s.trans) {            // rows r0+k0 .. +ks, every column -> [ks][ldw+SPAD]
-                const int cpr = s.ldw / 8, ld = s.ldw + SPAD;
-                const bf16* src = w + s.w_off + (size_t)(s.r0 + k0) * s.ldw;
+                const int cpr = s.ldw / EPC, ld = s.ldw + SPAD<T>;
+                const T* src = w + s.w_off + (size_t)(s.r0 + k0) * s.ldw;
                 for (int c = threadIdx.x; c < ks * cpr; c += THREADS) {
-                    const int r = c / cpr, col = (c % cpr) * 8;
+                    const int r = c / cpr, col = (c % cpr) * EPC;
                     cp_async16(dst + r * ld + col, src + (size_t)r * s.ldw + col);
                 }
             } else {                   // every row, columns k0 .. +ks -> [rows][KSL+SPAD]
-                const int cpr = ks / 8;
-                const bf16* src = w + s.w_off + (size_t)s.r0 * s.ldw + k0;
+                const int cpr = ks / EPC;
+                const T* src = w + s.w_off + (size_t)s.r0 * s.ldw + k0;
                 for (int c = threadIdx.x; c < s.rows * cpr; c += THREADS) {
-                    const int r = c / cpr, col = (c % cpr) * 8;
-                    cp_async16(dst + r * (KSL + SPAD) + col, src + (size_t)r * s.ldw + col);
+                    const int r = c / cpr, col = (c % cpr) * EPC;
+                    cp_async16(dst + r * (KSL + SPAD<T>) + col, src + (size_t)r * s.ldw + col);
                 }
             }
             if (++pslab * KSL >= red) {
@@ -173,7 +195,7 @@ struct Ring {
     }
 
     // n_laps (LAPS): how many times the block consumes the plan
-    __device__ __forceinline__ void start(bf16* smem_base, const Plan* p, const bf16* wts,
+    __device__ __forceinline__ void start(T* smem_base, const Plan* p, const T* wts,
                                           int n_laps = 1) {
         base = smem_base; plan = p; w = wts;
         t = cseg = pseg = pslab = 0;
@@ -184,7 +206,7 @@ struct Ring {
 
     // the next slab, landed and visible to every thread; its predecessor's
     // stage is refilled with the slab STAGES - 1 ahead
-    __device__ __forceinline__ const bf16* acquire() {
+    __device__ __forceinline__ const T* acquire() {
         cp_async_wait<STAGES - 2>();
         __syncthreads();
         fetch((t + STAGES - 1) % STAGES);
@@ -202,14 +224,15 @@ struct Ring {
 // ---- the warp tile ----------------------------------------------------------------
 
 // a warp's accumulators: MT row tiles x N 8-column tiles x 4 fp32
-template <int N>
-using AccT = float[MT][N][4];
-typedef AccT<NT> Acc;
+template <class T, int N>
+using AccT = float[MT<T>][N][4];
+template <class T>
+using Acc = AccT<T, NT>;
 
-template <int N>
-__device__ __forceinline__ void zero(AccT<N>& acc) {
+template <int M, int N>
+__device__ __forceinline__ void zero(float (&acc)[M][N][4]) {
 #pragma unroll
-    for (int mi = 0; mi < MT; ++mi)
+    for (int mi = 0; mi < M; ++mi)
 #pragma unroll
         for (int j = 0; j < N; ++j)
 #pragma unroll
@@ -217,19 +240,19 @@ __device__ __forceinline__ void zero(AccT<N>& acc) {
 }
 
 // This warp's place in the WM x WN warp grid of an output [TM, n]: rows
-// row0() ... +16 MT, and the 8-column tiles wn, wn + WN, wn + 2 WN, ...
-// (tiles() of them), so every width that is a multiple of 16 spreads over
-// the warps.
+// row0(mt) ... +16 mt (mt 16-row tiles per warp), and the 8-column tiles wn,
+// wn + WN, wn + 2 WN, ... (tiles() of them), so every width that is a
+// multiple of 16 spreads over the warps.
 __device__ __forceinline__ int warp_n() { return threadIdx.x / 32 / WM; }
-__device__ __forceinline__ int row0() { return (threadIdx.x / 32 % WM) * 16 * MT; }
+__device__ __forceinline__ int row0(int mt) { return (threadIdx.x / 32 % WM) * 16 * mt; }
 __device__ __forceinline__ int tiles(int n) { return (n / 8 - warp_n() + WN - 1) / WN; }
 
 // One 16-deep reduction step over exactly X of this warp's tiles,
 // branch-free so that the B fragment loads (two tiles per ldmatrix.x4) run
 // ahead of the products. bp is this lane's address for tile pair 0 (lanes
 // 16-31 already one tile on); tstep the element step from a tile to the next.
-template <int X, bool TRANS, int N>
-__device__ __forceinline__ void k16_exact(AccT<N>& acc, const uint32_t (&a)[MT][4],
+template <int X, bool TRANS, int M, int N>
+__device__ __forceinline__ void k16_exact(float (&acc)[M][N][4], const uint32_t (&a)[M][4],
                                           const bf16* bp, int tstep) {
 #pragma unroll
     for (int j = 0; j + 1 < X; j += 2) {
@@ -237,7 +260,7 @@ __device__ __forceinline__ void k16_exact(AccT<N>& acc, const uint32_t (&a)[MT][
         if (TRANS) ldsm_x4(b, bp + j * tstep);
         else ldsm_x4_t(b, bp + j * tstep);
 #pragma unroll
-        for (int mi = 0; mi < MT; ++mi) {
+        for (int mi = 0; mi < M; ++mi) {
             mma16816(acc[mi][j], a[mi], b[0], b[1]);
             mma16816(acc[mi][j + 1], a[mi], b[2], b[3]);
         }
@@ -247,14 +270,14 @@ __device__ __forceinline__ void k16_exact(AccT<N>& acc, const uint32_t (&a)[MT][
         if (TRANS) ldsm_x2(b0, b1, bp + (X - 1) * tstep);
         else ldsm_x2_t(b0, b1, bp + (X - 1) * tstep);
 #pragma unroll
-        for (int mi = 0; mi < MT; ++mi) mma16816(acc[mi][X - 1], a[mi], b0, b1);
+        for (int mi = 0; mi < M; ++mi) mma16816(acc[mi][X - 1], a[mi], b0, b1);
     }
 }
 
 // The same for nt tiles known only at run time (every count up to N has its
 // branch-free body).
-template <bool TRANS, int N>
-__device__ __forceinline__ void k16(AccT<N>& acc, int nt, const uint32_t (&a)[MT][4],
+template <bool TRANS, int M, int N>
+__device__ __forceinline__ void k16(float (&acc)[M][N][4], int nt, const uint32_t (&a)[M][4],
                                     const bf16* bp, int tstep) {
     switch (nt) {
         case 8: if constexpr (N >= 8) k16_exact<8, TRANS>(acc, a, bp, tstep); break;
@@ -269,30 +292,91 @@ __device__ __forceinline__ void k16(AccT<N>& acc, int nt, const uint32_t (&a)[MT
     }
 }
 
+// The float build's products of one slab: acc += A[:, kbase:kbase+ks] @ B,
+// B the slab st (trans: [outputs][KSL+SPAD], else [ks][ldw+SPAD]), 4
+// reduction steps at a time, each value summed in order of k. Each thread
+// computes the values of its fragment positions: rows r + 16 mi + 8 h,
+// columns c + 8 WN j + {0, 1}.
+template <bool TRANS, int M, int N>
+__device__ __forceinline__ void ffma_slab(float (&acc)[M][N][4], int nt, const float* A,
+                                          int lda, int kbase, int ks, const float* st, int ld) {
+    const int lane = threadIdx.x % 32;
+    const int r = row0(M) + lane / 4, c = warp_n() * 8 + 2 * (lane % 4);
+    for (int kk = 0; kk < ks; kk += 4) {
+        float4 a[M][2];
+#pragma unroll
+        for (int mi = 0; mi < M; ++mi)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+                a[mi][h] = *reinterpret_cast<const float4*>(
+                    A + (r + mi * 16 + h * 8) * lda + kbase + kk);
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+            if (j < nt) {
+                const int cj = c + j * 8 * WN;
+                float b[2][4];          // B[kk + q][cj + e] = b[e][q]
+                if (TRANS) {
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        const float4 v = *reinterpret_cast<const float4*>(st + (cj + e) * ld + kk);
+                        b[e][0] = v.x; b[e][1] = v.y; b[e][2] = v.z; b[e][3] = v.w;
+                    }
+                } else {
+#pragma unroll
+                    for (int q = 0; q < 4; ++q) {
+                        const float2 v = *reinterpret_cast<const float2*>(st + (kk + q) * ld + cj);
+                        b[0][q] = v.x; b[1][q] = v.y;
+                    }
+                }
+#pragma unroll
+                for (int mi = 0; mi < M; ++mi)
+#pragma unroll
+                    for (int h = 0; h < 2; ++h) {
+                        const float av[4] = {a[mi][h].x, a[mi][h].y, a[mi][h].z, a[mi][h].w};
+#pragma unroll
+                        for (int e = 0; e < 2; ++e)
+#pragma unroll
+                            for (int q = 0; q < 4; ++q)
+                                acc[mi][j][2 * h + e] = fmaf(av[q], b[e][q], acc[mi][j][2 * h + e]);
+                    }
+            }
+        }
+    }
+}
+
 // acc += A [TM, red] (shared, ld lda) @ B, B the plan's next segment, over
 // its first min(seg_out, ncols) columns, of which this warp holds tiles(.) <=
 // N tiles.
-template <int N, int STAGES, int KSL, bool LAPS>
-__device__ __forceinline__ void run_seg(Ring<STAGES, KSL, LAPS>& R, AccT<N>& acc, const bf16* A,
-                                        int lda, int ncols = MAXW) {
+template <class T, int STAGES, int KSL, bool LAPS, int M, int N>
+__device__ __forceinline__ void run_seg(Ring<T, STAGES, KSL, LAPS>& R, float (&acc)[M][N][4],
+                                        const T* A, int lda, int ncols = MAXW) {
     const Seg s = R.next_seg();
     const int red = seg_red(s), nt = tiles(min(seg_out(s), ncols));
-    const int lane = threadIdx.x % 32, c0 = warp_n() * 8;
-    const bf16* arow = A + (row0() + (lane & 15)) * lda + (lane >> 4) * 8;
-    // this lane's ldmatrix row of B for tile pair 0 at reduction step 0
-    const int ldt = KSL + SPAD, ldn = s.ldw + SPAD;
-    const int boff = s.trans
-        ? (c0 + (lane & 7) + ((lane >> 4) & 1) * 8 * WN) * ldt + ((lane >> 3) & 1) * 8
-        : (lane & 15) * ldn + c0 + (lane >> 4) * 8 * WN;
-    for (int k0 = 0; k0 < red; k0 += KSL) {
-        const bf16* st = R.acquire() + boff;
-        const int ks = min(KSL, red - k0);
-        for (int kk = 0; kk < ks; kk += 16) {
-            uint32_t a[MT][4];
+    const int ldt = KSL + SPAD<T>, ldn = s.ldw + SPAD<T>;
+    if constexpr (sizeof(T) == 2) {
+        const int lane = threadIdx.x % 32, c0 = warp_n() * 8;
+        const bf16* arow = A + (row0(M) + (lane & 15)) * lda + (lane >> 4) * 8;
+        // this lane's ldmatrix row of B for tile pair 0 at reduction step 0
+        const int boff = s.trans
+            ? (c0 + (lane & 7) + ((lane >> 4) & 1) * 8 * WN) * ldt + ((lane >> 3) & 1) * 8
+            : (lane & 15) * ldn + c0 + (lane >> 4) * 8 * WN;
+        for (int k0 = 0; k0 < red; k0 += KSL) {
+            const bf16* st = R.acquire() + boff;
+            const int ks = min(KSL, red - k0);
+            for (int kk = 0; kk < ks; kk += 16) {
+                uint32_t a[M][4];
 #pragma unroll
-            for (int mi = 0; mi < MT; ++mi) ldsm_x4(a[mi], arow + mi * 16 * lda + k0 + kk);
-            if (s.trans) k16<true>(acc, nt, a, st + kk, 8 * WN * ldt);
-            else k16<false>(acc, nt, a, st + kk * ldn, 8 * WN);
+                for (int mi = 0; mi < M; ++mi) ldsm_x4(a[mi], arow + mi * 16 * lda + k0 + kk);
+                if (s.trans) k16<true>(acc, nt, a, st + kk, 8 * WN * ldt);
+                else k16<false>(acc, nt, a, st + kk * ldn, 8 * WN);
+            }
+        }
+    } else {
+        for (int k0 = 0; k0 < red; k0 += KSL) {
+            const float* st = R.acquire();
+            const int ks = min(KSL, red - k0);
+            if (s.trans) ffma_slab<true>(acc, nt, A, lda, k0, ks, st, ldt);
+            else ffma_slab<false>(acc, nt, A, lda, k0, ks, st, ldn);
         }
     }
 }
@@ -300,89 +384,101 @@ __device__ __forceinline__ void run_seg(Ring<STAGES, KSL, LAPS>& R, AccT<N>& acc
 // f(row, col, v0, v1, bit) for every pair of adjacent columns (col even) of
 // this warp's accumulators of an output with n columns; bit is the pair's
 // first bit in this thread's mask words (the second is bit + 1).
-template <int N, class F>
-__device__ __forceinline__ void for_pairs(AccT<N>& acc, int n, F f) {
+template <int M, int N, class F>
+__device__ __forceinline__ void for_pairs(float (&acc)[M][N][4], int n, F f) {
     const int lane = threadIdx.x % 32, nt = tiles(n);
-    const int r0 = row0() + lane / 4;
+    const int r0 = row0(M) + lane / 4;
     const int c0 = warp_n() * 8 + 2 * (lane % 4);
 #pragma unroll
     for (int j = 0; j < N; ++j) {
         if (j < nt) {
 #pragma unroll
-            for (int mi = 0; mi < MT; ++mi) {
+            for (int mi = 0; mi < M; ++mi) {
 #pragma unroll
                 for (int h = 0; h < 2; ++h) {
                     f(r0 + mi * 16 + h * 8, c0 + j * 8 * WN, acc[mi][j][2 * h],
-                      acc[mi][j][2 * h + 1], (j * MT + mi) * 4 + 2 * h);
+                      acc[mi][j][2 * h + 1], (j * M + mi) * 4 + 2 * h);
                 }
             }
         }
     }
 }
 
-__device__ __forceinline__ void st_bf16x2(bf16* p, float a, float b) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+// a pair of adjacent values stored as T; returns what was stored
+__device__ __forceinline__ float2 st_pair(bf16* p, float a, float b) {
+    const __nv_bfloat162 o = __floats2bfloat162_rn(a, b);
+    *reinterpret_cast<__nv_bfloat162*>(p) = o;
+    return make_float2(__bfloat162float(o.x), __bfloat162float(o.y));
+}
+__device__ __forceinline__ float2 st_pair(float* p, float a, float b) {
+    const float2 o = make_float2(a, b);
+    *reinterpret_cast<float2*>(p) = o;
+    return o;
 }
 
 // mask words a thread keeps for an output of n columns (one bit per value)
-__device__ __forceinline__ int mask_words(int n) { return (tiles(n) * MT * 4 + 31) / 32; }
+__device__ __forceinline__ int mask_words(int n, int mt) { return (tiles(n) * mt * 4 + 31) / 32; }
 
-// Epilogue: dst[r, c] = bf16(relu?(acc + bias[c])) over n columns and, if
-// mask is non-null, the bits (value > 0) into this thread's words
+// Epilogue: dst[r, c] = T(relu?(acc + bias[c])) over n columns and, if mask
+// is non-null, the bits (stored value > 0) into this thread's words
 // mask[w * THREADS] (w < mask_words(n) <= MW).
-__device__ __forceinline__ void store_act(Acc& acc, int n, const float* __restrict__ bias,
-                                          bool relu, bf16* dst, int ldd, uint32_t* mask) {
-    uint32_t words[MW] = {};
+template <int M, class T>
+__device__ __forceinline__ void store_act(float (&acc)[M][NT][4], int n,
+                                          const float* __restrict__ bias, bool relu, T* dst,
+                                          int ldd, uint32_t* mask) {
+    constexpr int NW = NT * M * 4 / 32;
+    uint32_t words[NW] = {};
     for_pairs(acc, n, [&](int r, int c, float v0, float v1, int bit) {
         const float2 bb = *reinterpret_cast<const float2*>(bias + c);
         v0 += bb.x;
         v1 += bb.y;
         if (relu) { v0 = fmaxf(v0, 0.0f); v1 = fmaxf(v1, 0.0f); }
-        const __nv_bfloat162 o = __floats2bfloat162_rn(v0, v1);
-        *reinterpret_cast<__nv_bfloat162*>(dst + r * ldd + c) = o;
-        if (__bfloat162float(o.x) > 0.0f) words[bit / 32] |= 1u << (bit % 32);
-        if (__bfloat162float(o.y) > 0.0f) words[bit / 32] |= 1u << (bit % 32 + 1);
+        const float2 o = st_pair(dst + r * ldd + c, v0, v1);
+        if (o.x > 0.0f) words[bit / 32] |= 1u << (bit % 32);
+        if (o.y > 0.0f) words[bit / 32] |= 1u << (bit % 32 + 1);
     });
     if (mask) {
-        const int nw = mask_words(n);
+        const int nw = mask_words(n, M);
 #pragma unroll
-        for (int i = 0; i < MW; ++i)
+        for (int i = 0; i < NW; ++i)
             if (i < nw) mask[i * THREADS + threadIdx.x] = words[i];
     }
 }
 
-// Epilogue of a backward matmul: dst[r, c] = bf16(acc * relu'(saved)) over n
+// Epilogue of a backward matmul: dst[r, c] = T(acc * relu'(saved)) over n
 // columns, the mask words as store_act wrote them (mask null: no ReLU).
-__device__ __forceinline__ void store_grad(Acc& acc, int n, bf16* dst, int ldd,
+template <int M, class T>
+__device__ __forceinline__ void store_grad(float (&acc)[M][NT][4], int n, T* dst, int ldd,
                                            const uint32_t* mask) {
-    uint32_t words[MW];
+    constexpr int NW = NT * M * 4 / 32;
+    uint32_t words[NW];
 #pragma unroll
-    for (int i = 0; i < MW; ++i) words[i] = ~0u;
+    for (int i = 0; i < NW; ++i) words[i] = ~0u;
     if (mask) {
-        const int nw = mask_words(n);
+        const int nw = mask_words(n, M);
 #pragma unroll
-        for (int i = 0; i < MW; ++i)
+        for (int i = 0; i < NW; ++i)
             if (i < nw) words[i] = mask[i * THREADS + threadIdx.x];
     }
     for_pairs(acc, n, [&](int r, int c, float v0, float v1, int bit) {
         const uint32_t wd = words[bit / 32];
-        st_bf16x2(dst + r * ldd + c, (wd >> (bit % 32)) & 1u ? v0 : 0.0f,
-                  (wd >> (bit % 32 + 1)) & 1u ? v1 : 0.0f);
+        st_pair(dst + r * ldd + c, (wd >> (bit % 32)) & 1u ? v0 : 0.0f,
+                (wd >> (bit % 32 + 1)) & 1u ? v1 : 0.0f);
     });
 }
 
 // ---- bulk stores of a tile's rows (K2's scratch) ---------------------------------
 
-// [TM, ncols] bf16 from shared memory (ld lds) to global rows (ld ldg): one
+// [TM, ncols] of T from shared memory (ld lds) to global rows (ld ldg): one
 // asynchronous bulk copy per row (cp.async.bulk, the TMA's 1-D form), started
 // by threads 0 .. TM-1, so the copies overlap the next matmul. ncols, lds,
-// ldg and both column offsets are multiples of 8. Call after publish().
-__device__ __forceinline__ void store_rows(const bf16* src, int lds, int ncols, bf16* dst,
-                                           int ldg) {
-    if (threadIdx.x < TM) {
+// ldg and both column offsets are multiples of 16 bytes. Call after publish().
+template <class T>
+__device__ __forceinline__ void store_rows(const T* src, int lds, int ncols, T* dst, int ldg) {
+    if (threadIdx.x < TM<T>) {
         asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
                      ::"l"(dst + (size_t)threadIdx.x * ldg),
-                     "r"(smem_u32(src + threadIdx.x * lds)), "r"(ncols * 2)
+                     "r"(smem_u32(src + threadIdx.x * lds)), "r"(ncols * (int)sizeof(T))
                      : "memory");
         asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     }

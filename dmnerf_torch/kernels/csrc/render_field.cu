@@ -8,7 +8,8 @@
 // per ray from the trunk, sigma and the instance branch, with no view
 // encoding and no rgb branch; ~15% fewer MACs per point than K3).
 // The math is the JAX package's: the field of models/fields.apply_field in
-// bf16 with fp32 accumulation, then core/rendering.composite.
+// bf16 with fp32 accumulation (the f32 builds: fp32 throughout), then
+// core/rendering.composite.
 //
 // What bounds it on the H100: the work is a chain of small matmuls through a
 // 9-layer MLP (about 1.4 MFLOP per point for the 8x256 field), followed by a
@@ -16,29 +17,35 @@
 // fit in a block's shared memory, so the Pallas design of keeping every
 // weight on chip does not carry over.
 //
-// K3 and K5 (composite_kernel) run the field on K1's core: field_tile.cuh's
+// K3, K4 and K5 (composite_kernel) run the field on K1's core: field_tile.cuh's
 // forward_tile, the very function of field.cu's K1, on 128-point tiles with
 // the weights staged through a ring of shared-memory slabs (field_core.cuh).
 // - One block takes G consecutive rays, whose G*S points are contiguous in
 //   pts [R,S,3], and walks them in 128-point tiles; a tile may hold the end
 //   of one ray and the start of the next, so each weight slab is read once
-//   per 128 points whatever S is. G is chosen per launch (group_rays) to
-//   leave the fewest padded rows in the block's last tile, up to 8 rays and
-//   one thread per (ray, output channel): 2 at S = 192 or 64 (no padding).
+//   per 128 points whatever S is, and the ring runs on across the tiles of a
+//   block. G is chosen per launch (group_rays) to leave the fewest padded
+//   rows in the block's last tile, up to 8 rays and, for K3/K5, one thread
+//   per (ray, output channel): 2 at S = 192 or 64 (no padding). For K4 at
+//   S = 64, 4 and 8 rays per block (2 and 4 tiles, the ring across them)
+//   gain nothing over 2, and 1 (half a tile) takes about 1.8 times as long
+//   (chip_smoke.py phase 6c; the readings are in PERF.md section 6).
 // - After a tile's output layer its fp32 raw [128, CP] (bias added, the same
-//   sums as K1's raw) is staged in shared memory over H and Bf, which the
-//   tile no longer needs, and alpha is computed per row. Then one thread per
-//   (ray of the block, output channel) walks that ray's rows of the tile in
-//   sample order, carrying the transmittance
-//   T_{i+1} = T_i * ((1 - alpha_i) + 1e-10) (the literal exclusive cumprod
-//   of core/rendering.composite) and its channel's sum across tiles in shared
-//   memory, and writes the ray's output after the block's last tile. The
-//   scan is small beside the tile's matmuls.
+//   sums as K1's raw; K4: the first 8 columns, the density in column 3) is
+//   staged in shared memory over H and Bf, which the tile no longer needs,
+//   and alpha is computed per row. Then one thread per (ray of the block,
+//   output channel) walks that ray's rows of the tile in sample order,
+//   carrying the transmittance T_{i+1} = T_i * ((1 - alpha_i) + 1e-10) (the
+//   literal exclusive cumprod of core/rendering.composite) and its channel's
+//   sum across tiles in shared memory, and writes the ray's output after the
+//   block's last tile; K4's thread (one per ray) writes each alpha_i T_i as
+//   it goes. The scan is small beside the tile's matmuls.
 // - The output layer's register tile holds up to 128 columns (field_tile.cuh),
 //   so K3 and K5 take K <= 123 at any width.
-// K4 (sigma_kernel) still runs the wmma core (field_common.cuh): one block per
-// ray, 64-point sub-tiles, wmma fragments read from L2, and one thread's scan
-// of the weights.
+// - The f32 builds (render_field_{sigma,all,ins}_f32; the JAX kernel with
+//   compute_dtype float32) run the same kernel on the core's float build:
+//   64-point tiles, fp32 FFMA on the CUDA cores, fp32 activations, slabs
+//   half as deep.
 // - Positional encoding is computed in the kernels from the fp32 points, in
 //   the reference channel order, with precise sinf/cosf (arguments reach
 //   x*2^9, so fast-math intrinsics would be wrong); the packer needs no
@@ -57,79 +64,19 @@ using core::Ring;
 
 namespace {
 
-// ---- K4: the wmma core -----------------------------------------------------------
-
-// two activation buffers, the position encoding, one fp32 16x16 tile per warp
-// (the density column's tile is staged in the activation buffer h is not in)
-size_t sigma_smem(const Meta& m) {
-    const size_t act = (size_t)TP * (m.W + PAD) * sizeof(bf16);
-    const size_t enc = (size_t)TP * (m.XP + PAD) * sizeof(bf16);
-    return 2 * act + enc + NWARPS * 256 * sizeof(float);
-}
-
-// One block = one ray: weights [R,S].
-__global__ void __launch_bounds__(NTHREADS, 2)
-sigma_kernel(const float* __restrict__ pts, const float* __restrict__ dists, int S,
-             const bf16* __restrict__ w, const float* __restrict__ b, const Meta m,
-             float* __restrict__ out_w) {
-    extern __shared__ __align__(128) unsigned char smem[];
-    const int W = m.W, XP = m.XP, CP = m.CP;
-    const int LDA = W + PAD, LDX = XP + PAD;
-    bf16* bufA = reinterpret_cast<bf16*>(smem);
-    bf16* bufB = bufA + TP * LDA;
-    bf16* xenc = bufB + TP * LDA;
-    float* scratch = reinterpret_cast<float*>(xenc + TP * LDX);
-    float* alpha = scratch;                           // reused after the MLP
-    const float* bo = b + m.boff_o;
-
-    const int ray = blockIdx.x;
-    const int tid = threadIdx.x;
-    float T = 1.0f;      // transmittance, carried across sub-tiles
-
-    for (int s0 = 0; s0 < S; s0 += TP) {
-        const int nv = min(TP, S - s0);
-        const float* p_tile = pts + ((size_t)ray * S + s0) * 3;
-        bf16* h = tile_forward(p_tile, nv, w, b, m, bufA, bufB, xenc, LDX, scratch);
-        // [TP, 16] fp32 in the activation buffer that h is not in: columns
-        // 0:16 of h @ Wout[W:2W] (the density rows face column 3 alone)
-        float* stage = reinterpret_cast<float*>(h == bufA ? bufB : bufA);
-        matmul(h, LDA, W, nullptr, 0, 0, w + m.off_out + (size_t)W * CP, CP, 16,
-               StoreF32{stage, 16});
-        __syncthreads();
-
-        if (tid < nv) {
-            const float sigma = stage[tid * 16 + 3] + bo[3];
-            const float dist = dists[(size_t)ray * S + s0 + tid];
-            alpha[tid] = 1.0f - expf(-fmaxf(sigma, 0.0f) * dist);
-        }
-        __syncthreads();
-
-        if (tid == 0) {
-            float* wrow = out_w + (size_t)ray * S + s0;
-            for (int i = 0; i < nv; ++i) {
-                const float a = alpha[i];
-                wrow[i] = a * T;
-                T = T * ((1.0f - a) + 1e-10f);
-            }
-        }
-        __syncthreads();   // the next sub-tile overwrites stage and alpha
-    }
-}
-
-// ---- K3, K5: K1's core ------------------------------------------------------------
-
-constexpr int STAGES = 2, KS = 64;      // the weight ring: K1's
+constexpr int STAGES = 2;               // the weight ring: K1's
+template <class T> constexpr int KS = sizeof(T) == 2 ? 64 : 32;
 constexpr int MAXG = 8;                 // rays per block at most
 
-// Rays per block: of 1 .. min(MAXG, R, THREADS / C), the count whose G*S
-// points leave the smallest share of padded rows in their last 128-point
-// tile (the fewest rays on a tie).
-int group_rays(int R, int S, int C) {
-    const int gmax = std::max(1, std::min({MAXG, R, THREADS / C}));
+// Rays per block: of 1 .. min(MAXG, R, THREADS / ch), the count whose G*S
+// points leave the smallest share of padded rows in their last tm-point tile
+// (the fewest rays on a tie). ch: threads per ray of the scan.
+int group_rays(int R, int S, int ch, int tm) {
+    const int gmax = std::max(1, std::min({MAXG, R, THREADS / ch}));
     int best = 1;
     double best_pad = 1.0;
     for (int g = 1; g <= gmax; ++g) {
-        const long n = (long)g * S, padded = (n + TM - 1) / TM * TM;
+        const long n = (long)g * S, padded = (n + tm - 1) / tm * tm;
         const double pad = (double)(padded - n) / padded;
         if (pad < best_pad) { best = g; best_pad = pad; }
     }
@@ -139,28 +86,31 @@ int group_rays(int R, int S, int C) {
 // a tile's fp32 raw [TM, CP + 4] (4 columns of padding against bank
 // conflicts), staged over H and Bf
 __host__ __device__ inline int stage_ld(const Meta& m) { return m.CP + 4; }
+template <class T>
 __host__ __device__ inline size_t stage_bytes(const Meta& m) {
-    return (size_t)TM * stage_ld(m) * sizeof(float);
+    return (size_t)core::TM<T> * stage_ld(m) * sizeof(float);
 }
 
 // composite state after the ring: alpha [TM], then T and the sum [2, THREADS]
+template <class T>
 size_t composite_smem(const Meta& m, const Plan& p) {
-    return tile_smem(m, p, STAGES, false, stage_bytes(m))
-        + (size_t)(TM + 2 * THREADS) * sizeof(float);
+    return tile_smem<T>(m, p, STAGES, false, stage_bytes<T>(m))
+        + (size_t)(core::TM<T> + 2 * THREADS) * sizeof(float);
 }
 
 // G rays per block, their points in TM-point tiles through forward_tile.
 // H_ALL: rgb [R,3], depth [R], instance logits [R,K+1] (K3). H_INS: instance
-// logits [R,K+1] (K5).
-template <Heads HEADS>
+// logits [R,K+1] (K5). H_SIGMA: compositing weights [R,S] in out_ins (K4).
+template <class T, Heads HEADS>
 __global__ void __launch_bounds__(THREADS, 1)
 composite_kernel(const float* __restrict__ pts, const float* __restrict__ vdirs,
                  const float* __restrict__ zv, const float* __restrict__ dists, int R, int S,
-                 int G, const bf16* __restrict__ w, const float* __restrict__ b, const Meta m,
+                 int G, const T* __restrict__ w, const float* __restrict__ b, const Meta m,
                  const __grid_constant__ Plan plan, float* __restrict__ out_rgb,
                  float* __restrict__ out_depth, float* __restrict__ out_ins) {
     extern __shared__ __align__(128) unsigned char smem[];
-    const Bufs B = carve(smem, m, plan, STAGES, false, stage_bytes(m));
+    constexpr int TM = core::TM<T>;
+    const Bufs<T> B = carve<T>(smem, m, plan, STAGES, false, stage_bytes<T>(m));
     float* alpha = reinterpret_cast<float*>(B.tail);
     float* carry = alpha + TM;
     float* stage = reinterpret_cast<float*>(B.H);     // fp32 raw [TM, lds], over H and Bf
@@ -173,22 +123,25 @@ composite_kernel(const float* __restrict__ pts, const float* __restrict__ vdirs,
     const int q0 = ray0 * S;                          // and the first one's index
     const int tiles = (n + TM - 1) / TM;
     // this thread's ray of the block and output channel in the composite
-    const int g = tid / C, c = tid % C;
-    const bool mine = g < nr && (HEADS == H_ALL || c >= 4);
+    // (K4: one thread per ray)
+    const int ch = HEADS == H_SIGMA ? 1 : C;
+    const int g = tid / ch, c = tid % ch;
+    const bool mine = g < nr && (HEADS != H_INS || c >= 4);
     carry[tid] = 1.0f;
     carry[THREADS + tid] = 0.0f;
 
-    Ring<STAGES, KS, true> Rg;
+    Ring<T, STAGES, KS<T>, true> Rg;
     Rg.start(B.ring, &plan, w, tiles);
-    core::Acc acc;
-    core::AccT<core::NTO> acc_out;
+    core::Acc<T> acc;
+    core::AccT<T, HEADS == H_SIGMA ? 1 : core::NTO> acc_out;
     for (int t = 0; t < tiles; ++t) {
         const int p0 = t * TM, nv = min(TM, n - p0);
         forward_tile<HEADS, true, false>(Rg, B, acc, acc_out, pts + (size_t)(q0 + p0) * 3, nv,
                                          vdirs, q0 + p0, S, b, m,
-                                         Save{nullptr, nullptr, nullptr});
+                                         Save<T>{nullptr, nullptr, nullptr});
         __syncthreads();                 // every warp has read ins_h in H
-        core::for_pairs(acc_out, m.CP, [&](int r, int cc, float v0, float v1, int) {
+        core::for_pairs(acc_out, HEADS == H_SIGMA ? 8 : m.CP,
+                        [&](int r, int cc, float v0, float v1, int) {
             *reinterpret_cast<float2*>(stage + r * lds + cc) =
                 make_float2(v0 + bo[cc], v1 + bo[cc + 1]);
         });
@@ -199,24 +152,28 @@ composite_kernel(const float* __restrict__ pts, const float* __restrict__ vdirs,
         // this ray's rows of the tile, in sample order
         const int i0 = max(g * S - p0, 0), i1 = min((g + 1) * S - p0, nv);
         if (mine && i0 < i1) {
-            float T = carry[tid], sum = carry[THREADS + tid];
+            float T_ = carry[tid], sum = carry[THREADS + tid];
             for (int i = i0; i < i1; ++i) {
                 const float a = alpha[i];
-                const float wgt = a * T;
-                float v;
-                if (c < 3) v = 1.0f / (1.0f + expf(-stage[i * lds + c]));
-                else if (c == 3) v = zv[q0 + p0 + i];
-                else v = stage[i * lds + c];
-                sum += wgt * v;
-                T = T * ((1.0f - a) + 1e-10f);
+                const float wgt = a * T_;
+                if (HEADS == H_SIGMA) {
+                    out_ins[(size_t)q0 + p0 + i] = wgt;
+                } else {
+                    float v;
+                    if (c < 3) v = 1.0f / (1.0f + expf(-stage[i * lds + c]));
+                    else if (c == 3) v = zv[q0 + p0 + i];
+                    else v = stage[i * lds + c];
+                    sum += wgt * v;
+                }
+                T_ = T_ * ((1.0f - a) + 1e-10f);
             }
-            carry[tid] = T;
+            carry[tid] = T_;
             carry[THREADS + tid] = sum;
         }
         __syncthreads();   // the next tile writes its encoding over the stage
     }
 
-    if (mine) {
+    if (mine && HEADS != H_SIGMA) {
         const int ray = ray0 + g;
         const float sum = carry[THREADS + tid];
         if (c < 3) out_rgb[(size_t)ray * 3 + c] = sum;
@@ -236,20 +193,20 @@ int read_meta(const int* meta, int n_meta, int R, int S, Meta* m) {
     return 0;
 }
 
-template <Heads HEADS>
+template <class T, Heads HEADS>
 int launch_composite(const float* pts, const float* vdirs, const float* z, const float* dists,
-                     int R, int S, const bf16* w, const float* b, const int* meta, int n_meta,
+                     int R, int S, const T* w, const float* b, const int* meta, int n_meta,
                      float* rgb, float* depth, float* ins, void* stream) {
     Meta m;
     if (int err = read_meta(meta, n_meta, R, S, &m)) return err;
-    Planner pb(KS);
+    Planner<T> pb(KS<T>);
     plan_forward(pb, m, HEADS, true);
-    const size_t smem = composite_smem(m, pb.p);
-    auto kernel = composite_kernel<HEADS>;
+    const size_t smem = composite_smem<T>(m, pb.p);
+    auto kernel = composite_kernel<T, HEADS>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return (int)err;
-    const int G = group_rays(R, S, m.C);
+    const int G = group_rays(R, S, HEADS == H_SIGMA ? 1 : m.C, core::TM<T>);
     kernel<<<(R + G - 1) / G, THREADS, smem, (cudaStream_t)stream>>>(
         pts, vdirs, z, dists, R, S, G, w, b, m, pb.p, rgb, depth, ins);
     return (int)cudaGetLastError();
@@ -259,38 +216,55 @@ int launch_composite(const float* pts, const float* vdirs, const float* z, const
 
 extern "C" {
 
-// K4: weights [R,S] <- pts [R,S,3], z [R,S], dists [R,S] (all fp32).
+// K4: weights [R,S] <- pts [R,S,3], z [R,S], dists [R,S] (all fp32), bf16
+// weights.
 int render_field_sigma(const float* pts, const float* z, const float* dists, int R, int S,
                        const bf16* w, const float* b, const int* meta, int n_meta,
                        float* weights, void* stream) {
-    (void)z;
-    Meta m;
-    if (int err = read_meta(meta, n_meta, R, S, &m)) return err;
-    const size_t smem = sigma_smem(m);
-    cudaError_t err = cudaFuncSetAttribute(sigma_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    sigma_kernel<<<R, NTHREADS, smem, (cudaStream_t)stream>>>(pts, dists, S, w, b, m, weights);
-    return (int)cudaGetLastError();
+    return launch_composite<bf16, H_SIGMA>(pts, nullptr, z, dists, R, S, w, b, meta, n_meta,
+                                           nullptr, nullptr, weights, stream);
 }
 
 // K3: rgb [R,3], depth [R], ins logits [R,K+1] <- pts [R,S,3], viewdirs [R,3],
-// z [R,S], dists [R,S] (all fp32).
+// z [R,S], dists [R,S] (all fp32), bf16 weights.
 int render_field_all(const float* pts, const float* vdirs, const float* z,
                      const float* dists, int R, int S, const bf16* w, const float* b,
                      const int* meta, int n_meta, float* rgb, float* depth, float* ins,
                      void* stream) {
-    return launch_composite<H_ALL>(pts, vdirs, z, dists, R, S, w, b, meta, n_meta, rgb, depth,
-                                   ins, stream);
+    return launch_composite<bf16, H_ALL>(pts, vdirs, z, dists, R, S, w, b, meta, n_meta, rgb,
+                                         depth, ins, stream);
 }
 
-// K5: ins logits [R,K+1] <- pts [R,S,3], z [R,S], dists [R,S] (all fp32).
+// K5: ins logits [R,K+1] <- pts [R,S,3], z [R,S], dists [R,S] (all fp32),
+// bf16 weights.
 int render_field_ins(const float* pts, const float* z, const float* dists, int R, int S,
                      const bf16* w, const float* b, const int* meta, int n_meta,
                      float* ins, void* stream) {
-    return launch_composite<H_INS>(pts, nullptr, z, dists, R, S, w, b, meta, n_meta, nullptr,
-                                   nullptr, ins, stream);
+    return launch_composite<bf16, H_INS>(pts, nullptr, z, dists, R, S, w, b, meta, n_meta,
+                                         nullptr, nullptr, ins, stream);
+}
+
+// The f32 builds of K4, K3 and K5: the same with fp32 weights.
+int render_field_sigma_f32(const float* pts, const float* z, const float* dists, int R, int S,
+                           const float* w, const float* b, const int* meta, int n_meta,
+                           float* weights, void* stream) {
+    return launch_composite<float, H_SIGMA>(pts, nullptr, z, dists, R, S, w, b, meta, n_meta,
+                                            nullptr, nullptr, weights, stream);
+}
+
+int render_field_all_f32(const float* pts, const float* vdirs, const float* z,
+                         const float* dists, int R, int S, const float* w, const float* b,
+                         const int* meta, int n_meta, float* rgb, float* depth, float* ins,
+                         void* stream) {
+    return launch_composite<float, H_ALL>(pts, vdirs, z, dists, R, S, w, b, meta, n_meta, rgb,
+                                          depth, ins, stream);
+}
+
+int render_field_ins_f32(const float* pts, const float* z, const float* dists, int R, int S,
+                         const float* w, const float* b, const int* meta, int n_meta,
+                         float* ins, void* stream) {
+    return launch_composite<float, H_INS>(pts, nullptr, z, dists, R, S, w, b, meta, n_meta,
+                                          nullptr, nullptr, ins, stream);
 }
 
 const char* render_field_error_string(int err) {

@@ -22,7 +22,9 @@ with every product taken in fp32 on operands that are exact in fp32. A wrapper
 takes the plain version for CPU tensors only; for a CUDA tensor it launches
 the kernel or raises. LAUNCHES counts the launches of each kernel.
 
-Only bf16 has a kernel; precision f32 on CUDA raises.
+Each kernel has a bf16 build and an f32 build (precision f32: fp32 weights,
+activations, products and sums); the wrappers pick the build from the packed
+weights' dtype, and count its launches under its own key (`_f32`).
 """
 
 from __future__ import annotations
@@ -36,11 +38,12 @@ import torch.nn.functional as F
 
 from dmnerf_torch.core.encoding import encoding_dim, positional_encoding
 from dmnerf_torch.kernels.render_field import (PackedField, Params, _as_field, _device_kind,
-                                               check_kernel_shape, pack_field)
+                                               build_of, check_kernel_shape, pack_field)
 from dmnerf_torch.models.fields import FieldConfig
 
 # launches of each kernel since the last reset (the CPU plain path adds none)
-LAUNCHES: Dict[str, int] = {"field_forward": 0, "field_backward": 0}
+LAUNCHES: Dict[str, int] = {"field_forward": 0, "field_backward": 0,
+                            "field_forward_f32": 0, "field_backward_f32": 0}
 
 # points per fixed-order partial of K2's dW and bias sums (a multiple of the
 # dW pass's 32-point slabs)
@@ -273,10 +276,7 @@ def unpack_grads(packed: PackedField, dw: torch.Tensor, db: torch.Tensor):
 
 def _check(packed: PackedField, pts: torch.Tensor, dirs: torch.Tensor, g=None):
     cfg = packed.field.cfg
-    if cfg.compute_dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"field kernels: precision {cfg.compute_dtype} has no CUDA kernel; only bf16 "
-            "does (use precision bf16, or --pallas_train False for the plain path)")
+    build_of(packed, "field kernels")
     P = pts.shape[0]
     for name, t, shape in (("pts", pts, (P, 3)), ("dirs", dirs, (dirs.shape[0], 3)),
                            ("g", g, (P, cfg.ins_num + 5))):
@@ -316,11 +316,12 @@ def field_forward(params: Params, pts: torch.Tensor, viewdirs: torch.Tensor) -> 
     P, C = pf.shape[0], packed.field.cfg.ins_num + 5
     raw = torch.empty((P, C), dtype=torch.float32, device=pts.device)
     lib = load_field()
-    rc = lib.field_forward(pf.data_ptr(), dirs.data_ptr(), P, ppd, packed.w.data_ptr(),
-                           packed.b.data_ptr(), packed.meta.ctypes.data, len(packed.meta),
-                           raw.data_ptr(), _stream(pts))
-    _raise_on(rc, lib, "field_forward")
-    LAUNCHES["field_forward"] += 1
+    name = "field_forward" + build_of(packed, "field kernels")
+    rc = getattr(lib, name)(pf.data_ptr(), dirs.data_ptr(), P, ppd, packed.w.data_ptr(),
+                            packed.b.data_ptr(), packed.meta.ctypes.data, len(packed.meta),
+                            raw.data_ptr(), _stream(pts))
+    _raise_on(rc, lib, name)
+    LAUNCHES[name] += 1
     return raw.reshape(*pts.shape[:-1], C)
 
 
@@ -334,17 +335,18 @@ def field_backward(packed: PackedField, pts: torch.Tensor, dirs: torch.Tensor, p
     _check(packed, pts, dirs, g)
     L = layout(packed)
     lib = load_field()
+    suffix = build_of(packed, "field kernels")
     aw, yw = ctypes.c_int(), ctypes.c_int()
     _raise_on(lib.field_scratch_widths(packed.meta.ctypes.data, len(packed.meta),
                                        ctypes.byref(aw), ctypes.byref(yw)),
               lib, "field_scratch_widths")
     P = pts.shape[0]
-    tile = lib.field_tile_rows()
+    tile = getattr(lib, "field_tile_rows" + suffix)()
     P_pad = -(-P // tile) * tile
     n_split = -(-P_pad // PSPLIT)
-    dev, f32, bf16 = pts.device, torch.float32, torch.bfloat16
-    act = torch.empty((P_pad, aw.value), dtype=bf16, device=dev)
-    dys = torch.empty((P_pad, yw.value), dtype=bf16, device=dev)
+    dev, f32 = pts.device, torch.float32
+    act = torch.empty((P_pad, aw.value), dtype=packed.w.dtype, device=dev)
+    dys = torch.empty((P_pad, yw.value), dtype=packed.w.dtype, device=dev)
     gx = torch.empty((P_pad, L.XP), dtype=f32, device=dev) if need_x else None
     gd = torch.empty((P_pad, L.DP), dtype=f32, device=dev) if need_d else None
     n_w, n_b = packed.w.numel(), packed.b.numel()
@@ -352,15 +354,16 @@ def field_backward(packed: PackedField, pts: torch.Tensor, dirs: torch.Tensor, p
     partial_b = torch.zeros((n_split, n_b), dtype=f32, device=dev)
     dw = torch.empty(n_w, dtype=f32, device=dev)
     db = torch.empty(n_b, dtype=f32, device=dev)
-    rc = lib.field_backward(
+    name = "field_backward" + suffix
+    rc = getattr(lib, name)(
         pts.data_ptr(), dirs.data_ptr(), P, ppd, packed.w.data_ptr(), packed.b.data_ptr(),
         packed.meta.ctypes.data, len(packed.meta), g.data_ptr(),
         act.data_ptr(), aw.value, dys.data_ptr(), yw.value,
         gx.data_ptr() if need_x else None, gd.data_ptr() if need_d else None,
         partial_w.data_ptr(), n_w, partial_b.data_ptr(), n_b, PSPLIT,
         dw.data_ptr(), db.data_ptr(), _stream(pts))
-    _raise_on(rc, lib, "field_backward")
-    LAUNCHES["field_backward"] += 1
+    _raise_on(rc, lib, name)
+    LAUNCHES[name] += 1
     return FieldGrads(dw, db, gx[:P] if need_x else None, gd[:P] if need_d else None)
 
 

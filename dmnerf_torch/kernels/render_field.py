@@ -7,8 +7,7 @@ csrc/render_field.cu replace the TPU kernel `_composite_kernel`:
 
 - render_field_sigma (K4, heads="sigma"): trunk + density head, then the
   compositing weights [R, S]. The coarse pass needs nothing else: at eval its
-  weights only drive importance sampling. It runs the wmma core
-  (csrc/field_common.cuh: one block per ray, 64-point sub-tiles, wmma).
+  weights only drive importance sampling.
 - render_field_all (K3, heads="all"): the whole field, then per ray rgb [R,3],
   depth [R] and instance logits [R,K+1]. The raw [R,S,C] tensor never reaches
   device memory.
@@ -16,22 +15,25 @@ csrc/render_field.cu replace the TPU kernel `_composite_kernel`:
   (no view directions, no rgb branch), then per ray the instance logits
   [R,K+1]. The edit path's accumulated-label passes composite nothing else.
 
-K3 and K5 run the field through K1's tile forward (csrc/field_tile.cuh on the
-mma.sync core of csrc/field_core.cuh): a block takes a few whole rays and
-walks their points in 128-point tiles, then composites each ray's rows in
-sample order. check_kernel_shape holds every field kernel's wrapper (K1-K5)
-to the widths the CUDA sources take: up to 256 wide, and up to ins_num 123 at
-any width.
+K3, K4 and K5 run the field through K1's tile forward (csrc/field_tile.cuh
+on the mma.sync core of csrc/field_core.cuh): a block takes a few whole rays
+and walks their points in 128-point tiles, then composites each ray's rows
+in sample order. check_kernel_shape holds every field kernel's wrapper
+(K1-K5) to the widths the CUDA sources take: up to 256 wide, and up to
+ins_num 123 at any width.
 
 Beside each kernel is its plain PyTorch version (render_field_sigma_ref /
 render_field_all_ref / render_field_ins_ref): the field module plus
 core/rendering's compositing, with bf16 operands upcast to fp32 for every
-matmul, so the products are exact and only the order of summation differs
-from the kernel. A wrapper takes the plain version for CPU tensors only; for
+matmul (f32: fp32 throughout), so the products are exact and only the order
+of summation differs from the kernel. A wrapper takes the plain version for CPU tensors only; for
 a CUDA tensor it launches the kernel or raises. LAUNCHES counts the launches
 of each kernel.
 
-Only bf16 (the deployed precision) has a kernel; precision f32 on CUDA raises.
+Every field kernel (K1-K5) has a bf16 build (the deployed precision) and an
+f32 build (precision f32: fp32 weights, activations, products and sums, on
+64-point tiles); the wrappers pick the build from the packed weights' dtype
+(build_of) and count its launches under its own key.
 """
 
 from __future__ import annotations
@@ -48,12 +50,16 @@ from dmnerf_torch.models.fields import DMNeRFField, FieldConfig
 
 # launches of each kernel since the last reset (the CPU plain path adds none)
 LAUNCHES: Dict[str, int] = {"render_field_sigma": 0, "render_field_all": 0,
-                            "render_field_ins": 0}
+                            "render_field_ins": 0, "render_field_sigma_f32": 0,
+                            "render_field_all_f32": 0, "render_field_ins_f32": 0}
+# the suffix of each build's C entry points and LAUNCHES keys, by the dtype of
+# the packed weights
+BUILDS = {torch.bfloat16: "", torch.float32: "_f32"}
 
 MAX_DEPTH = 16          # trunk layers the kernel's Meta block describes
 MAX_WIDTH = 256         # the widest layer the kernels' register tiles hold (csrc MAXW)
 MAX_OUT = 128           # the widest output layer, 4+ins_num+1 padded to 16 (csrc MAXCP)
-_ALIGN = 128            # bf16 elements between packed matrices (256 bytes)
+_ALIGN = 128            # elements between packed matrices (256 bytes in bf16)
 
 
 def reset_launches() -> None:
@@ -68,8 +74,8 @@ def _ru(x: int, m: int) -> int:
 class PackedField(NamedTuple):
     """A field's weights laid out for the kernel.
 
-    w: [n] in the compute dtype (bf16, the only one with kernels) — every
-       matrix as [in, out] row-major, in-widths padded with
+    w: [n] in the compute dtype (bf16 or f32, which picks the kernels'
+       build) — every matrix as [in, out] row-major, in-widths padded with
        zero rows to a multiple of 16:
          t0 [XP, W]; t_i [W, W], except t_{skip+1} [W + XP, W] (rows W: face
          the skip input x); rgb_feat [W, W]; rgb_hidden [W + DP, W/2] (rows W:
@@ -202,12 +208,18 @@ def check_kernel_shape(cfg: FieldConfig, who: str) -> None:
             raise ValueError(f"{who}: {limit}")
 
 
+def build_of(packed: PackedField, who: str) -> str:
+    """The suffix of the kernels' build for packed's weights: "" (bf16) or
+    "_f32"."""
+    if packed.w.dtype not in BUILDS:
+        raise TypeError(f"{who}: no kernel build for weights of {packed.w.dtype} "
+                        "(bf16 or float32)")
+    return BUILDS[packed.w.dtype]
+
+
 def _check(packed: PackedField, pts, z, rays_d, viewdirs=None):
     cfg = packed.field.cfg
-    if cfg.compute_dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"render_field: precision {cfg.compute_dtype} has no CUDA kernel; only "
-            "bf16 does (use precision bf16, or --use_pallas False for the plain path)")
+    build_of(packed, "render_field")
     dev = pts.device
     R, S = z.shape
 
@@ -257,13 +269,14 @@ def render_field_sigma(params: Params, pts: torch.Tensor, z: torch.Tensor,
     dists = sample_dists(z, rays_d).contiguous()
     weights = torch.empty((R, S), dtype=torch.float32, device=pts.device)
     lib = load_render_field()
-    rc = lib.render_field_sigma(
+    name = "render_field_sigma" + build_of(packed, "render_field")
+    rc = getattr(lib, name)(
         pts.data_ptr(), z.data_ptr(), dists.data_ptr(), R, S,
         packed.w.data_ptr(), packed.b.data_ptr(), packed.meta.ctypes.data,
         len(packed.meta), weights.data_ptr(),
         torch.cuda.current_stream(pts.device).cuda_stream)
-    _raise_on(rc, lib, "render_field_sigma")
-    LAUNCHES["render_field_sigma"] += 1
+    _raise_on(rc, lib, name)
+    LAUNCHES[name] += 1
     return weights
 
 
@@ -282,13 +295,14 @@ def render_field_all(params: Params, pts: torch.Tensor, viewdirs: torch.Tensor,
     rgb, depth = torch.empty((R, 3), **out), torch.empty((R,), **out)
     ins = torch.empty((R, K1), **out)
     lib = load_render_field()
-    rc = lib.render_field_all(
+    name = "render_field_all" + build_of(packed, "render_field")
+    rc = getattr(lib, name)(
         pts.data_ptr(), viewdirs.data_ptr(), z.data_ptr(), dists.data_ptr(), R, S,
         packed.w.data_ptr(), packed.b.data_ptr(), packed.meta.ctypes.data,
         len(packed.meta), rgb.data_ptr(), depth.data_ptr(), ins.data_ptr(),
         torch.cuda.current_stream(pts.device).cuda_stream)
-    _raise_on(rc, lib, "render_field_all")
-    LAUNCHES["render_field_all"] += 1
+    _raise_on(rc, lib, name)
+    LAUNCHES[name] += 1
     return rgb, depth, ins
 
 
@@ -305,13 +319,14 @@ def render_field_ins(params: Params, pts: torch.Tensor, z: torch.Tensor,
     ins = torch.empty((R, packed.field.cfg.ins_num + 1), dtype=torch.float32,
                       device=pts.device)
     lib = load_render_field()
-    rc = lib.render_field_ins(
+    name = "render_field_ins" + build_of(packed, "render_field")
+    rc = getattr(lib, name)(
         pts.data_ptr(), z.data_ptr(), dists.data_ptr(), R, S,
         packed.w.data_ptr(), packed.b.data_ptr(), packed.meta.ctypes.data,
         len(packed.meta), ins.data_ptr(),
         torch.cuda.current_stream(pts.device).cuda_stream)
-    _raise_on(rc, lib, "render_field_ins")
-    LAUNCHES["render_field_ins"] += 1
+    _raise_on(rc, lib, name)
+    LAUNCHES[name] += 1
     return ins
 
 

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on an NVIDIA card against their plain versions:
 the render kernels K3/K4, the edit kernel K5 and the training kernels K1/K2
 (up to ins_num 123 at width 256, 128 and 64), K3 and K5 against the composite of K1's
-raw at shapes whose rays cross tiles and blocks, and the edit path's
-launches of K1 and K5.
+raw at shapes whose rays cross tiles and blocks, K4 at every grouping of
+rays, the f32 builds of K1-K5 against the plain f32 path, and the edit
+path's launches of K1 and K5.
 
 Imports no jax, so the machine with the card runs it without the JAX package's
 conftest:  python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -18,6 +19,10 @@ from dmnerf_torch.kernels import render_field as krf
 from dmnerf_torch.models.fields import FieldConfig, init_field_params
 
 
+F32_UNUSED = {"render_field_sigma_f32": 0, "render_field_all_f32": 0,
+                 "render_field_ins_f32": 0}
+
+
 def _rays(R, S, seed=3):
     rng = np.random.default_rng(seed)
     ro = (rng.normal(size=(R, 3)) * 0.1).astype(np.float32)
@@ -31,7 +36,7 @@ def _rays(R, S, seed=3):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("width,ins_num,S", [(64, 11, 100), (256, 32, 192)])
+@pytest.mark.parametrize("width,ins_num,S", [(64, 11, 100), (256, 32, 192), (64, 123, 100)])
 def test_kernels_match_plain_versions_on_the_card(width, ins_num, S):
     """K4, K3 and K5 vs their plain versions on the same card: bf16 operands
     and fp32 accumulation both ways (TF32 off), so only the summation order
@@ -40,7 +45,8 @@ def test_kernels_match_plain_versions_on_the_card(width, ins_num, S):
     [0,1], depth up to 6, logits of a few units), median error 1e-4. The last
     sample's distance is 1e10, so its alpha is a step in sign(sigma): a ray
     whose plain last-sample |sigma| < 0.05 may jump, and is exempt (at most
-    2 of 64). S=100 leaves a partial 64-point tile in the kernel."""
+    2 of 64). S=100 leaves a partial 128-point tile in the kernel; width 64
+    with ins_num 123 has an output layer twice as wide as the trunk."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -59,7 +65,7 @@ def test_kernels_match_plain_versions_on_the_card(width, ins_num, S):
         step = field.density(pts[:, -1])[..., 0].abs() < 0.05
     torch.cuda.synchronize()
     assert krf.LAUNCHES == {"render_field_sigma": 1, "render_field_all": 1,
-                            "render_field_ins": 1}
+                            "render_field_ins": 1, **F32_UNUSED}
     for got, want in pairs:
         assert got.shape == want.shape and torch.isfinite(got).all()
         err = (got - want).abs()
@@ -108,7 +114,7 @@ def test_render_kernels_on_k1s_core_at_any_grouping(width, ins_num, R, S):
         step = field.density(pts[:, -1])[..., 0].abs() < 0.05
     torch.cuda.synchronize()
     assert krf.LAUNCHES == {"render_field_sigma": 1, "render_field_all": 1,
-                            "render_field_ins": 1}
+                            "render_field_ins": 1, **F32_UNUSED}
     for got, want in pairs:
         assert got.shape == want.shape and torch.isfinite(got).all()
         off = (got - want).abs().reshape(R, -1).amax(1) > 2e-2
@@ -119,20 +125,68 @@ def test_render_kernels_on_k1s_core_at_any_grouping(width, ins_num, R, S):
         assert err <= 2e-5 * max(1.0, float(want.abs().max())), err
 
 
+# The f32 builds against the plain f32 path (TF32 off): nothing is rounded
+# below f32 on either side, so only the order of the fp32 sums differs.
+F32_TOL = 1e-4
+
+
 @pytest.mark.cuda
-def test_f32_precision_has_no_kernel():
+@pytest.mark.parametrize("width,ins_num,R,S", [(64, 11, 37, 100), (128, 65, 16, 70),
+                                               (256, 32, 16, 70)])
+def test_f32_kernels_match_plain_versions_on_the_card(width, ins_num, R, S):
+    """The f32 builds of K1-K5 vs their plain f32 versions: raw and every
+    render output within 1e-4 of max(1, its largest magnitude); K2's
+    gradients and encoding cotangents within 1e-4 relative L2, bit-identical
+    across launches. The last sample's distance is 1e10, so its alpha is a
+    step in sign(sigma): rays whose plain last-sample |sigma| < 1e-3 are
+    exempt. A small field (width 64), replica64_stress's shape (width 128,
+    ins_num 65) and the flagship width; R*S is not a multiple of the f32
+    builds' 64-point tile, and rays cross tiles."""
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    cfg = FieldConfig(netdepth=2, netwidth=32, multires=4, multires_views=2, ins_num=4,
-                      compute_dtype=torch.float32)
-    field = init_field_params(torch.Generator().manual_seed(0), cfg, device="cuda")
-    pts, vd, z, rd = _rays(4, 8)
-    with pytest.raises(NotImplementedError):
-        krf.render_field_sigma(field, pts, z, rd)
-    with pytest.raises(NotImplementedError):
-        krf.render_field_ins(field, pts, z, rd)
-    with pytest.raises(NotImplementedError):
-        kf.field_forward(field, pts, vd)
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = FieldConfig(netdepth=8, netwidth=width, multires=10, multires_views=4,
+                      ins_num=ins_num, compute_dtype=torch.float32)
+    field = init_field_params(torch.Generator().manual_seed(9), cfg, device="cuda")
+    packed = krf.pack_field(field)
+    assert packed.w.dtype == torch.float32
+    pts, vd, z, rd = _rays(R, S)
+    pf, dirs, ppd = kf.flatten_inputs(pts, vd)
+    g = torch.randn(R * S, ins_num + 5, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(1)) * 1e-3
+    kf.reset_launches()
+    krf.reset_launches()
+    with torch.no_grad():
+        pairs = [(krf.render_field_sigma(packed, pts, z, rd),
+                  krf.render_field_sigma_ref(field, pts, z, rd))]
+        pairs += list(zip(krf.render_field_all(packed, pts, vd, z, rd),
+                          krf.render_field_all_ref(field, pts, vd, z, rd)))
+        pairs.append((krf.render_field_ins(packed, pts, z, rd),
+                      krf.render_field_ins_ref(field, pts, z, rd)))
+        raw, want = kf.field_forward(packed, pts, vd), kf.field_forward_ref(field, pts, vd)
+        step = field.density(pts[:, -1])[..., 0].abs() < 1e-3
+    got = kf.field_backward(packed, pf, dirs, ppd, g, True, True)
+    again = kf.field_backward(packed, pf, dirs, ppd, g, True, True)
+    ref = kf.field_backward_ref(packed, pf, dirs, ppd, g, True, True)
+    torch.cuda.synchronize()
+    assert krf.LAUNCHES == {"render_field_sigma": 0, "render_field_all": 0,
+                            "render_field_ins": 0, "render_field_sigma_f32": 1,
+                            "render_field_all_f32": 1, "render_field_ins_f32": 1}
+    assert kf.LAUNCHES == {"field_forward": 0, "field_backward": 0,
+                           "field_forward_f32": 1, "field_backward_f32": 2}
+    assert raw.shape == want.shape and torch.isfinite(raw).all()
+    assert (raw - want).abs().max() <= F32_TOL * max(1.0, float(want.abs().max()))
+    for a, b in pairs:
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        err = (a - b).abs().reshape(R, -1).amax(1)[~step]
+        assert err.max() <= F32_TOL * max(1.0, float(b.abs().max())), float(err.max())
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    pairs = list(zip(kf.unpack_grads(packed, got.dw, got.db),
+                     kf.unpack_grads(packed, ref.dw, ref.db))) + [(got.gx, ref.gx),
+                                                                  (got.gd, ref.gd)]
+    for a, b in pairs:
+        assert (a - b).norm() <= F32_TOL * b.norm(), float((a - b).norm() / b.norm())
 
 
 @pytest.mark.cuda
@@ -178,7 +232,8 @@ def test_field_kernels_match_plain_versions_on_the_card(width, ins_num, R, S):
     g_ins[:, :4] = 0.0
     zero = kf.unpack_grads(packed, *kf.field_backward(packed, pf, dirs, ppd, g_ins)[:2])
     torch.cuda.synchronize()
-    assert kf.LAUNCHES == {"field_forward": 1, "field_backward": 3}
+    assert kf.LAUNCHES == {"field_forward": 1, "field_backward": 3, "field_forward_f32": 0,
+                           "field_backward_f32": 0}
     assert raw.shape == want.shape and torch.isfinite(raw).all()
     raw, want = raw.reshape(-1, ins_num + 5), want.reshape(-1, ins_num + 5)
     err = (raw - want).abs()
@@ -220,7 +275,8 @@ def test_train_steps_run_through_the_kernels():
         m = make_train_scan_step(args, cfg)(state, arrs, 1, scene.i_train, 3)
         torch.cuda.synchronize()
         assert all(torch.isfinite(v) for v in m.values())
-        assert kf.LAUNCHES == {"field_forward": 6, "field_backward": 6}
+        assert kf.LAUNCHES == {"field_forward": 6, "field_backward": 6,
+                               "field_forward_f32": 0, "field_backward_f32": 0}
         runs.append([p.detach().clone() for p in state.opt.param_groups[0]["params"]])
     assert all(torch.equal(a, b) for a, b in zip(*runs))
 
@@ -255,6 +311,6 @@ def test_edit_launches_k1_and_k5_per_chunk():
     torch.cuda.synchronize()
     assert kf.LAUNCHES["field_forward"] == 3 * 2 * 3
     assert krf.LAUNCHES == {"render_field_sigma": 0, "render_field_all": 0,
-                            "render_field_ins": 3 * 3}
+                            "render_field_ins": 3 * 3, **F32_UNUSED}
     assert rgb.shape == (192, 3) and torch.isfinite(rgb).all() and torch.isfinite(conf).all()
     assert int(label.min()) >= 0 and int(label.max()) <= scene.ins_num

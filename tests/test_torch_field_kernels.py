@@ -176,8 +176,9 @@ def test_unfused_pallas_renderer_matches_jax():
             np.testing.assert_allclose(g, np.asarray(w), atol=tol, rtol=0)
 
 
-def test_cpu_wrappers_take_the_plain_version_without_launching():
-    _, _, field = _pair("bf16")
+@pytest.mark.parametrize("prec", ["bf16", "f32"])
+def test_cpu_wrappers_take_the_plain_version_without_launching(prec):
+    _, _, field = _pair(prec)
     pts, dirs = (torch.from_numpy(x) for x in _inputs())
     packed = pack_field(field)
     kf.reset_launches()
@@ -191,7 +192,8 @@ def test_cpu_wrappers_take_the_plain_version_without_launching():
     b = kf.field_backward_ref(packed, pf, d, ppd, g, True, True)
     for x, y in zip(a, b):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
-    assert kf.LAUNCHES == {"field_forward": 0, "field_backward": 0}
+    assert kf.LAUNCHES == {"field_forward": 0, "field_backward": 0,
+                           "field_forward_f32": 0, "field_backward_f32": 0}
 
 
 def test_flatten_inputs_and_validation():
@@ -208,8 +210,9 @@ def test_flatten_inputs_and_validation():
     p, d, _ = kf.flatten_inputs(pts, torch.zeros(4, 1, 3))
     g = torch.zeros(20, field.cfg.ins_num + 5)
     kf._check(packed, p, d, g)                               # the accepted form
-    with pytest.raises(NotImplementedError):                 # only bf16 has kernels
-        kf._check(pack_field(f32_field), p, d)
+    kf._check(pack_field(f32_field), p, d, g)                # and its f32 build's
+    with pytest.raises(TypeError, match="field kernels: no kernel build"):
+        kf._check(packed._replace(w=packed.w.half()), p, d)
     with pytest.raises(TypeError):
         kf._check(packed, p.double(), d)
     with pytest.raises(ValueError):

@@ -2,9 +2,10 @@
 the JAX package's Pallas kernel (interpret mode on the CPU) and vs
 apply_field + composite, and those of K1/K3/K4/K5 at the flagship width with
 ins_num 64 and at the replica64 stress scene's width 128 with ins_num 65;
-the kernel's weight packing, checked by an emulation that reads
-the packed buffers at the offsets the CUDA source reads; and the wrappers'
-dispatch and validation, with the shape limits every field kernel shares.
+the kernel's weight packing in bf16 and in f32, checked by an emulation that
+reads the packed buffers at the offsets the CUDA source reads and walks K4's
+rays in tiles as its blocks do; and the wrappers' dispatch and validation,
+with the shape limits every field kernel shares.
 The kernels themselves run on a card only: tests/test_torch_cuda.py."""
 
 import jax
@@ -140,21 +141,56 @@ def _plain_vs_jax(kernel, shape, seed):
         np.testing.assert_allclose(g.numpy(), w, atol=tol, rtol=1e-4)
 
 
+def _group_rays(R, S, tm):
+    """render_field.cu::group_rays for K4 (one thread per ray): of 1 ..
+    min(8, R), the count whose G*S points leave the smallest share of padded
+    rows in their last tm-point tile (the fewest rays on a tie)."""
+    best, best_pad = 1, 1.0
+    for g in range(1, min(8, R) + 1):
+        padded = -(-g * S // tm) * tm
+        pad = (padded - g * S) / padded
+        if pad < best_pad:
+            best, best_pad = g, pad
+    return best
+
+
+def _sigma_walk(alpha, R, S, tm):
+    """K4's composite_kernel on per-point alpha [R*S]: G rays per block, their
+    points in tm-point tiles, one thread per ray walking its rows of each tile
+    in sample order with T carried across tiles (the kernel's index math)."""
+    out = torch.empty(R * S)
+    G = _group_rays(R, S, tm)
+    for ray0 in range(0, R, G):
+        nr, q0 = min(G, R - ray0), ray0 * S
+        n = nr * S
+        T = [1.0] * nr
+        for p0 in range(0, n, tm):
+            nv = min(tm, n - p0)
+            for g in range(nr):
+                for i in range(max(g * S - p0, 0), min((g + 1) * S - p0, nv)):
+                    a = alpha[q0 + p0 + i]
+                    out[q0 + p0 + i] = a * T[g]
+                    T[g] = float(torch.tensor(T[g]) * ((1.0 - a) + 1e-10))
+    return out.reshape(R, S)
+
+
 def _emulate(packed, pts, vd, z, rd, heads):
     """The CUDA kernel's math on the packed buffers, with the offsets read
-    from packed.meta exactly as csrc/render_field.cu's Meta struct does."""
+    from packed.meta exactly as csrc/render_field.cu's Meta struct does, and
+    every activation rounded to the packed dtype (bf16, or f32: not at all)."""
     m = [int(v) for v in packed.meta]
     D, W, skip, XP, DP, CP, C, F, FV = m[:9]
     off_t = m[9:9 + D]
     off_rgbf, off_rh, off_insf, off_ih, off_out = m[25:30]
     bt, brgbf, brh, binsf, bih, bo = m[30:36]
     w, b = packed.w.float(), packed.b
+    tm = 128 if packed.w.dtype == torch.bfloat16 else 64    # csrc core::TM
 
     def mat(off, k, n):
         return w[off:off + k * n].reshape(k, n)
 
     def bf(t):
-        return t.bfloat16().float()
+        return t.to(packed.w.dtype).float()
 
     def pe(x, f, width):
         e = positional_encoding(x, f)
@@ -169,7 +205,8 @@ def _emulate(packed, pts, vd, z, rd, heads):
     dists = sample_dists(z, rd)
     if heads == "sigma":
         sigma = (h @ mat(off_out, 2 * W, CP)[W:])[:, 3] + b[bo + 3]
-        return alpha_weights(sigma.reshape(R, S), dists)
+        alpha = 1.0 - torch.exp(-torch.relu(sigma) * dists.reshape(-1))
+        return _sigma_walk(alpha, R, S, tm)
     d = pe(vd.expand(R, S, 3).reshape(-1, 3), FV, DP)
     rgb_f = bf(h @ mat(off_rgbf, W, W) + b[brgbf:brgbf + W])
     rgb_h = bf(torch.relu(torch.cat([rgb_f, d], -1) @ mat(off_rh, W + DP, W // 2)
@@ -183,18 +220,27 @@ def _emulate(packed, pts, vd, z, rd, heads):
     return rgb, (wts * z).sum(1), (wts[..., None] * raw[..., 4:]).sum(1)
 
 
+@pytest.mark.parametrize("prec", ["bf16", "f32"])
 @pytest.mark.parametrize("over", [{}, {"netdepth": 4, "skip": 2, "ins_num": 11}])
-def test_packing_emulation_matches_plain_version(over):
-    """pack_field's layout + the kernel's offsets reproduce the plain bf16
-    path. Both round at the same places; zero padding adds exact zeros, but a
-    different f32 summation order can flip one bf16 ulp of an activation
-    (2^-8 relative) that later layers carry: 2e-2 abs at most, and the median
-    error at f32 rounding level."""
-    _, _, field = _field(torch.bfloat16, seed=2, **over)
+def test_packing_emulation_matches_plain_version(over, prec):
+    """pack_field's layout + the kernel's offsets reproduce the plain path,
+    in each build's dtype. Both round at the same places; zero padding adds
+    exact zeros, but a different f32 summation order can flip one bf16 ulp
+    of an activation (2^-8 relative) that later layers carry: in bf16 2e-2
+    abs at most, and the median error at f32 rounding level; in f32 nothing
+    is rounded below f32, so only the summation order differs: 1e-5 abs. 70
+    samples per ray put K4's rays across its tiles (7 rays per block of
+    128-point tiles in bf16, 8 of 64-point tiles in f32)."""
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[prec]
+    _, _, field = _field(dtype, seed=2, **over)
     packed = krf.pack_field(field)
-    assert packed.w.dtype == torch.bfloat16 and packed.b.dtype == torch.float32
+    assert packed.w.dtype == dtype and packed.b.dtype == torch.float32
     assert len(packed.meta) == 36
-    pts, vd, z, rd = _t(*_rays(R=8, S=70))   # K4's two 64-point sub-tiles; rays across K3's tiles
+    R, S = 8, 70
+    tm = {"bf16": 128, "f32": 64}[prec]
+    G = _group_rays(R, S, tm)
+    assert G > 1 and -(-G * S // tm) > 1             # several rays and tiles per block
+    pts, vd, z, rd = _t(*_rays(R=R, S=S))
     with torch.no_grad():
         pairs = [(_emulate(packed, pts, vd, z, rd, "sigma"),
                   krf.render_field_sigma_ref(field, pts, z, rd))]
@@ -202,11 +248,15 @@ def test_packing_emulation_matches_plain_version(over):
                           krf.render_field_all_ref(field, pts, vd, z, rd)))
     for got, want in pairs:
         err = (got - want).abs()
-        assert err.max() <= 2e-2 and err.median() <= 1e-6, (err.max(), err.median())
+        if prec == "bf16":
+            assert err.max() <= 2e-2 and err.median() <= 1e-6, (err.max(), err.median())
+        else:
+            assert err.max() <= 1e-5, err.max()
 
 
-def test_cpu_wrappers_take_the_plain_version_without_launching():
-    cfg_j, params, field = _field(torch.bfloat16)
+@pytest.mark.parametrize("prec", ["bf16", "f32"])
+def test_cpu_wrappers_take_the_plain_version_without_launching(prec):
+    cfg_j, params, field = _field({"bf16": torch.bfloat16, "f32": torch.float32}[prec])
     pts, vd, z, rd = _t(*_rays())
     krf.reset_launches()
     with torch.no_grad():
@@ -219,7 +269,8 @@ def test_cpu_wrappers_take_the_plain_version_without_launching():
             torch.testing.assert_close(krf.render_field_ins(p, pts, z, rd),
                                        krf.render_field_ins_ref(field, pts, z, rd))
     assert krf.LAUNCHES == {"render_field_sigma": 0, "render_field_all": 0,
-                            "render_field_ins": 0}
+                            "render_field_ins": 0, "render_field_sigma_f32": 0,
+                            "render_field_all_f32": 0, "render_field_ins_f32": 0}
 
 
 def test_wrapper_validation_rejects_what_the_kernel_does_not_take():
@@ -228,8 +279,11 @@ def test_wrapper_validation_rejects_what_the_kernel_does_not_take():
     packed = krf.pack_field(field)
     pts, vd, z, rd = _t(*_rays())
     krf._check(packed, pts, z, rd, vd)            # the accepted form
-    with pytest.raises(NotImplementedError):      # only bf16 has a kernel
-        krf._check(krf.pack_field(f32_field), pts, z, rd, vd)
+    f32_packed = krf.pack_field(f32_field)        # each precision has its build
+    krf._check(f32_packed, pts, z, rd, vd)
+    assert (krf.build_of(packed, "x"), krf.build_of(f32_packed, "x")) == ("", "_f32")
+    with pytest.raises(TypeError, match="no kernel build for weights of torch.float16"):
+        krf._check(packed._replace(w=packed.w.half()), pts, z, rd, vd)
     with pytest.raises(ValueError):
         krf._check(packed, pts[:, :4], z, rd)
     with pytest.raises(ValueError):
@@ -244,14 +298,18 @@ def test_wrapper_validation_rejects_what_the_kernel_does_not_take():
         krf.render_field_ins(packed, pts.to("meta"), z, rd)
     with pytest.raises(ValueError):
         krf.make_render_field(field.cfg, heads="rgb")
+    # a field of one precision is refused by the render field built for the
+    # other, and taken by its own
     with pytest.raises(ValueError):
         krf.make_render_field(f32_field.cfg, heads="sigma")(field, pts, z, rd)
-    # K5 takes no view directions, and only bf16 has a kernel
+    krf.make_render_field(f32_field.cfg, heads="sigma")(f32_packed, pts, z, rd)
+    # K5 takes no view directions
     rf_ins = krf.make_render_field(field.cfg, heads="ins")
     with pytest.raises(TypeError):
         rf_ins(field, pts, vd, z, rd)
     with pytest.raises(ValueError):
         krf.make_render_field(f32_field.cfg, heads="ins")(field, pts, z, rd)
+    krf.make_render_field(f32_field.cfg, heads="ins")(f32_packed, pts, z, rd)
     # the limits every field kernel shares (check_kernel_shape): the output
     # columns 4+ins_num+1 pad to at most 128 at any width, so ins_num 64 and
     # 123 are taken at width 256, 65 at 128 (replica64_stress) and 123 at 64,
