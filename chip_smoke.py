@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA card (H100, sm_90a): the render
-path (kernels K3/K4), the training step (kernels K1/K2) and the edit path
-(kernels K1/K5), each in bf16 and, through the kernels' f32 builds, in f32.
+path (kernels K3/K4), the training step (kernels K1/K2), the edit path
+(kernels K1/K5) and mesh extraction (kernels K1, K4/K3), each in bf16 and,
+through the kernels' f32 builds, in f32.
 
     python3 chip_smoke.py
 
@@ -45,7 +46,9 @@ Phases (each fails the run by raising; nothing is caught):
    bf16) for 30 steps with one in-train eval; every printed loss finite, K1
    and K2 launched twice per step each, the final NNNNNN.tar rendered by
    dmnerf_torch.cli.test --render, and two 3-step runs from one seed ending
-   with bit-identical parameters.
+   with bit-identical parameters. 7b: the field that phases 12 and 13 mesh,
+   cli.train on boxroom128x8 at flagship width for MESH_STEPS steps (2 K1
+   and 2 K2 launches each).
 8. training throughput at bench.py's train workload (bench.py:56-82: K=32 on
    the subdivided boxroom labels, penalizer on; flags and scene through
    dmnerf_torch.cli.train's loader): ms/step and rays/s over 20
@@ -79,7 +82,20 @@ Phases (each fails the run by raising; nothing is caught):
    peak device memory of K2's f32 build; then through the entry points: dmnerf_torch.cli.train for
    3 steps, dmnerf_torch.cli.test --render of its .tar and a
    manipulator_eval, each launching only f32 builds, as many as the bf16
-   runs launch bf16 ones.
+   runs launch bf16 ones; and dmnerf_torch.cli.test --mesh of phase 7b's
+   field in f32 at grid 64, launching only the f32 builds of K1, K4 and K3.
+13. the mesh slice through its entry point: dmnerf_torch.cli.test --mesh of
+   phase 7b's field at the default grid 256, extents 12,12,12 (the verify
+   skill's): both PLY files, a non-empty mesh, at least 2 labels,
+   ceil(256^3 / DENSITY_BATCH) launches of K1, ceil(V / N_test) of K4 and of
+   K3, none of K2 or K5; the seconds of every stage (scene, checkpoint,
+   grid, host->device, density and K1's share of it by CUDA events,
+   marching cubes native or numpy, cleanup, normals and vertex rays, labels,
+   PLY writes), V and F. Then the labels of the first N_test vertex rays
+   against the plain unfused route (98%, phase 4b's bar), a 589,824-point
+   slice of the grid through K1 against the plain forward (RAW_COL_TOL,
+   RAW_L2_TOL), the grid's sigma and its share above the iso level, and the
+   density query at 2^19, 2^21 and 2^23 points per launch.
 Phases 3, 6, 9 and 12 also print each kernel's bound (the larger of its
 operations over the peak of its type, bf16 tensor cores or fp32 CUDA cores,
 and its bytes over the memory rate), its TFLOP/s and its share of the bound.
@@ -173,6 +189,11 @@ F32_STEP = 1e-3
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# steps of phase 7b's training: enough for boxroom128x8's walls and boxes to
+# reach the mesh's iso level 0.45, sigma > -ln(0.55) * 128 / 11 = 6.96 at
+# N_importance 128 and near/far 1/12. On an NVIDIA H100 (700 W) the 400-step
+# field gave 1,819,582 faces at 256^3 (sigma up to ~10).
+MESH_STEPS = 400
 # the render kernels' f32 launch counts, in a run that launches only bf16 ones
 F32_NONE = {"render_field_sigma_f32": 0, "render_field_all_f32": 0, "render_field_ins_f32": 0}
 
@@ -603,13 +624,18 @@ def main():
     for k in kernels:
         if k["name"] in train_launches:
             k["launches"] = train_launches[k["name"]]
-    train_throughput(dev, card)
+    with tempfile.TemporaryDirectory() as mesh_tmp:
+        mesh_cfg = mesh_field(dev, mesh_tmp)
+        train_throughput(dev, card)
 
-    kernels.append(ins_kernel_vs_plain(fine, pf, pts_f, vd, z_f, rd, card))
-    kernels[-1]["k64"] = k64["render_field_ins"]
-    kernels[-1]["launches"] = edit_slice(dev)["render_field_ins"]
-    edit_throughput(dev, card, cfg, {"coarse": coarse, "fine": fine})
-    kernels += f32_builds(dev, card, ro, rd, vd, z_c, z_f)
+        kernels.append(ins_kernel_vs_plain(fine, pf, pts_f, vd, z_f, rd, card))
+        kernels[-1]["k64"] = k64["render_field_ins"]
+        kernels[-1]["launches"] = edit_slice(dev)["render_field_ins"]
+        edit_throughput(dev, card, cfg, {"coarse": coarse, "fine": fine})
+        kernels += f32_builds(dev, card, ro, rd, vd, z_c, z_f, mesh_cfg)
+        mesh_launches = mesh_slice(dev, card, mesh_cfg)
+    for k in kernels:                   # the f32 entries hold phase 12's mesh launches
+        k["launches"] += mesh_launches.get(k["name"], 0)
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "dmnerf_tpu"))
     if loaded:
@@ -1086,10 +1112,11 @@ def held_f32(name, got, want, sigma_last=None):
     return worst
 
 
-def f32_builds(dev, card, ro, rd, vd, z_c, z_f):
+def f32_builds(dev, card, ro, rd, vd, z_c, z_f, mesh_cfg):
     """Phase 12: the f32 builds of K1-K5 against their plain f32 versions,
-    then the train, render and edit paths in f32 through their entry points.
-    Returns the kernels-line entries of the f32 builds."""
+    then the train, render, edit and mesh paths in f32 through their entry
+    points (the mesh of phase 7b's field, mesh_cfg). Returns the kernels-line
+    entries of the f32 builds."""
     from dmnerf_torch.cli import test as cli_test
     from dmnerf_torch.cli import train as cli_train
     from dmnerf_torch.edit import runner
@@ -1098,7 +1125,8 @@ def f32_builds(dev, card, ro, rd, vd, z_c, z_f):
     from dmnerf_torch.models.fields import FieldConfig, init_field_params
 
     phase("12 the f32 builds vs their plain f32 versions (flagship 8x256, K=32, 4096 rays; "
-          "3072 rays x 64 / x 192), then cli.train, cli.test --render and an edit in f32")
+          "3072 rays x 64 / x 192), then cli.train, cli.test --render, an edit and "
+          "cli.test --mesh in f32")
     cfg = FieldConfig(**FLAGSHIP, ins_num=32, compute_dtype=torch.float32)
     gen = torch.Generator().manual_seed(12)
     coarse, fine = (init_field_params(gen, cfg, device=dev).eval() for _ in range(2))
@@ -1197,6 +1225,7 @@ def f32_builds(dev, card, ro, rd, vd, z_c, z_f):
         torch.cuda.synchronize()
         got = {k: v for k, v in {**kf.LAUNCHES, **krf.LAUNCHES}.items() if v}
         print(f"{what} in f32: {time.perf_counter() - t0:.1f} s; launches {got}")
+        want = want(out) if callable(want) else want
         if got != want:
             raise AssertionError(f"{what} in f32: launches {got}, expected {want}")
         return out, got
@@ -1239,8 +1268,24 @@ def f32_builds(dev, card, ro, rd, vd, z_c, z_f):
         print(f"f32 edit: PSNR {table[:, 0]}")
         if not np.isfinite(table[:, 0]).all() or not np.isfinite(res[0]):
             raise AssertionError("f32 edit: PSNR not finite")
+
+    def mesh_launches(savedir):
+        from dmnerf_torch.mesh.extract import DENSITY_BATCH
+        from dmnerf_torch.mesh.ply import read_ply
+        verts, faces = read_ply(os.path.join(savedir, "color_mesh.ply"))
+        n = -(-len(verts) // 4096)
+        print(f"f32 mesh at grid 64: {len(verts)} vertices, {len(faces)} faces")
+        if not len(faces):
+            raise AssertionError("f32 mesh: empty")
+        return {"field_forward_f32": -(-64 ** 3 // DENSITY_BATCH),
+                "render_field_sigma_f32": n, "render_field_all_f32": n}
+    _, mesh_l = counted("cli.test --mesh at grid 64", lambda: cli_test.main(
+        ["--config", mesh_cfg, "--mesh", "--mesh_grid_dim", "64", "--mesh_extents", "12,12,12",
+         "--precision", "f32", "--device", "cuda"]), mesh_launches)
     for entry in entries:
-        entry["launches"] = {**edit_l, **render_l, **train_l}[entry["name"]]   # K1: the train run's
+        # K1: the train run's; every kernel: the mesh run's on top
+        entry["launches"] = ({**edit_l, **render_l, **train_l}[entry["name"]]
+                             + mesh_l.get(entry["name"], 0))
     return entries
 
 
@@ -1475,6 +1520,192 @@ def edit_throughput(dev, card, cfg, params):
         ms, gib = per_image(SimpleNamespace(**{**vars(bench), "N_test": chunk}), 128, 128, K128,
                             poses[:4])
         print(f"  N_test {chunk}: {ms:.2f} ms/image, peak device memory {gib:.2f} GiB ({card})")
+
+
+def mesh_field(dev, tmp):
+    """Phase 7b: the field that phases 12 and 13 mesh, trained through
+    dmnerf_torch.cli.train. Returns its config file."""
+    from dmnerf_torch.cli import train as cli_train
+    from dmnerf_torch.kernels import field as kf
+
+    phase(f"7b the field the mesh phases use: dmnerf_torch.cli.train (boxroom128x8, flagship, "
+          f"N_train 3072, 64+128 samples, penalizer, bf16, {MESH_STEPS} steps)")
+    path = train_cfg(tmp, "mesh", MESH_STEPS - 1, [f"i_print = {MESH_STEPS // 4}",
+                                                   f"i_save = {MESH_STEPS}", "i_test = 0"])
+    kf.reset_launches()
+    t0 = time.perf_counter()
+    cli_train.main(["--config", path, "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kf.LAUNCHES.items() if v}
+    lines = [json.loads(l) for l in open(os.path.join(tmp, "mesh", "run", "metrics.jsonl"))]
+    print(f"cli train, {MESH_STEPS} steps: {time.perf_counter() - t0:.1f} s; launches "
+          f"{launches}; last metrics {lines[-1]}")
+    if launches != {"field_forward": 2 * MESH_STEPS, "field_backward": 2 * MESH_STEPS}:
+        raise AssertionError(f"mesh field training: launches {launches}")
+    if not np.isfinite([l[k] for l in lines for k in ("total_loss", "psnr_fine")]).all():
+        raise AssertionError(f"mesh field training: a printed loss is not finite: {lines}")
+    return path
+
+
+def mesh_slice(dev, card, path):
+    """Phase 13: dmnerf_torch.cli.test --mesh of phase 7b's field at grid
+    256, with the seconds of each stage; then its labels against the plain
+    route, a slice of its grid through K1 against the plain forward, and the
+    density batch sweep. Returns the launch counts of the CLI run."""
+    from dmnerf_torch import native
+    from dmnerf_torch.cli import test as cli_test
+    from dmnerf_torch.kernels import field as kf
+    from dmnerf_torch.kernels import render_field as krf
+    from dmnerf_torch.mesh import extract
+    from dmnerf_torch.models.fields import FieldConfig
+
+    phase("13 slice: dmnerf_torch.cli.test --mesh (phase 7b's field, flagship, K=4, bf16, "
+          "grid 256, extents 12,12,12)")
+    t0 = time.perf_counter()
+    native_ok = native.load() is not None
+    print(f"native marching module (g++ on native/marching.cpp unless build/native/ holds a "
+          f"current one): {'loaded' if native_ok else 'NOT built, the numpy path runs'} in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    stages, seen, k1_events = {}, {}, []
+
+    def timed(name, fn, keep=False):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            stages[name] = stages.get(name, 0.0) + time.perf_counter() - t
+            if keep:
+                seen[name] = (a, out)
+            return out
+        return wrapper
+
+    def to_device(a, device):
+        name = "host->device (grid)" if len(a) == 256 ** 3 else "host->device (rays)"
+        return timed(name, originals["to_device"])(a, device)
+
+    def k1(*a, **k):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = originals["field_forward"](*a, **k)
+        e1.record()
+        k1_events.append((e0, e1))
+        return out
+
+    def density_fn(*a, **k):
+        return timed("density (host->device, K1, column 3 back)",
+                     originals["make_density_fn"](*a, **k))
+
+    def label_fn(*a, **k):
+        return timed("labels (host->device, K4 + K3, argmax back)",
+                     originals["make_label_fn"](*a, **k), keep=True)
+
+    patches = {(cli_test, "load_dataset"): lambda fn: timed("scene (generated)", fn),
+               (cli_test, "load_fields"): lambda fn: timed("checkpoint", fn),
+               (extract, "grid_within_bound"): lambda fn: timed("grid", fn),
+               (extract, "to_device"): lambda fn: to_device,
+               (extract, "field_forward"): lambda fn: k1,
+               (extract, "make_density_fn"): lambda fn: density_fn,
+               (extract, "marching_cubes"): lambda fn: timed("marching cubes", fn),
+               (extract, "clean_mesh"): lambda fn: timed("cleanup", fn, keep=True),
+               (extract, "vertex_rays"): lambda fn: timed("normals and vertex rays", fn),
+               (extract, "make_label_fn"): lambda fn: label_fn,
+               (extract, "write_ply"): lambda fn: timed("PLY writes", fn)}
+    originals = {name: getattr(mod, name) for mod, name in patches}
+    kf.reset_launches()
+    krf.reset_launches()
+    for (mod, name), patch in patches.items():
+        setattr(mod, name, patch(originals[name]))
+    try:
+        t0 = time.perf_counter()
+        savedir = cli_test.main(["--config", path, "--mesh", "--mesh_extents", "12,12,12",
+                                 "--device", "cuda"])
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        for mod, name in patches:
+            setattr(mod, name, originals[name])
+    launches = {k: v for k, v in {**kf.LAUNCHES, **krf.LAUNCHES}.items() if v}
+    verts, faces, _ = seen["cleanup"][1]
+    (_, rays_o, rays_d), labels = seen["labels (host->device, K4 + K3, argmax back)"]
+    V, F = len(verts), len(faces)
+    k1_ms = sum(a.elapsed_time(b) for a, b in k1_events)
+    print(f"cli test --mesh: {total:.3f} s in all (the scene's generation and the "
+          f"checkpoint included); V {V}, F {F} after cleanup; {len(np.unique(labels))} labels "
+          f"{np.bincount(labels).tolist()}; launches {launches} ({card})")
+    print(f"stages (host clock, each ending in a device sync; {card}):")
+    for name, secs in stages.items():
+        print(f"  {name}: {secs:.3f} s")
+    print(f"  K1 inside density: {k1_ms / 1e3:.3f} s by CUDA events ({len(k1_events)} launches)")
+    print(f"  marching cubes path: {'native (C++)' if native_ok else 'numpy'}")
+    print(f"  the rest (config, axis swap, occupancy, transforms, Python): "
+          f"{total - sum(stages.values()):.3f} s")
+    plys = sorted(f for f in os.listdir(savedir) if f.endswith(".ply"))
+    want = {"field_forward": -(-256 ** 3 // extract.DENSITY_BATCH),
+            "render_field_sigma": -(-V // 4096), "render_field_all": -(-V // 4096)}
+    if plys != ["color_mesh.ply", "mesh.ply"] or F == 0 or len(np.unique(labels)) < 2:
+        raise AssertionError(f"mesh: PLYs {plys}, {F} faces, labels {np.unique(labels)}")
+    if launches != want:
+        raise AssertionError(f"mesh: launches {launches}, expected {want}")
+
+    # the labels of the first N_test vertex rays through the plain unfused route
+    cfg = FieldConfig(**FLAGSHIP, ins_num=SYNTHETIC_INS_NUM)
+    params, _ = cli_test.load_fields(cli_test.latest_tar(os.path.dirname(savedir)), cfg, dev)
+    args = SimpleNamespace(N_samples=64, N_importance=128)
+    plain = extract.make_label_fn(cfg, args, 4096, device=dev, use_pallas=False)(
+        params, rays_o[:4096], rays_d[:4096])
+    agree = float((plain == labels[:4096]).mean())
+    print(f"labels of the first 4096 vertex rays: kernels vs the plain unfused route agree on "
+          f"{agree:.4f} (bar 0.98)")
+    if agree < 0.98:
+        raise AssertionError("mesh labels through K4 + K3 disagree with the plain route")
+
+    # the density grid as extract_mesh makes it, on the card
+    grid, _ = extract.grid_within_bound([-1.0, 1.0], np.full(3, 12.0), np.eye(4), 256)
+    q = np.ascontiguousarray(grid[:, [0, 2, 1]], np.float32)
+    q[:, 1] *= -1
+    del grid
+    fine = params["fine"]
+    with torch.no_grad():
+        mid = q.shape[0] // 2
+        pts = torch.from_numpy(q[mid:mid + 589824]).to(dev)
+        vd = torch.zeros_like(pts)
+        raw_k = kf.field_forward(krf.pack_field(fine), pts, vd)
+        raw_p = kf.field_forward_ref(fine, pts, vd)
+        torch.cuda.synchronize()
+    col, l2 = raw_errors(raw_k, raw_p)
+    print(f"K1 on 589,824 grid points vs the plain forward: worst column {col:.3e} of its "
+          f"max|raw| (tolerance {RAW_COL_TOL:.0e}), relative L2 {l2:.3e} (tolerance "
+          f"{RAW_L2_TOL:.0e}); sigma max {float(raw_p[:, 3].max()):.2f}")
+    if col > RAW_COL_TOL or l2 > RAW_L2_TOL or not bool(torch.isfinite(raw_k).all()):
+        raise AssertionError("K1 on the density grid disagrees with its plain version")
+    del raw_k, raw_p, pts, vd
+
+    # the density query by points per launch, in turns 19 21 23 23 21 19
+    sweep = {}
+    for b in (19, 21, 23, 23, 21, 19):
+        query = extract.make_density_fn(cfg, 1 << b, device=dev, use_pallas=True)
+        k1_events.clear()
+        extract.field_forward = k1
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sigma = query(fine, q)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            extract.field_forward = originals["field_forward"]
+        ms = sum(a.elapsed_time(b2) for a, b2 in k1_events)
+        best = sweep.get(b, (secs, ms))
+        sweep[b] = (min(secs, best[0]), min(ms, best[1]))
+    occ = 1.0 - np.exp(-np.maximum(sigma, 0.0) * 11.0 / 128)      # far - near over N_importance
+    print(f"the grid's sigma: max {sigma.max():.2f}, 99th percentile {np.quantile(sigma, 0.99):.2f}; "
+          f"{(occ > 0.45).mean():.4f} of the points above the iso level 0.45")
+    for b, (secs, ms) in sorted(sweep.items()):
+        print(f"density query at 2^{b} points per launch ({-(-256 ** 3 // (1 << b))} launches): "
+              f"{secs:.3f} s, K1 {ms:.3f} ms by CUDA events (the better of two; {card})")
+    return launches
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """Test CLI of the port: `python -m dmnerf_torch.cli.test --config ...` with
---render, --mani_eval or --mani_demo.
+--render, --mani_eval, --mani_demo or --mesh.
 
-Mirrors dmnerf_tpu/cli/test.py for those modes. Flags and config files are
+Mirrors dmnerf_tpu/cli/test.py. Flags and config files are
 the JAX package's (copied into dmnerf_torch.config), plus --device (default cuda; a CUDA
 device that is not there is an error, never a silent move to the CPU). The
 weights come from {basedir}/{expname}/{log_time}/NNNNNN.tar in the reference
@@ -10,7 +10,9 @@ checkpoint becomes such a file through tools/export_torch_ckpt.py.
 
 --mani_eval reads the DM-SR manipulation ground truth (data/dmsr_mani.py) and
 --mani_demo the DM-SR objs_info files (data/dmsr.py); both loaders need
-imageio and h5py. --mesh is not ported yet and raises.
+imageio and h5py. --mesh writes mesh_NNNNNN/{expname}.ply and
+color_{expname}.ply (mesh/extract.py), in the bounds of
+{datadir}/{expname}.ply where that file exists, else of --mesh_extents.
 """
 
 from __future__ import annotations
@@ -27,11 +29,6 @@ from dmnerf_torch.eval.renderer import make_image_renderer
 from dmnerf_torch.eval.tester import render_test
 from dmnerf_torch.models.convert import load_tar
 from dmnerf_torch.models.fields import DMNeRFField, FieldConfig
-
-_NOT_PORTED = {
-    "mesh": "ROADMAP.md queue 1, item 8 (mesh)",
-}
-
 
 def _resolve_test_model(ldir: str, test_model: str):
     """--test_model ('200000.tar' or '200000') -> the .tar path, or None when
@@ -97,9 +94,6 @@ def main(argv=None):
     ns, rest = pre.parse_known_args(argv)
     device = resolve_device(ns.device)
     args = initial(rest)
-    for flag, item in _NOT_PORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} is not ported to dmnerf_torch yet: {item}")
     args.is_train = False
     args.perturb = 0.0
 
@@ -164,6 +158,17 @@ def main(argv=None):
                          scene.ins_rgbs, scene.objs, scene.view_poses, scene.ins_map, args,
                          color_dict=_color_dict(args), device=device)
         print("Manipulating Demo Done", savedir)
+        return savedir
+
+    if args.mesh:
+        from dmnerf_torch.mesh.extract import extract_mesh
+        savedir = os.path.join(ldir, f"mesh_{iteration:06d}")
+        os.makedirs(savedir, exist_ok=True)
+        ply_path = os.path.join(args.datadir, args.expname + ".ply")
+        extract_mesh(params, cfg, args, ply_path if os.path.exists(ply_path) else None,
+                     savedir, ins_rgbs=scene.ins_rgbs, color_dict=_color_dict(args),
+                     ins_map=scene.ins_map, device=device)
+        print("Meshing Done", savedir)
         return savedir
     return None
 

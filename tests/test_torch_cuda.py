@@ -2,8 +2,9 @@
 the render kernels K3/K4, the edit kernel K5 and the training kernels K1/K2
 (up to ins_num 123 at width 256, 128 and 64), K3 and K5 against the composite of K1's
 raw at shapes whose rays cross tiles and blocks, K4 at every grouping of
-rays, the f32 builds of K1-K5 against the plain f32 path, and the edit
-path's launches of K1 and K5.
+rays, the f32 builds of K1-K5 against the plain f32 path, the edit
+path's launches of K1 and K5, and the mesh path's density query (K1) and
+vertex labels (K4 + K3).
 
 Imports no jax, so the machine with the card runs it without the JAX package's
 conftest:  python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -314,3 +315,73 @@ def test_edit_launches_k1_and_k5_per_chunk():
                             "render_field_ins": 3 * 3, **F32_UNUSED}
     assert rgb.shape == (192, 3) and torch.isfinite(rgb).all() and torch.isfinite(conf).all()
     assert int(label.min()) >= 0 and int(label.max()) <= scene.ins_num
+
+
+def _flagship_pair(seed, ins_num=4):
+    cfg = FieldConfig(netdepth=8, netwidth=256, multires=10, multires_views=4,
+                      ins_num=ins_num)
+    g = torch.Generator().manual_seed(seed)
+    return cfg, {k: init_field_params(g, cfg, device="cuda").eval() for k in ("coarse", "fine")}
+
+
+@pytest.mark.cuda
+def test_mesh_density_query_through_k1():
+    """The mesh path's density query at the flagship width on a 64^3 grid
+    (extents 8) through K1, 2^16 points per launch, against
+    DMNeRFField.forward on the card: the sigma column's max error within 3%
+    of its max |sigma| and its relative L2 error within 5e-3 (chip_smoke.py's
+    RAW_COL_TOL and RAW_L2_TOL for K1's raw)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from dmnerf_torch.mesh.extract import make_density_fn
+    from dmnerf_torch.mesh.grid import grid_within_bound
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params = _flagship_pair(7)
+    grid, _ = grid_within_bound([-1.0, 1.0], np.full(3, 8.0), np.eye(4), 64)
+    grid = grid.astype(np.float32)
+    kf.reset_launches()
+    got = make_density_fn(cfg, 1 << 16, device="cuda", use_pallas=True)(params["fine"], grid)
+    assert kf.LAUNCHES["field_forward"] == 64 ** 3 // (1 << 16)
+    want = make_density_fn(cfg, 1 << 16, device="cuda", use_pallas=False)(params["fine"], grid)
+    assert kf.LAUNCHES["field_forward"] == 64 ** 3 // (1 << 16)
+    assert got.shape == want.shape == (64 ** 3,) and np.isfinite(got).all()
+    assert np.abs(got - want).max() <= 3e-2 * np.abs(want).max()
+    assert np.linalg.norm(got - want) <= 5e-3 * np.linalg.norm(want)
+
+
+@pytest.mark.cuda
+def test_mesh_labels_through_k4_and_k3():
+    """The vertex labels through K4 + K3 (the fused route) against the plain
+    unfused route on the same card and rays: the rays of the vertices of the
+    sigma = 0.5 isosurface of a random flagship field on a 32^3 grid (its
+    occupancy at the real voxel stays below the iso level), 256 rays per
+    chunk. Labels agree on at least 98% of the rays (chip_smoke.py phase
+    4b's bar for a render's labels); ceil(V / 256) launches of K4 and of K3,
+    none of K1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from dmnerf_torch.config import default_config
+    from dmnerf_torch.mesh.extract import make_density_fn, make_label_fn, vertex_rays
+    from dmnerf_torch.mesh.grid import grid_within_bound
+    from dmnerf_torch.mesh.marching import marching_cubes
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params = _flagship_pair(0)
+    grid, _ = grid_within_bound([-1.0, 1.0], np.full(3, 8.0), np.eye(4), 32)
+    sigma = make_density_fn(cfg, 1 << 16, device="cuda", use_pallas=False)(
+        params["fine"], grid.astype(np.float32))
+    verts, faces, _ = marching_cubes(sigma.reshape(32, 32, 32), 0.5)
+    assert len(faces) > 100
+    ro, rd = vertex_rays((verts / 31 - 0.5) * 8.0, faces, 1.0)
+    args = default_config(N_samples=64, N_importance=128, near=1.0, far=12.0)
+    kf.reset_launches()
+    krf.reset_launches()
+    got = make_label_fn(cfg, args, 256, device="cuda", use_pallas=True)(params, ro, rd)
+    torch.cuda.synchronize()
+    n = -(-len(ro) // 256)
+    assert kf.LAUNCHES["field_forward"] == 0
+    assert krf.LAUNCHES == {"render_field_sigma": n, "render_field_all": n,
+                            "render_field_ins": 0, **F32_UNUSED}
+    want = make_label_fn(cfg, args, 256, device="cuda", use_pallas=False)(params, ro, rd)
+    assert got.dtype == np.int32 and got.shape == (len(ro),)
+    assert int(got.min()) >= 0 and int(got.max()) < cfg.ins_num
+    assert (got == want).mean() >= 0.98, (got == want).mean()

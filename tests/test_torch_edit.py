@@ -455,5 +455,6 @@ def test_cli_mani_eval_and_demo_on_a_dmsr_fixture(tmp_path, capsys):
     assert sorted(os.listdir(os.path.join(savedir, "rigid"))) == sorted(
         f"{i}_{k}.png" for i in range(2) for k in ("rgb", "ins", "ins_pred_mask"))
     assert "box1" in json.load(open(root / "mani" / "transformation_matrix.json"))
-    with pytest.raises(NotImplementedError):
-        main(["--config", str(cfg), "--mesh", "--device", "cpu"])
+    savedir = main(["--config", str(cfg), "--mesh", "--mesh_grid_dim", "16", "--device", "cpu"])
+    assert savedir == str(ldir / "mesh_000004")
+    assert "Meshing Done" in capsys.readouterr().out

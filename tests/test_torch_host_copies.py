@@ -1,6 +1,6 @@
 """The port's copies of the JAX package's host modules (config, data, edit
-transforms and deform, utils/viz) give what their sources give, and no module
-of the port imports the JAX package.
+transforms and deform, utils/viz, mesh and native) give what their sources
+give, and no module of the port imports the JAX package.
 
 The copies live in dmnerf_torch/ and name their source on their first line;
 each case here runs a source and its copy on the same inputs.
@@ -10,6 +10,7 @@ import ast
 import dataclasses
 import glob
 import os
+import shutil
 import types
 
 import numpy as np
@@ -19,11 +20,23 @@ import dmnerf_torch.config as tcfg
 import dmnerf_torch.data.base as tbase
 import dmnerf_torch.edit.deform as tdeform
 import dmnerf_torch.edit.transforms as ttrans
+import dmnerf_torch.mesh.cleanup as tclean
+import dmnerf_torch.mesh.grid as tgrid
+import dmnerf_torch.mesh.marching as tmarch
+import dmnerf_torch.mesh.mc_tables as ttables
+import dmnerf_torch.mesh.ply as tply
+import dmnerf_torch.native as tnative
 import dmnerf_torch.utils.viz as tviz
 import dmnerf_tpu.config as jcfg
 import dmnerf_tpu.data.base as jbase
 import dmnerf_tpu.edit.deform as jdeform
 import dmnerf_tpu.edit.transforms as jtrans
+import dmnerf_tpu.mesh.cleanup as jclean
+import dmnerf_tpu.mesh.grid as jgrid
+import dmnerf_tpu.mesh.marching as jmarch
+import dmnerf_tpu.mesh.mc_tables as jtables
+import dmnerf_tpu.mesh.ply as jply
+import dmnerf_tpu.native as jnative
 import dmnerf_tpu.utils.viz as jviz
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -147,6 +160,79 @@ def test_dmsr_mani_readers_agree(tmp_path):
     got, want = tmani.load_data(args), jmani.load_data(args)
     for f in dataclasses.fields(want):
         assert _equal(getattr(got, f.name), getattr(want, f.name)), f.name
+
+
+def _volume(kind):
+    """tests/test_mesh.py's volumes: a sphere of radius 10 in 32^3, and a
+    lightly smoothed random 14^3 volume (saddle cases)."""
+    if kind == "sphere":
+        t = np.arange(32) - 16.0
+        x, y, z = np.meshgrid(t, t, t, indexing="ij")
+        return (10.0 - np.sqrt(x ** 2 + y ** 2 + z ** 2)).astype(np.float32)
+    vol = np.random.default_rng(0).normal(size=(14, 14, 14)).astype(np.float32)
+    for ax in range(3):
+        vol = (vol + np.roll(vol, 1, ax) + np.roll(vol, -1, ax)) / 3.0
+    return vol
+
+
+@pytest.mark.parametrize("use_native", [True, False])
+@pytest.mark.parametrize("kind", ["sphere", "random"])
+@pytest.mark.parametrize("fn", ["marching_cubes", "marching_tetrahedra"])
+def test_marching_agrees(fn, kind, use_native):
+    if use_native:
+        if shutil.which("g++") is None:
+            pytest.skip("no g++ to build the native marching module")
+        assert tnative.load() is not None and jnative.load() is not None
+    vol = _volume(kind)
+    got = getattr(tmarch, fn)(vol, 0.0, use_native=use_native)
+    want = getattr(jmarch, fn)(vol, 0.0, use_native=use_native)
+    assert len(got[1]) > 100
+    assert _equal(got, want)
+
+
+def test_native_library_is_built_under_build_native():
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ to build the native marching module")
+    mod = tnative.load()
+    assert mod is not None
+    built = os.path.realpath(mod.__file__)
+    assert os.path.dirname(built) == os.path.join(REPO, "build", "native")
+    assert not glob.glob(os.path.join(REPO, "dmnerf_torch", "**", "*.so"), recursive=True)
+
+
+def test_mesh_tables_and_bounds_agree():
+    assert _equal(ttables.build_tables(), jtables.build_tables())
+    assert _equal(ttables.EDGES, jtables.EDGES)
+    rng = np.random.default_rng(4)
+    cloud = rng.uniform(-1, 1, (500, 3)) * [4.0, 2.0, 1.0] @ np.linalg.qr(
+        rng.normal(size=(3, 3)))[0] + [5.0, -3.0, 2.0]
+    for fn in ("oriented_bounds", "oriented_bounds_pca"):
+        assert _equal(getattr(tgrid, fn)(cloud), getattr(jgrid, fn)(cloud)), fn
+    to_origin, extents = jgrid.oriented_bounds(cloud)
+    assert _equal(tgrid.grid_within_bound([-1.0, 1.0], extents, np.linalg.inv(to_origin), 6),
+                  jgrid.grid_within_bound([-1.0, 1.0], extents, np.linalg.inv(to_origin), 6))
+
+
+def test_clean_mesh_agrees():
+    verts, faces, _ = jmarch.marching_cubes(_volume("random"), 0.0, use_native=False)
+    for min_num_cluster in (5, 40):
+        got = tclean.clean_mesh(verts, faces, min_num_cluster=min_num_cluster)
+        want = jclean.clean_mesh(verts, faces, min_num_cluster=min_num_cluster)
+        assert 0 < len(got[1]) < len(faces) and _equal(got, want)
+
+
+@pytest.mark.parametrize("binary", [True, False])
+@pytest.mark.parametrize("writer", ["torch", "tpu"])
+def test_ply_written_by_one_reads_back_in_the_other(writer, binary, tmp_path):
+    rng = np.random.default_rng(5)
+    v = rng.normal(size=(50, 3)).astype(np.float32)
+    f = rng.integers(0, 50, (30, 3))
+    c = rng.integers(0, 255, (50, 3)).astype(np.uint8)
+    mine, other = (tply, jply) if writer == "torch" else (jply, tply)
+    mine.write_ply(str(tmp_path / "a.ply"), v, f, vertex_colors=c, binary=binary)
+    other.write_ply(str(tmp_path / "b.ply"), v, f, vertex_colors=c, binary=binary)
+    assert (tmp_path / "a.ply").read_bytes() == (tmp_path / "b.ply").read_bytes()
+    assert _equal(other.read_ply(str(tmp_path / "a.ply")), mine.read_ply(str(tmp_path / "a.ply")))
 
 
 def _imports(path):

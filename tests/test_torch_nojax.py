@@ -1,6 +1,6 @@
 """The port imports neither jax, orbax, imageio nor anything of the JAX
-package dmnerf_tpu: `import dmnerf_torch`, its edit modules and a tiny CPU
-render through its CLI, in a fresh interpreter."""
+package dmnerf_tpu: `import dmnerf_torch`, its edit modules, and a tiny CPU
+render, training run and mesh through its CLIs, in a fresh interpreter."""
 
 import json
 import os
@@ -81,3 +81,43 @@ def test_cli_train_loads_no_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out == {"loaded": [], "step": 3, "tar": True}
+
+
+def test_cli_mesh_loads_no_jax(tmp_path):
+    """A tiny CPU run of dmnerf_torch.cli.test --mesh (boxroom8x4, grid 16) in
+    a fresh interpreter loads none of jax, orbax, imageio or dmnerf_tpu and
+    writes both PLY files."""
+    script = textwrap.dedent(f"""
+        import json, os, sys
+        import torch
+        import dmnerf_torch.cli.test as cli
+        from dmnerf_torch.models.convert import save_tar
+        from dmnerf_torch.models.fields import FieldConfig, init_field_params
+
+        cfg = FieldConfig(netdepth=2, netwidth=32, multires=2, multires_views=2, ins_num=4)
+        g = torch.Generator().manual_seed(0)
+        fields = [init_field_params(g, cfg) for _ in range(2)]
+        ldir = os.path.join({str(tmp_path)!r}, "logs", "nj", "run")
+        os.makedirs(ldir)
+        save_tar(os.path.join(ldir, "000001.tar"), fields[0].state_dict(),
+                 fields[1].state_dict(), 1)
+        with open(os.path.join({str(tmp_path)!r}, "c.txt"), "w") as f:
+            f.write("expname = nj\\nbasedir = {tmp_path / 'logs'}\\nlog_time = run\\n"
+                    "datadir = ./data/synthetic/boxroom8x4\\nN_test = 64\\n"
+                    "N_samples = 4\\nN_importance = 4\\nnear = 1.0\\nfar = 12.0\\n"
+                    "netdepth = 2\\nnetwidth = 32\\nmultires = 2\\nmultires_views = 2\\n"
+                    "mesh_grid_dim = 16\\nmesh_extents = 8,8,8\\n")
+        savedir = cli.main(["--config", os.path.join({str(tmp_path)!r}, "c.txt"),
+                            "--mesh", "--device", "cpu"])
+        print(json.dumps({{
+            "loaded": sorted(m for m in sys.modules
+                             if m.split(".")[0] in ("jax", "jaxlib", "orbax", "imageio",
+                                                     "dmnerf_tpu")),
+            "plys": sorted(f for f in os.listdir(savedir) if f.endswith(".ply")),
+        }}))
+    """)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"loaded": [], "plys": ["color_nj.ply", "nj.ply"]}

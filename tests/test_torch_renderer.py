@@ -198,15 +198,15 @@ def test_cli_render_from_converted_tar(tmp_path, capsys):
     assert (json.load(open(os.path.join(savedir, "matching_log.json")))
             == json.load(open(jdir / "matching_log.json")))
 
-    # --test_model picks another .tar; a missing one and the unported --mesh
-    # raise; --mani_eval goes to the DM-SR manipulation loader, which finds
-    # no mani/ folder in the synthetic scene
+    # --test_model picks another .tar; a missing one raises; --mesh writes
+    # mesh_NNNNNN/ for the newest .tar; --mani_eval goes to the DM-SR
+    # manipulation loader, which finds no mani/ folder in the synthetic scene
     assert main(["--config", str(cfg), "--render", "--device", "cpu",
                  "--test_model", "000003.tar"]).endswith("render_test_000003")
     with pytest.raises(FileNotFoundError):
         main(["--config", str(cfg), "--render", "--device", "cpu", "--test_model", "5"])
-    with pytest.raises(NotImplementedError):
-        main(["--config", str(cfg), "--mesh", "--device", "cpu"])
+    assert main(["--config", str(cfg), "--mesh", "--mesh_grid_dim", "16",
+                 "--device", "cpu"]).endswith("mesh_000007")
     with pytest.raises(FileNotFoundError, match="mani"):
         main(["--config", str(cfg), "--mani_eval", "--device", "cpu"])
 
