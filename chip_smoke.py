@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch port on one NVIDIA card (H100, sm_90a): the render
 path (kernels K3/K4), the training step (kernels K1/K2), the edit path
 (kernels K1/K5) and mesh extraction (kernels K1, K4/K3), each in bf16 and,
-through the kernels' f32 builds, in f32.
+through the kernels' f32 builds, in f32; then the reference-format stress
+scenes written, read and run through the CLIs.
 
     python3 chip_smoke.py
 
@@ -96,12 +97,40 @@ Phases (each fails the run by raising; nothing is caught):
    slice of the grid through K1 against the plain forward (RAW_COL_TOL,
    RAW_L2_TOL), the grid's sigma and its share above the iso level, and the
    density query at 2^19, 2^21 and 2^23 points per launch.
+14. reference-format scenes: dmnerf_torch.tools.make_stress_scenes writes
+   the DM-SR stress scene (640x480, 48 train + 4 test views and 4 edited,
+   16 objects) and replica64 (360 frames at 120x160, 64 objects) on the
+   card at the tool's full sizes (the seconds of the GT renders, and the
+   rest: the PNG writes with the JSON, pose and HDF5 files); load_dataset
+   reads both (seconds), with none of imageio, h5py, cv2 or PIL in
+   sys.modules; then through the CLIs, datadir and basedir overridden:
+   dmnerf_torch.cli.train for STRESS_STEPS steps of
+   configs/stress/dmsr_stress.txt (8x256, K=17, 2048 rays, 64+128; ms/step
+   after the first 10), cli.test --render (4 views), --mani_eval (4 views),
+   --mani_demo rigid and deform (mixed, 2 objects) at --views 2 (s/view of
+   each: the whole CLI call over its views), --mesh at 192^3 (V, F,
+   seconds; an empty mesh fails), then STRESS_STEPS steps of
+   replica64_stress.txt (8x128, K=65) and its --render (23 views). After
+   each training run, the trained field at the config's shapes: K1 and K2
+   on one training batch (2048 rays x 64 and x the fine z-union, 192 or
+   128), K4 and K3 on the middle 4096-ray chunk of a test view (x 64, x the
+   fine z-union), and on DM-SR K5 on that chunk (what an edit's
+   accumulated-label pass composites), each against its plain version at
+   phases 3, 6 and 9's bars (stress_kernels_vs_plain). Each CLI run
+   with exact launch counts (2 K1 and 2 K2 per step; ceil(H*W / 4096) K4
+   and K3 per rendered view, and 3 views' worth for resolve_target_label;
+   per edit chunk 2(1+n_obj) K1 and 1+n_obj K5; ceil(192^3 / 2^21) K1 and
+   ceil(V / 4096) K4 and K3 per mesh), and each test_results.txt's PSNR and
+   AP50 (evidence that the path runs, not a quality bar).
 Phases 3, 6, 9 and 12 also print each kernel's bound (the larger of its
 operations over the peak of its type, bf16 tensor cores or fp32 CUDA cores,
 and its bytes over the memory rate), its TFLOP/s and its share of the bound.
 The line before the last is a JSON object with one entry per kernel and
-build (its K=64 reading under "k64"); the last line is {"ok": true, "device":
-{...}}. The run fails if it loaded jax or the JAX package.
+build (its K=64 reading under "k64", its phase-14 errors per config under
+"stress_max_abs_err"; launches summed over the main paths, phase 14's
+included); the line before it is the smoke's total time; the
+last line is {"ok": true, "device": {...}}. The run fails if it loaded jax,
+the JAX package, imageio, h5py, cv2 or PIL.
 """
 
 import json
@@ -459,6 +488,7 @@ def look_at_poses(n, radius=4.0):
 
 
 def main():
+    t_start = time.perf_counter()
     phase("1 card")
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -634,12 +664,17 @@ def main():
         edit_throughput(dev, card, cfg, {"coarse": coarse, "fine": fine})
         kernels += f32_builds(dev, card, ro, rd, vd, z_c, z_f, mesh_cfg)
         mesh_launches = mesh_slice(dev, card, mesh_cfg)
+    scene_launches, scene_errs = reference_scenes(card)
     for k in kernels:                   # the f32 entries hold phase 12's mesh launches
-        k["launches"] += mesh_launches.get(k["name"], 0)
+        k["launches"] += mesh_launches.get(k["name"], 0) + scene_launches.get(k["name"], 0)
+        if k["name"] in scene_errs:     # {config: max abs err} at phase 14's shapes
+            k["stress_max_abs_err"] = scene_errs[k["name"]]
 
-    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "dmnerf_tpu"))
+    loaded = banned_modules()
     if loaded:
-        raise AssertionError(f"the port loaded the JAX package or jax: {loaded}")
+        raise AssertionError(f"the port loaded the JAX package, jax or a banned reader "
+                             f"library: {loaded}")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all ({card})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -693,9 +728,12 @@ def field_cases(dev, ins_num, seed, R, Ss, dtype=torch.bfloat16):
         yield field, packed, pts, vd, pf, dirs, ppd, g
 
 
-def check_field_kernels(case, label):
+def check_field_kernels(case, label, probe=True):
     """K1 and K2 vs their plain versions on one case (see field_case); raises
-    outside the bars. Returns (max abs raw error, max abs gradient error)."""
+    outside the bars. probe: also show that the raw bar rejects an rgb bias
+    off by 10% (a property of the bar at random weights, which phase 6
+    establishes; a trained field's bias may be too small to show it).
+    Returns (max abs raw error, max abs gradient error)."""
     from dmnerf_torch.kernels import field as kf
     field, packed, pts, vd, pf, dirs, ppd, g = case
     with torch.no_grad():
@@ -711,18 +749,20 @@ def check_field_kernels(case, label):
     if raw_k.shape != raw_p.shape or not bool(torch.isfinite(raw_k).all()):
         raise AssertionError("K1: wrong shape or non-finite raw")
     col, l2 = raw_errors(raw_k, raw_p)
-    # the check must see a fault confined to the rgb columns
-    faulty = raw_k.clone()
-    faulty[..., :3] -= 0.1 * field.rgb_linear.bias.detach()
-    _, l2_faulty = raw_errors(faulty, raw_p)
     print(f"K1 {label}: raw max abs err {err.max().item():.3e} (median "
           f"{err.median().item():.3e}); worst column {col:.3e} of its max|raw| "
           f"(tolerance {RAW_COL_TOL:.0e}), relative L2 {l2:.3e} (tolerance "
-          f"{RAW_L2_TOL:.0e}); with the rgb bias off by 10%: {l2_faulty:.3e}")
+          f"{RAW_L2_TOL:.0e})")
     if col > RAW_COL_TOL or l2 > RAW_L2_TOL:
         raise AssertionError("K1 disagrees with its plain version")
-    if l2_faulty <= RAW_L2_TOL:
-        raise AssertionError("the K1 check passes raw with the rgb bias off by 10%")
+    if probe:
+        # the check must see a fault confined to the rgb columns
+        faulty = raw_k.clone()
+        faulty[..., :3] -= 0.1 * field.rgb_linear.bias.detach()
+        _, l2_faulty = raw_errors(faulty, raw_p)
+        print(f"K1 {label}: with the rgb bias off by 10%, relative L2 {l2_faulty:.3e}")
+        if l2_faulty <= RAW_L2_TOL:
+            raise AssertionError("the K1 check passes raw with the rgb bias off by 10%")
     errs, abs_err = grad_errors(field, packed, gk, gp)
     name, e = max(errs.items(), key=lambda kv: kv[1])
     print(f"K2 {label}: worst gradient relative L2 err {e:.3e} ({name}; tolerance "
@@ -1706,6 +1746,285 @@ def mesh_slice(dev, card, path):
         print(f"density query at 2^{b} points per launch ({-(-256 ** 3 // (1 << b))} launches): "
               f"{secs:.3f} s, K1 {ms:.3f} ms by CUDA events (the better of two; {card})")
     return launches
+
+
+
+# phase 14: training steps of each stress config (the configs' own n_iters
+# are 50,000 and 20,000)
+STRESS_STEPS = 300
+# modules the port must not load: the JAX package and the readers' old
+# libraries (data/scannet.py's lazy JPEG import aside)
+BANNED = ("jax", "dmnerf_tpu", "imageio", "h5py", "cv2", "PIL")
+
+
+def banned_modules():
+    return sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
+
+
+def counted(what, want, fn):
+    """fn() with every launch counter at 0 before it; its launches must be
+    exactly `want` (a dict, or a function of fn's result giving one; every
+    other counter 0). Returns (fn's result, seconds, the launches)."""
+    from dmnerf_torch.kernels import field as kf
+    from dmnerf_torch.kernels import render_field as krf
+    kf.reset_launches()
+    krf.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = {k: v for k, v in {**kf.LAUNCHES, **krf.LAUNCHES}.items() if v}
+    want = {k: v for k, v in (want(out) if callable(want) else want).items() if v}
+    print(f"{what}: {secs:.1f} s; launches {got}")
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+    return out, secs, got
+
+
+def stress_kernels_vs_plain(name, args, scene, params, edits):
+    """Phase 14's comparisons on a stress config's trained field, at the
+    config's own width and ins_num, against the plain versions and the bars
+    of phases 3, 6 and 9: K1 and K2 on one training batch (N_train pixels of
+    a training view, the coarse N_samples and the fine z-union of N_samples +
+    N_importance), K4 and K3 on the middle N_test chunk of the first test
+    view, and, where the config is edited, K5 on that chunk's fine z-union
+    (what an edit's accumulated-label pass composites). Returns {kernel: max
+    abs error}."""
+    from dmnerf_torch.core.rays import get_rays
+    from dmnerf_torch.core.sampling import sample_pdf, z_val_sample
+    from dmnerf_torch.kernels import field as kf
+    from dmnerf_torch.kernels import render_field as krf
+
+    dev = torch.device("cuda")
+    coarse, fine = params["coarse"], params["fine"]
+    pc, pf = krf.pack_field(coarse), krf.pack_field(fine)
+    H, W, K = scene.hwk
+    rng = np.random.default_rng(14)
+
+    def rays(i):
+        ro, rd = get_rays(H, W, torch.as_tensor(K, dtype=torch.float32, device=dev),
+                          torch.as_tensor(scene.poses[i], dtype=torch.float32, device=dev))
+        return ro.reshape(-1, 3), rd.reshape(-1, 3)
+
+    def fine_z(ro, rd, z_c):
+        with torch.no_grad():
+            w = krf.render_field_sigma_ref(coarse, ro[:, None] + rd[:, None] * z_c[..., None],
+                                           z_c, rd)
+        z_s = sample_pdf(0.5 * (z_c[:, 1:] + z_c[:, :-1]), w[:, 1:-1], args.N_importance,
+                         det=True)
+        return torch.sort(torch.cat([z_c, z_s], -1), -1)[0].contiguous(), w
+
+    errs = {}
+    ro, rd = rays(scene.i_train[0])
+    pick = torch.as_tensor(rng.choice(H * W, args.N_train, replace=False), device=dev)
+    ro, rd = ro[pick], rd[pick]
+    vd = (rd / torch.linalg.norm(rd, dim=-1, keepdim=True))[:, None].contiguous()
+    z_c = z_val_sample(args.N_train, args.near, args.far, args.N_samples, device=dev)
+    for field, packed, z in ((coarse, pc, z_c), (fine, pf, fine_z(ro, rd, z_c)[0])):
+        pts = ro[:, None] + rd[:, None] * z[..., None]
+        g = torch.tensor(rng.normal(size=(pts.shape[0] * pts.shape[1], field.cfg.ins_num + 5))
+                         * 1e-3, dtype=torch.float32, device=dev)
+        e_raw, e_grad = check_field_kernels(
+            (field, packed, pts, vd, *kf.flatten_inputs(pts, vd), g),
+            f"{name} {args.N_train} rays x {z.shape[1]}", probe=False)
+        errs["field_forward"] = max(errs.get("field_forward", 0.0), e_raw)
+        errs["field_backward"] = max(errs.get("field_backward", 0.0), e_grad)
+
+    ro, rd = rays(scene.i_test[0])
+    s0 = (H * W // args.N_test // 2) * args.N_test
+    ro, rd = ro[s0:s0 + args.N_test], rd[s0:s0 + args.N_test]
+    vd = (rd / torch.linalg.norm(rd, dim=-1, keepdim=True))[:, None].contiguous()
+    z_c = z_val_sample(args.N_test, args.near, args.far, args.N_samples, device=dev).contiguous()
+    z_f, w_p = fine_z(ro, rd, z_c)
+    pts_c = ro[:, None] + rd[:, None] * z_c[..., None]
+    pts_f = ro[:, None] + rd[:, None] * z_f[..., None]
+    label = f"{name} {args.N_test} rays of {H}x{W}"
+    with torch.no_grad():
+        w_k = krf.render_field_sigma(pc, pts_c, z_c, rd)
+        all_k = krf.render_field_all(pf, pts_f, vd, z_f, rd)
+        all_p = krf.render_field_all_ref(fine, pts_f, vd, z_f, rd)
+        torch.cuda.synchronize()
+        errs["render_field_sigma"] = check(f"render_field_sigma {label} x {z_c.shape[1]}",
+                                           "weights", w_k, w_p, coarse.density(pts_c[:, -1])[..., 0])
+        sig_f = fine.density(pts_f[:, -1])[..., 0]
+        errs["render_field_all"] = max(
+            check(f"render_field_all {label} x {z_f.shape[1]}", out, got, want, sig_f)
+            for out, got, want in zip(("rgb", "depth", "ins_logits"), all_k, all_p))
+        if edits:
+            k5 = krf.render_field_ins(pf, pts_f, z_f, rd)
+            errs["render_field_ins"] = check(
+                f"render_field_ins {label} x {z_f.shape[1]}", "ins_logits", k5,
+                krf.render_field_ins_ref(fine, pts_f, z_f, rd), sig_f)
+            if not torch.equal(k5, all_k[2]):
+                raise AssertionError(f"{name}: K5's logits differ from K3's")
+    return errs
+
+
+def reference_scenes(card):
+    """Phase 14: the DM-SR and replica64 stress scenes written by
+    dmnerf_torch.tools.make_stress_scenes at the tool's full sizes, loaded
+    through load_dataset without imageio, h5py, cv2 or PIL, then
+    dmsr_stress.txt trained (STRESS_STEPS steps), rendered, edited (eval,
+    rigid demo, mixed demo) and meshed, and replica64_stress.txt trained and
+    rendered, all through the CLIs with exact launch counts. After each
+    training run, every kernel that the config's path launches is held
+    against its plain version on the trained field at the config's shapes.
+    Returns ({kernel: launches of the phase}, {kernel: {config: max abs
+    error}})."""
+    from dmnerf_torch.cli import test as cli_test
+    from dmnerf_torch.cli import train as cli_train
+    from dmnerf_torch.config import parse_args
+    from dmnerf_torch.data.base import load_dataset
+    from dmnerf_torch.mesh.ply import read_ply
+    from dmnerf_torch.models.fields import FieldConfig
+    from dmnerf_torch.tools import make_stress_scenes as mss
+
+    phase(f"14 reference-format scenes: the DM-SR and replica64 stress scenes written and "
+          f"loaded by the port, dmsr_stress.txt through train ({STRESS_STEPS} steps), render, "
+          f"mani_eval, mani_demo and mesh, replica64_stress.txt through train and render (bf16)")
+    totals, errs = {}, {}
+
+    def run(what, want, fn):
+        out, secs, launches = counted(what, want, fn)
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        return out, secs
+
+    class TimedRenderer(mss.Renderer):
+        """The tool's GT renderer, adding up its seconds (render_gt returns
+        host arrays, so each call ends synchronised)."""
+        seconds = 0.0
+
+        def __call__(self, *a):
+            t = time.perf_counter()
+            out = super().__call__(*a)
+            self.seconds += time.perf_counter() - t
+            return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for what, write in (("dmsr/stress (16 objects, 640x480, 48 + 4 views, 4 edited)",
+                             lambda rend: mss.write_dmsr(tmp, rend)),
+                            ("replica64/stress (64 objects, 120x160, 360 frames)",
+                             lambda rend: mss.write_replica(tmp, rend, n_obj=64,
+                                                            name="replica64"))):
+            rend = TimedRenderer(torch.device("cuda"))
+            t0 = time.perf_counter()
+            write(rend)
+            secs = time.perf_counter() - t0
+            print(f"make_stress_scenes {what}: {secs:.2f} s, of which GT renders "
+                  f"{rend.seconds:.2f} s and the rest (the PNG writes, with the JSON, pose "
+                  f"and HDF5 files) {secs - rend.seconds:.2f} s ({card})")
+
+        runs = {"dmsr": ("configs/stress/dmsr_stress.txt", os.path.join(tmp, "dmsr", "stress")),
+                "replica64": ("configs/stress/replica64_stress.txt",
+                              os.path.join(tmp, "replica64", "stress"))}
+        scenes = {}
+        for name, (cfg, datadir) in runs.items():
+            args = parse_args(["--config", os.path.join(REPO, cfg), "--datadir", datadir])
+            args.is_train = True
+            t0 = time.perf_counter()
+            scene = load_dataset(args)
+            args.ins_num = scene.ins_num
+            scenes[name] = (args, scene)
+            print(f"load_dataset {name}: {len(scene.images)} images {scene.H}x{scene.W}, "
+                  f"ins_num {scene.ins_num}, in {time.perf_counter() - t0:.2f} s")
+        if banned_modules():
+            raise AssertionError(f"the readers loaded {banned_modules()}")
+
+        def cli_args(name, *flags):
+            cfg, datadir = runs[name]
+            return ["--config", os.path.join(REPO, cfg), "--datadir", datadir,
+                    "--basedir", os.path.join(tmp, "logs"), *flags, "--device", "cuda"]
+
+        def train(name, edits):
+            args, scene = scenes[name]
+            _, secs = run(f"cli.train {name}, {STRESS_STEPS} steps", {
+                "field_forward": 2 * STRESS_STEPS, "field_backward": 2 * STRESS_STEPS},
+                lambda: cli_train.main(cli_args(name, "--n_iters", str(STRESS_STEPS - 1),
+                                                "--i_print", "10")))
+            ldir = os.path.join(tmp, "logs", f"{name}_stress", "drill")
+            lines = [json.loads(l) for l in open(os.path.join(ldir, "metrics.jsonl"))]
+            if len(lines) != STRESS_STEPS // 10 or not np.isfinite(
+                    [l[k] for l in lines for k in ("total_loss", "psnr_fine")]).all():
+                raise AssertionError(f"cli.train {name}: metrics {lines[-1]}")
+            ms = np.mean([1e3 * args.N_train / l["rays_per_sec"] for l in lines[1:]])
+            print(f"cli.train {name}: {ms:.2f} ms/step after its first 10 steps, "
+                  f"{secs:.1f} s in all (the scene's load included); last {lines[-1]} ({card})")
+            params, _ = cli_test.load_fields(cli_test.latest_tar(ldir),
+                                             FieldConfig.from_args(args), torch.device("cuda"))
+            for k, e in stress_kernels_vs_plain(name, args, scene, params, edits).items():
+                errs.setdefault(k, {})[name] = e
+
+        def per_view(what, secs, views):
+            print(f"{what}: {secs / views:.3f} s/view over {views} views (the whole CLI call "
+                  f"over the views: the scene's load and the checkpoint included; {card})")
+
+        def results(savedir, what, n):
+            table = np.loadtxt(os.path.join(savedir, "test_results.txt"))
+            if table.shape != (n + 1, 9) or not np.isfinite(table[:, 0]).all():
+                raise AssertionError(f"{what}: test_results.txt {table.shape}, PSNR {table[:, 0]}")
+            print(f"{what}: test_results.txt mean row PSNR {table[-1, 0]:.4f} SSIM "
+                  f"{table[-1, 1]:.4f} AP50 {table[-1, 3]:.4f}")
+
+        def render(name, views, chunks):
+            what = f"cli.test --render {name}"
+            savedir, secs = run(f"{what}, {views} views", {
+                "render_field_sigma": views * chunks, "render_field_all": views * chunks},
+                lambda: cli_test.main(cli_args(name, "--render")))
+            per_view(what, secs, views)
+            results(savedir, what, views)
+
+        chunks = -(-640 * 480 // 4096)
+        resolve = 3 * chunks            # resolve_target_label renders 3 test views
+        train("dmsr", edits=True)
+        render("dmsr", 4, chunks)
+
+        want = {"field_forward": 4 * chunks * 2 * 2, "render_field_ins": 4 * chunks * 2,
+                "render_field_sigma": resolve, "render_field_all": resolve}
+        savedir, secs = run("cli.test --mani_eval dmsr, 4 views, 1 object", want,
+                            lambda: cli_test.main(cli_args("dmsr", "--mani_eval")))
+        per_view("cli.test --mani_eval dmsr (after a 3-view resolve render)", secs, 4)
+        results(os.path.join(savedir, "translation"), "cli.test --mani_eval dmsr", 4)
+        for mani_type, n_obj in (("rigid", 1), ("deform", 2)):
+            what = f"cli.test --mani_demo --mani_type {mani_type} dmsr"
+            want = {"field_forward": 2 * chunks * 2 * (1 + n_obj),
+                    "render_field_ins": 2 * chunks * (1 + n_obj),
+                    "render_field_sigma": resolve, "render_field_all": resolve}
+            savedir, secs = run(f"{what}, 2 views, {n_obj} object(s)", want, lambda: cli_test.main(
+                cli_args("dmsr", "--mani_demo", "--mani_type", mani_type, "--views", "2")))
+            per_view(f"{what} (after a 3-view resolve render)", secs, 2)
+            names = sorted(os.listdir(os.path.join(savedir, mani_type)))
+            if names != sorted(f"{i}_{k}.png" for i in range(2)
+                               for k in ("rgb", "ins", "ins_pred_mask")):
+                raise AssertionError(f"--mani_demo {mani_type} wrote {names}")
+
+        # the mesh: K1 on the 192^3 grid, then K4 + K3 on the vertex rays
+        from dmnerf_torch.mesh import extract
+
+        def mesh():
+            ply = os.path.join(cli_test.main(cli_args("dmsr", "--mesh")),
+                               "color_dmsr_stress.ply")
+            if not os.path.exists(ply):
+                raise AssertionError(f"cli.test --mesh dmsr wrote no {ply} (an empty isosurface)")
+            return tuple(len(a) for a in read_ply(ply))
+        (V, F), secs = run("cli.test --mesh dmsr (grid 192, extents 13,13,13)", lambda vf: {
+            "field_forward": -(-192 ** 3 // extract.DENSITY_BATCH),
+            "render_field_sigma": -(-vf[0] // 4096), "render_field_all": -(-vf[0] // 4096)},
+            mesh)
+        print(f"cli.test --mesh dmsr: V {V}, F {F} after cleanup, {secs:.1f} s in all (the "
+              f"scene's load and the checkpoint included; {card})")
+        if V == 0 or F == 0:
+            raise AssertionError(f"cli.test --mesh dmsr: an empty mesh (V {V}, F {F})")
+
+        train("replica64", edits=False)
+        views = len(range(0, 180, 8))          # replica64_stress.txt's testskip 8
+        render("replica64", views, -(-120 * 160 // 4096))
+    if banned_modules():
+        raise AssertionError(f"phase 14 loaded {banned_modules()}")
+    for k, n in totals.items():
+        print(f"phase 14 {k}: {n} launches; against its plain version at the stress "
+              f"configs' shapes, max abs err {errs.get(k)}")
+    return totals, errs
 
 
 if __name__ == "__main__":

@@ -12,13 +12,17 @@ The layout mirrors dmnerf_tpu/ so each module's counterpart is found by path:
 - cli:      `python -m dmnerf_torch.cli.train` and `dmnerf_torch.cli.test`.
 - config, data, edit/transforms, edit/deform, utils/viz: copies of the JAX
             package's host modules (numpy only), each naming its source on
-            its first line.
-- utils:    also a stdlib PNG writer.
+            its first line; the DM-SR, Replica and ScanNet readers and the
+            stress scenes (data/procedural.py) are ported instead.
+- utils:    also a PNG reader and writer and an HDF5 reader and writer on
+            the standard library and numpy.
+- tools:    the stress scenes in the reference formats and their drill
+            through the CLIs.
 
 The port imports nothing of dmnerf_tpu, not even a module there that imports
 no jax: what it needs of such a module is copied here. Nothing here imports
-jax or orbax; only the DM-SR, Replica and ScanNet readers (reached through
-data.base.load_dataset's dispatch) import imageio, h5py or cv2.
+jax, orbax, imageio, h5py, cv2 or PIL, except that ScanNet's JPEG frames
+need imageio (data/scannet.py::jpeg_codec, imported when a frame is read).
 """
 
 __version__ = "0.1.0"

@@ -9,8 +9,7 @@ DM-NeRF layout: the latest one, or the one --test_model names. A JAX orbax
 checkpoint becomes such a file through tools/export_torch_ckpt.py.
 
 --mani_eval reads the DM-SR manipulation ground truth (data/dmsr_mani.py) and
---mani_demo the DM-SR objs_info files (data/dmsr.py); both loaders need
-imageio and h5py. --mesh writes mesh_NNNNNN/{expname}.ply and
+--mani_demo the DM-SR objs_info files (data/dmsr.py). --mesh writes mesh_NNNNNN/{expname}.ply and
 color_{expname}.ply (mesh/extract.py), in the bounds of
 {datadir}/{expname}.ply where that file exists, else of --mesh_extents.
 """

@@ -1,4 +1,4 @@
-# Copied from dmnerf_tpu/data/dmsr.py.
+# Ported from dmnerf_tpu/data/dmsr.py (PNGs through utils/png.py, the palette through utils/hdf5.py, in place of imageio and h5py).
 """DM-SR dataset loader (Blender-style synthetic rooms).
 
 Behavior parity with the reference's datasets/loader_dmsr.py:
@@ -17,18 +17,18 @@ from __future__ import annotations
 import json
 import os
 
-import h5py
-import imageio.v2 as imageio
 import numpy as np
 
 from dmnerf_torch.data.base import SceneData
+from dmnerf_torch.utils.hdf5 import read_dataset
+from dmnerf_torch.utils.png import read_png
 from dmnerf_torch.edit.transforms import pose_spherical
 
 
 def _load_split(basedir: str, split: str, skip: int):
     rgb_dir = os.path.join(basedir, split, "rgbs")
     files = sorted(os.listdir(rgb_dir))
-    imgs = [imageio.imread(os.path.join(rgb_dir, f)) for f in files]
+    imgs = [read_png(os.path.join(rgb_dir, f)) for f in files]
     with open(os.path.join(basedir, split, "transforms.json")) as f:
         meta = json.load(f)
     poses = np.array([fr["transform_matrix"] for fr in meta["frames"][::skip]],
@@ -40,7 +40,7 @@ def _load_split(basedir: str, split: str, skip: int):
 
     ins_dir = os.path.join(basedir, split, "semantic_instance")
     ins_files = sorted(os.listdir(ins_dir))
-    labels = np.array([imageio.imread(os.path.join(ins_dir, f)) for f in ins_files])[idx]
+    labels = np.array([read_png(os.path.join(ins_dir, f)) for f in ins_files])[idx]
     return imgs, poses, labels, meta["camera_angle_x"]
 
 
@@ -55,8 +55,7 @@ def load_data(args) -> SceneData:
     i_train = np.arange(len(tr_imgs))
     i_test = np.arange(len(tr_imgs), len(imgs))
 
-    with h5py.File(os.path.join(args.datadir, "ins_rgb.hdf5"), "r") as f:
-        ins_rgbs = f["datasets"][:]
+    ins_rgbs = read_dataset(os.path.join(args.datadir, "ins_rgb.hdf5"), "datasets")
     ins_num = len(ins_rgbs)
 
     objs = view_poses = ins_map = None

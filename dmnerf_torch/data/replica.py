@@ -1,4 +1,4 @@
-# Copied from dmnerf_tpu/data/replica.py.
+# Ported from dmnerf_tpu/data/replica.py (PNGs through utils/png.py, the palette through utils/hdf5.py, in place of imageio and h5py).
 """Replica dataset loader.
 
 Behavior parity with the reference's datasets/loader_replica.py:
@@ -13,11 +13,11 @@ from __future__ import annotations
 
 import os
 
-import h5py
-import imageio.v2 as imageio
 import numpy as np
 
 from dmnerf_torch.data.base import SceneData
+from dmnerf_torch.utils.hdf5 import read_dataset
+from dmnerf_torch.utils.png import read_png
 
 
 def load_data(args) -> SceneData:
@@ -31,19 +31,18 @@ def load_data(args) -> SceneData:
     poses = np.concatenate([Ts[train_ids], Ts[test_ids][skip_idx]], 0).astype(np.float32)
 
     rgb_dir = os.path.join(args.datadir, "rgb")
-    tr = np.array([imageio.imread(os.path.join(rgb_dir, f"rgb_{i}.png")) for i in train_ids])
-    te = np.array([imageio.imread(os.path.join(rgb_dir, f"rgb_{i}.png")) for i in test_ids])[skip_idx]
+    tr = np.array([read_png(os.path.join(rgb_dir, f"rgb_{i}.png")) for i in train_ids])
+    te = np.array([read_png(os.path.join(rgb_dir, f"rgb_{i}.png")) for i in test_ids])[skip_idx]
     imgs = (np.concatenate([tr, te], 0) / 255.0).astype(np.float32)[..., :3]
 
     ins_dir = os.path.join(args.datadir, "semantic_instance")
-    tr_l = np.array([imageio.imread(os.path.join(ins_dir, f"semantic_instance_{i}.png"))
+    tr_l = np.array([read_png(os.path.join(ins_dir, f"semantic_instance_{i}.png"))
                      for i in train_ids])
-    te_l = np.array([imageio.imread(os.path.join(ins_dir, f"semantic_instance_{i}.png"))
+    te_l = np.array([read_png(os.path.join(ins_dir, f"semantic_instance_{i}.png"))
                      for i in test_ids])[skip_idx]
     labels = np.concatenate([tr_l, te_l], 0)
 
-    with h5py.File(os.path.join(args.datadir, "ins_rgb.hdf5"), "r") as f:
-        ins_rgbs = f["datasets"][:]
+    ins_rgbs = read_dataset(os.path.join(args.datadir, "ins_rgb.hdf5"), "datasets")
 
     H, W = imgs[0].shape[:2]
     focal = W / 2.0

@@ -1,28 +1,30 @@
-# Copied from dmnerf_tpu/data/scannet.py.
+# Ported from dmnerf_tpu/data/scannet.py (the palette through utils/hdf5.py, the nearest resize in numpy; only the JPEG frames need imageio).
 """ScanNet dataset loader.
 
 Behavior parity with the reference's datasets/loader_scannet.py:
 - frame ids from {train,test}_split.txt; jpgs under {split}/{split}_images,
   per-frame pose txt under {split}/{split}_pose (:66-73).
 - instances from {split}/{split}_ins/{id}.npz field 'ins_2d_label_id' (:17-20,117-118).
-- optional nearest-neighbor resize to 480x640; intrinsics from
-  intrinsic/intrinsic_{color|depth}.txt (depth when resized) (:32-41,91-95).
+- optional nearest-neighbor resize to 480x640 (cv2.INTER_NEAREST's index
+  rule, in numpy); intrinsics from intrinsic/intrinsic_{color|depth}.txt
+  (depth when resized) (:32-41,91-95).
 - ins_num = #unique - 1; unlabeled (-1) remapped to ins_num ("air"); palette
   truncated to ins_num (:130-133).
 - center crop mask of (crop_width, crop_height) (:23-29,165); per-image labeled
   flat pixel indices within the crop (:136-148).
+
+The .jpg frames need a JPEG decoder, imageio with Pillow, imported when a
+frame is read: without it the reader raises an ImportError that says so.
 """
 
 from __future__ import annotations
 
 import os
 
-import cv2
-import h5py
-import imageio.v2 as imageio
 import numpy as np
 
 from dmnerf_torch.data.base import SceneData
+from dmnerf_torch.utils.hdf5 import read_dataset
 
 
 def crop_data(H: int, W: int, crop_size) -> np.ndarray:
@@ -33,17 +35,35 @@ def crop_data(H: int, W: int, crop_size) -> np.ndarray:
     return mask.astype(np.int8)
 
 
+def jpeg_codec():
+    """imageio.v2, the JPEG decoder and encoder of ScanNet's frames, or an
+    ImportError that names what is missing."""
+    try:
+        import imageio.v2 as imageio
+    except ImportError:
+        raise ImportError("ScanNet frames are JPEG files: reading or writing them needs a "
+                          "JPEG decoder and encoder (imageio with Pillow), which is not "
+                          "installed") from None
+    return imageio
+
+
+def nearest_index(src: int, dst: int) -> np.ndarray:
+    """cv2.resize's INTER_NEAREST source index of each of dst outputs:
+    floor(x * (1 / (dst / src))), clamped to src - 1."""
+    scale = 1.0 / (dst / src)
+    return np.minimum(np.floor(np.arange(dst) * scale).astype(np.int64), src - 1)
+
+
 def _resize(data: np.ndarray, H: int = 480, W: int = 640) -> np.ndarray:
-    out_shape = (data.shape[0], H, W) + ((3,) if data.ndim == 4 else ())
-    out = np.zeros(out_shape)
-    for i, d in enumerate(data):
-        out[i] = cv2.resize(d, (W, H), interpolation=cv2.INTER_NEAREST)
-    return out
+    rows = nearest_index(data.shape[1], H)
+    cols = nearest_index(data.shape[2], W)
+    return data[:, rows][:, :, cols].astype(np.float64)
 
 
 def _load_split_imgs(datadir, split, skip, resize):
     indices = np.loadtxt(os.path.join(datadir, f"{split}_split.txt")).astype(np.int32)
     base = os.path.join(datadir, split)
+    imageio = jpeg_codec()
     rgbs = np.array([imageio.imread(os.path.join(base, f"{split}_images", f"{i}.jpg"))
                      for i in indices])
     poses = np.array([np.loadtxt(os.path.join(base, f"{split}_pose", f"{i}.txt"),
@@ -79,8 +99,7 @@ def load_data(args) -> SceneData:
     te_l = _load_split_ins(args.datadir, "test", skip, args.resize)
     labels = np.concatenate([tr_l, te_l], 0).astype(np.int8)
 
-    with h5py.File(os.path.join(args.datadir, "ins_rgb.hdf5"), "r") as f:
-        ins_rgbs = f["datasets"][:]
+    ins_rgbs = read_dataset(os.path.join(args.datadir, "ins_rgb.hdf5"), "datasets")
     ins_num = len(np.unique(labels)) - 1
     ins_rgbs = ins_rgbs[:ins_num]
     labels = labels.astype(np.int32)

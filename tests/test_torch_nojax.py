@@ -1,6 +1,7 @@
-"""The port imports neither jax, orbax, imageio nor anything of the JAX
-package dmnerf_tpu: `import dmnerf_torch`, its edit modules, and a tiny CPU
-render, training run and mesh through its CLIs, in a fresh interpreter."""
+"""The port imports neither jax, orbax, imageio, h5py, cv2, PIL nor anything
+of the JAX package dmnerf_tpu: `import dmnerf_torch`, its edit modules, and
+a tiny CPU render, training run and mesh through its CLIs, in a fresh
+interpreter."""
 
 import json
 import os
@@ -39,7 +40,7 @@ def test_import_and_cli_render_load_no_jax(tmp_path):
         print(json.dumps({{
             "loaded": sorted(m for m in sys.modules
                              if m.split(".")[0] in ("jax", "jaxlib", "orbax", "imageio",
-                                                     "dmnerf_tpu")),
+                                                     "h5py", "cv2", "PIL", "dmnerf_tpu")),
             "results": os.path.exists(os.path.join(savedir, "test_results.txt")),
         }}))
     """)
@@ -53,7 +54,7 @@ def test_import_and_cli_render_load_no_jax(tmp_path):
 def test_cli_train_loads_no_jax(tmp_path):
     """A tiny CPU run of dmnerf_torch.cli.train (boxroom8x4, 3 steps, a
     checkpoint and an in-train eval) in a fresh interpreter loads none of
-    jax, orbax, imageio or dmnerf_tpu."""
+    jax, orbax, imageio, h5py, cv2, PIL or dmnerf_tpu."""
     script = textwrap.dedent(f"""
         import json, os, sys
         import dmnerf_torch.cli.train as cli
@@ -70,7 +71,7 @@ def test_cli_train_loads_no_jax(tmp_path):
         print(json.dumps({{
             "loaded": sorted(m for m in sys.modules
                              if m.split(".")[0] in ("jax", "jaxlib", "orbax", "imageio",
-                                                     "dmnerf_tpu")),
+                                                     "h5py", "cv2", "PIL", "dmnerf_tpu")),
             "step": state.step,
             "tar": os.path.exists(os.path.join({str(tmp_path)!r}, "logs", "nj", "run",
                                                "000003.tar")),
@@ -85,8 +86,8 @@ def test_cli_train_loads_no_jax(tmp_path):
 
 def test_cli_mesh_loads_no_jax(tmp_path):
     """A tiny CPU run of dmnerf_torch.cli.test --mesh (boxroom8x4, grid 16) in
-    a fresh interpreter loads none of jax, orbax, imageio or dmnerf_tpu and
-    writes both PLY files."""
+    a fresh interpreter loads none of jax, orbax, imageio, h5py, cv2, PIL or
+    dmnerf_tpu and writes both PLY files."""
     script = textwrap.dedent(f"""
         import json, os, sys
         import torch
@@ -112,7 +113,7 @@ def test_cli_mesh_loads_no_jax(tmp_path):
         print(json.dumps({{
             "loaded": sorted(m for m in sys.modules
                              if m.split(".")[0] in ("jax", "jaxlib", "orbax", "imageio",
-                                                     "dmnerf_tpu")),
+                                                     "h5py", "cv2", "PIL", "dmnerf_tpu")),
             "plys": sorted(f for f in os.listdir(savedir) if f.endswith(".ply")),
         }}))
     """)
