@@ -2,7 +2,8 @@
 path (kernels K3/K4), the training step (kernels K1/K2), the edit path
 (kernels K1/K5) and mesh extraction (kernels K1, K4/K3), each in bf16 and,
 through the kernels' f32 builds, in f32; then the reference-format stress
-scenes written, read and run through the CLIs.
+scenes written, read and run through the CLIs, and ScanNet (JPEG frames,
+the .sens preprocessing, the flagship config) through them.
 
     python3 chip_smoke.py
 
@@ -122,19 +123,42 @@ Phases (each fails the run by raising; nothing is caught):
    per edit chunk 2(1+n_obj) K1 and 1+n_obj K5; ceil(192^3 / 2^21) K1 and
    ceil(V / 4096) K4 and K3 per mesh), and each test_results.txt's PSNR and
    AP50 (evidence that the path runs, not a quality bar).
+15. ScanNet: (a) dmnerf_torch/native/jpeg.cpp built by g++; every fixture
+   of tests/torch_golden/jpeg decoded to the array Pillow decoded (sha256)
+   and every imageio-default fixture's source encoded to its bytes
+   (jpeg_golden); ms per 968x1296 decode and encode. (b) make_stress_scenes
+   --only scannet on the card (480x640, 20 + 3 views, 16 objects),
+   load_dataset with no banned module loaded, cli.train of
+   configs/stress/scannet_stress.txt (8x128, 2048 rays, 64+64, 576x432
+   crop) for STRESS_STEPS steps, K1/K2/K4/K3 against their plain versions
+   on the trained field (stress_kernels_vs_plain), cli.test --render of
+   its 3 test views. (c) a raw ScanNet scene written by write_raw_scannet
+   (a version-4 .sens of SENS_FRAMES 1296x968 JPEG frames from the card's
+   GT march, 640x480 zlib depth and depth intrinsics, label-filt and
+   instance-filt PNGs, a label-map TSV) through `python -m
+   dmnerf_torch.data.scannet_preprocess.run` (seconds of the export per
+   frame, the label remap and the split), load_dataset with resize (ms per
+   frame), cli.train of configs/scannet/train/scene0010_00.txt (8x256,
+   N_train 3072, 64+128, resize, 640x480 crop) for SCANNET_STEPS steps
+   (ms/step after the first 10), K1/K2/K4/K3 against their plain versions
+   on that trained field at its shapes (3072 rays x 64 and x 192, 4096-ray
+   chunks of 480x640, width 256, its ins_num) as in (b), and cli.test
+   --render of configs/scannet/test/scene0010_00.txt on every 8th test view
+   (s/view). Exact launch counts throughout.
 Phases 3, 6, 9 and 12 also print each kernel's bound (the larger of its
 operations over the peak of its type, bf16 tensor cores or fp32 CUDA cores,
 and its bytes over the memory rate), its TFLOP/s and its share of the bound.
 The line before the last is a JSON object with one entry per kernel and
-build (its K=64 reading under "k64", its phase-14 errors per config under
-"stress_max_abs_err"; launches summed over the main paths, phase 14's
-included); the line before it is the smoke's total time; the
+build (its K=64 reading under "k64", its phase-14 and phase-15 errors per
+config under "stress_max_abs_err"; launches summed over the main paths,
+phases 14 and 15 included); the line before it is the smoke's total time; the
 last line is {"ok": true, "device": {...}}. The run fails if it loaded jax,
 the JAX package, imageio, h5py, cv2 or PIL.
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -665,10 +689,13 @@ def main():
         kernels += f32_builds(dev, card, ro, rd, vd, z_c, z_f, mesh_cfg)
         mesh_launches = mesh_slice(dev, card, mesh_cfg)
     scene_launches, scene_errs = reference_scenes(card)
+    scannet_launches, scannet_errs = scannet_slice(card)
     for k in kernels:                   # the f32 entries hold phase 12's mesh launches
-        k["launches"] += mesh_launches.get(k["name"], 0) + scene_launches.get(k["name"], 0)
-        if k["name"] in scene_errs:     # {config: max abs err} at phase 14's shapes
-            k["stress_max_abs_err"] = scene_errs[k["name"]]
+        k["launches"] += (mesh_launches.get(k["name"], 0) + scene_launches.get(k["name"], 0)
+                          + scannet_launches.get(k["name"], 0))
+        for errs in (scene_errs, scannet_errs):   # {config: max abs err} at the stress shapes
+            if k["name"] in errs:
+                k.setdefault("stress_max_abs_err", {}).update(errs[k["name"]])
 
     loaded = banned_modules()
     if loaded:
@@ -1753,7 +1780,7 @@ def mesh_slice(dev, card, path):
 # are 50,000 and 20,000)
 STRESS_STEPS = 300
 # modules the port must not load: the JAX package and the readers' old
-# libraries (data/scannet.py's lazy JPEG import aside)
+# libraries
 BANNED = ("jax", "dmnerf_tpu", "imageio", "h5py", "cv2", "PIL")
 
 
@@ -2024,6 +2051,253 @@ def reference_scenes(card):
     for k, n in totals.items():
         print(f"phase 14 {k}: {n} launches; against its plain version at the stress "
               f"configs' shapes, max abs err {errs.get(k)}")
+    return totals, errs
+
+
+# the JPEG fixtures and their checker, jpeg_fixtures.py
+JPEG_GOLDEN = os.path.join(REPO, "tests", "torch_golden", "jpeg")
+# phase 15(c): frames of the written .sens, and the flagship's training steps
+SENS_FRAMES = 40
+SCANNET_STEPS = 30
+# ScanNet's frame sizes: colour 1296x968 (JPEG), depth and labels 640x480
+COLOR_HW, DEPTH_HW = (968, 1296), (480, 640)
+# scannetv2-labels.combined.tsv's columns; rows: raw id, category, nyu40 id
+TSV_COLUMNS = ("id", "raw_category", "category", "count", "nyu40id", "eigen13id",
+               "nyuClass", "nyu40class", "eigen13class", "ModelNet40", "ModelNet",
+               "synsetoffset", "wnsynsetid", "wnsynsetkey", "mpcat40index", "mpcat40")
+TSV_ROWS = ((1, "wall", 1), (2, "chair", 5), (3, "floor", 2), (4, "table", 7),
+            (6, "couch", 6), (7, "cabinet", 3), (9, "desk", 14), (11, "bed", 4),
+            (15, "picture", 11), (16, "window", 9), (17, "toilet", 33))
+
+
+def write_raw_scannet(root, scene, objs, card, device="cuda"):
+    """A raw ScanNet scene as the preprocessing reads it: scans/{scene}/
+    {scene}.sens (version 4, SENS_FRAMES frames: 1296x968 JPEG colour by
+    write_jpeg from the card's GT march, 640x480 zlib uint16 depth, the
+    depth intrinsics of 640x480), out/{scene}/label-filt/{i}.png (raw ids,
+    uint16) and instance-filt/{i}.png (uint8) at 640x480, and a label-map
+    TSV in scannetv2-labels.combined.tsv's columns. Returns the TSV's path."""
+    from dmnerf_torch.data.procedural import render_gt
+    from dmnerf_torch.data.scannet import nearest_index
+    from dmnerf_torch.data.scannet_preprocess.sensordata import write_sens
+    from dmnerf_torch.edit.transforms import pose_spherical
+    from dmnerf_torch.utils.jpeg import encode_jpeg
+    from dmnerf_torch.utils.png import write_png
+
+    (cH, cW), (dH, dW) = COLOR_HW, DEPTH_HW
+    Kc = np.eye(4)
+    Kc[0, 0], Kc[1, 1], Kc[0, 2], Kc[1, 2] = 0.9 * cW, 0.9 * cW, cW / 2, cH / 2
+    Kd = np.diag([dW / cW, dH / cH, 1.0, 1.0]) @ Kc
+    rows, cols = nearest_index(cH, dH), nearest_index(cW, dW)
+    raw_ids = [r[0] for r in TSV_ROWS[1:] if r[2] != 2]     # objects: not wall or floor
+    labels = os.path.join(root, "out", scene)
+    for sub in ("label-filt", "instance-filt"):
+        os.makedirs(os.path.join(labels, sub), exist_ok=True)
+    colors, depths, poses = [], [], []
+    t_gt = t_enc = 0.0
+    for i in range(SENS_FRAMES):
+        cv = np.array(pose_spherical(i * 360.0 / SENS_FRAMES, -22.0 - 9.0 * (i % 3), 4.1))
+        cv[:3, :3] = cv[:3, :3] @ np.diag([1.0, -1.0, -1.0])
+        t = time.perf_counter()
+        img, lab = render_gt(cv, cH, cW, Kc[:3, :3], 1.0, 14.0, objs, n_samples=96,
+                             device=torch.device(device))
+        t_gt += time.perf_counter() - t
+        t = time.perf_counter()
+        colors.append(encode_jpeg((255 * np.clip(img, 0, 1)).astype(np.uint8)))
+        t_enc += time.perf_counter() - t
+        lab = lab[rows][:, cols]
+        sem = np.array([1] + [raw_ids[k % len(raw_ids)] for k in range(len(objs))],
+                       np.uint16)[lab]
+        write_png(os.path.join(labels, "label-filt", f"{i}.png"), sem)
+        write_png(os.path.join(labels, "instance-filt", f"{i}.png"), lab.astype(np.uint8))
+        depths.append((1000 + 250 * lab).astype(np.uint16))
+        poses.append(cv)
+    os.makedirs(os.path.join(root, "scans", scene), exist_ok=True)
+    sens = os.path.join(root, "scans", scene, f"{scene}.sens")
+    write_sens(sens, colors, depths, poses, Kc, Kd)
+    tsv = os.path.join(root, "scannetv2-labels.combined.tsv")
+    with open(tsv, "w") as f:
+        f.write("\t".join(TSV_COLUMNS) + "\n")
+        for rid, name, nyu40 in TSV_ROWS:
+            f.write("\t".join([str(rid), name, name, "1", str(nyu40)] + [""] * 11) + "\n")
+    print(f"raw {scene}: {SENS_FRAMES} frames, GT march {t_gt:.2f} s ({cW}x{cH}, 96 samples), "
+          f"write_jpeg {1e3 * t_enc / SENS_FRAMES:.1f} ms/frame, .sens "
+          f"{os.path.getsize(sens) / 2 ** 20:.1f} MiB ({card})")
+    return tsv
+
+
+def scannet_slice(card):
+    """Phase 15: (a) the JPEG codec on its fixtures and its ms per 968x1296
+    frame; (b) make_stress_scenes --only scannet on the card, load_dataset,
+    scannet_stress.txt through cli.train (STRESS_STEPS steps) and cli.test
+    --render (3 views), K1/K2/K4/K3 against their plain versions on the
+    trained field; (c) a raw ScanNet scene (a .sens of 1296x968 JPEG frames,
+    label PNGs, a TSV) through `python -m dmnerf_torch.data.scannet_preprocess.run`,
+    then the flagship configs/scannet/{train,test}/scene0010_00.txt through
+    cli.train (SCANNET_STEPS steps), K1/K2/K4/K3 against their plain versions
+    on that trained field at its shapes, and cli.test --render. Exact
+    launches everywhere. Returns ({kernel: launches}, {kernel: {config: max abs err}})."""
+    from dmnerf_torch import native
+    from dmnerf_torch.cli import test as cli_test
+    from dmnerf_torch.cli import train as cli_train
+    from dmnerf_torch.config import parse_args
+    from dmnerf_torch.data.base import load_dataset
+    from dmnerf_torch.data.procedural import make_objects, palette
+    from dmnerf_torch.models.fields import FieldConfig
+    from dmnerf_torch.tools import make_stress_scenes as mss
+    from dmnerf_torch.utils.hdf5 import write_dataset
+    from dmnerf_torch.utils.jpeg import encode_jpeg, read_jpeg
+    sys.path.insert(0, JPEG_GOLDEN)
+    from jpeg_fixtures import jpeg_golden, smooth_frame
+
+    phase(f"15 ScanNet: the JPEG codec on its fixtures; scannet_stress.txt written, loaded, "
+          f"trained ({STRESS_STEPS} steps) and rendered; a raw 1296x968 .sens through the "
+          f"preprocessing, then scene0010_00.txt (8x256) trained ({SCANNET_STEPS} steps) and "
+          f"rendered (bf16)")
+    t_phase = time.perf_counter()
+    totals, errs = {}, {}
+
+    def run(what, want, fn):
+        out, secs, launches = counted(what, want, fn)
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        return out, secs
+
+    # (a) the codec
+    t0 = time.perf_counter()
+    native.require("_jpeg_native", "jpeg.cpp")
+    print(f"15a built dmnerf_torch/native/jpeg.cpp with g++ in {time.perf_counter() - t0:.2f} s")
+    n_dec, n_enc = jpeg_golden()
+    print(f"15a JPEG fixtures: {n_dec} files decoded to Pillow's arrays and {n_enc} sources "
+          f"encoded to imageio's bytes, exactly")
+    frame = smooth_frame(*COLOR_HW)
+    data = encode_jpeg(frame)
+    for what, fn in (("decode", lambda: read_jpeg(data)), ("encode", lambda: encode_jpeg(frame))):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fn()
+        print(f"15a {what} of a {COLOR_HW[1]}x{COLOR_HW[0]} frame: "
+              f"{100 * (time.perf_counter() - t0):.2f} ms (host, one thread; {card})")
+
+    def trained(what, ldir, args, steps):
+        lines = [json.loads(l) for l in open(os.path.join(ldir, "metrics.jsonl"))]
+        if len(lines) != steps // 10 or not np.isfinite(
+                [l[k] for l in lines for k in ("total_loss", "psnr_fine")]).all():
+            raise AssertionError(f"cli.train {what}: metrics {lines[-1]}")
+        ms = np.mean([1e3 * args.N_train / l["rays_per_sec"] for l in lines[1:]])
+        print(f"cli.train {what}: {ms:.2f} ms/step after its first 10 steps; last "
+              f"{lines[-1]} ({card})")
+
+    def rendered(what, savedir, secs, views):
+        table = np.loadtxt(os.path.join(savedir, "test_results.txt"))
+        if table.shape != (views + 1, 9) or not np.isfinite(table[:, 0]).all():
+            raise AssertionError(f"{what}: test_results.txt {table.shape}, PSNR {table[:, 0]}")
+        print(f"{what}: {secs / views:.3f} s/view over {views} views (the whole CLI call; "
+              f"{card}); mean PSNR {table[-1, 0]:.4f} SSIM {table[-1, 1]:.4f} AP50 "
+              f"{table[-1, 3]:.4f}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b) the stress scene and its config
+        t0 = time.perf_counter()
+        mss.main(["--out", tmp, "--only", "scannet"])
+        print(f"15b make_stress_scenes --only scannet (16 objects, 480x640, 20 + 3 views): "
+              f"{time.perf_counter() - t0:.2f} s ({card})")
+        cfg = os.path.join(REPO, "configs", "stress", "scannet_stress.txt")
+        datadir = os.path.join(tmp, "scannet", "stress")
+        args = parse_args(["--config", cfg, "--datadir", datadir])
+        args.is_train = True
+        t0 = time.perf_counter()
+        scene = load_dataset(args)
+        args.ins_num = scene.ins_num
+        print(f"15b load_dataset scannet/stress: {len(scene.images)} images {scene.H}x{scene.W}, "
+              f"ins_num {scene.ins_num}, in {time.perf_counter() - t0:.2f} s")
+        if banned_modules():
+            raise AssertionError(f"the ScanNet reader loaded {banned_modules()}")
+        flags = ["--config", cfg, "--datadir", datadir, "--basedir",
+                 os.path.join(tmp, "logs"), "--device", "cuda"]
+        run(f"cli.train scannet_stress, {STRESS_STEPS} steps",
+            {"field_forward": 2 * STRESS_STEPS, "field_backward": 2 * STRESS_STEPS},
+            lambda: cli_train.main(flags + ["--n_iters", str(STRESS_STEPS - 1), "--i_print", "10"]))
+        ldir = os.path.join(tmp, "logs", "scannet_stress", "drill")
+        trained("scannet_stress", ldir, args, STRESS_STEPS)
+        params, _ = cli_test.load_fields(cli_test.latest_tar(ldir), FieldConfig.from_args(args),
+                                         torch.device("cuda"))
+        for k, e in stress_kernels_vs_plain("scannet", args, scene, params, False).items():
+            errs.setdefault(k, {})["scannet"] = e
+        chunks = -(-scene.H * scene.W // args.N_test)
+        views = len(scene.i_test)
+        savedir, secs = run(f"cli.test --render scannet_stress, {views} views", {
+            "render_field_sigma": views * chunks, "render_field_all": views * chunks},
+            lambda: cli_test.main(flags + ["--render"]))
+        rendered("cli.test --render scannet_stress", savedir, secs, views)
+
+        # (c) raw ScanNet to a trained flagship
+        # a name of its own: data/color_dict.json's palette map of the real
+        # scene0010_00 does not fit this scene's labels
+        scene_name = "scene9999_00"
+        root = os.path.join(tmp, "raw")
+        objs = make_objects(7, seed=10)     # as many objects as scene0010_00 has instances
+        tsv = write_raw_scannet(root, scene_name, objs, card)
+        save_dir = os.path.join(tmp, "scannet")
+        proc = subprocess.run(
+            [sys.executable, "-m", "dmnerf_torch.data.scannet_preprocess.run",
+             "--scans", os.path.join(root, "scans"), "--out", os.path.join(root, "out"),
+             "--label_map", tsv, "--save_dir", save_dir], cwd=REPO, capture_output=True,
+            text=True, timeout=600)
+        print(proc.stdout.strip())
+        if proc.returncode:
+            raise AssertionError(f"scannet_preprocess.run failed: {proc.stderr[-2000:]}")
+        secs = {k: float(v) for k, v in re.findall(
+            r"^(exported|remapped|split) .* in ([0-9.]+) s$", proc.stdout, re.M)}
+        print(f"15c preprocessing ({card}): export {1e3 * secs['exported'] / SENS_FRAMES:.1f} "
+              f"ms/frame (decode, encode, depth PNG, pose), label remap "
+              f"{1e3 * secs['remapped'] / SENS_FRAMES:.1f} ms/frame, split "
+              f"{secs['split']:.3f} s")
+        datadir = os.path.join(save_dir, scene_name)
+        ins_num = max(int(np.load(os.path.join(datadir, split, f"{split}_ins", f))[
+            "ins_2d_label_id"].max()) for split in ("train", "test")
+            for f in os.listdir(os.path.join(datadir, split, f"{split}_ins"))) + 1
+        write_dataset(os.path.join(datadir, "ins_rgb.hdf5"), "datasets", palette(ins_num + 1)[1:])
+        cfgs = {k: os.path.join(REPO, "configs", "scannet", k, "scene0010_00.txt")
+                for k in ("train", "test")}
+        args = parse_args(["--config", cfgs["train"], "--datadir", datadir])
+        args.is_train = True
+        t0 = time.perf_counter()
+        scene = load_dataset(args)
+        secs = time.perf_counter() - t0
+        args.ins_num = scene.ins_num
+        print(f"15c load_dataset {scene_name} (resize): {len(scene.images)} frames "
+              f"{scene.H}x{scene.W}, ins_num {scene.ins_num}, {1e3 * secs / len(scene.images):.1f} "
+              f"ms/frame ({card})")
+        if (scene.H, scene.W) != DEPTH_HW or scene.ins_num < 2:
+            raise AssertionError(f"{scene_name}: {scene.H}x{scene.W}, ins_num {scene.ins_num}")
+        flags = ["--datadir", datadir, "--basedir", os.path.join(tmp, "logs"),
+                 "--log_time", "smoke", "--device", "cuda"]
+        run(f"cli.train {scene_name}, {SCANNET_STEPS} steps",
+            {"field_forward": 2 * SCANNET_STEPS, "field_backward": 2 * SCANNET_STEPS},
+            lambda: cli_train.main(["--config", cfgs["train"], *flags, "--n_iters",
+                                    str(SCANNET_STEPS - 1), "--i_print", "10"]))
+        ldir = os.path.join(tmp, "logs", "scene0010_00", "smoke")
+        trained(scene_name, ldir, args, SCANNET_STEPS)
+        params, _ = cli_test.load_fields(cli_test.latest_tar(ldir), FieldConfig.from_args(args),
+                                         torch.device("cuda"))
+        for k, e in stress_kernels_vs_plain("scene0010_00", args, scene, params, False).items():
+            errs.setdefault(k, {})["scene0010_00"] = e
+        skip = 8
+        views = len(range(0, len(scene.i_test), skip))
+        chunks = -(-scene.H * scene.W // args.N_test)
+        savedir, secs = run(f"cli.test --render {scene_name}, {views} views", {
+            "render_field_sigma": views * chunks, "render_field_all": views * chunks},
+            lambda: cli_test.main(["--config", cfgs["test"], *flags, "--render",
+                                   "--testskip", str(skip)]))
+        rendered(f"cli.test --render {scene_name}", savedir, secs, views)
+    if banned_modules():
+        raise AssertionError(f"phase 15 loaded {banned_modules()}")
+    for k, n in totals.items():
+        print(f"phase 15 {k}: {n} launches; against its plain version at scannet_stress's "
+              f"and scene0010_00's shapes, max abs err {errs.get(k)}")
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
     return totals, errs
 
 

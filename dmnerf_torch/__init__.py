@@ -15,14 +15,14 @@ The layout mirrors dmnerf_tpu/ so each module's counterpart is found by path:
             its first line; the DM-SR, Replica and ScanNet readers and the
             stress scenes (data/procedural.py) are ported instead.
 - utils:    also a PNG reader and writer and an HDF5 reader and writer on
-            the standard library and numpy.
+            the standard library and numpy, and a baseline JPEG codec
+            (native/jpeg.cpp, built by g++) equal to libjpeg-turbo's.
 - tools:    the stress scenes in the reference formats and their drill
             through the CLIs.
 
 The port imports nothing of dmnerf_tpu, not even a module there that imports
 no jax: what it needs of such a module is copied here. Nothing here imports
-jax, orbax, imageio, h5py, cv2 or PIL, except that ScanNet's JPEG frames
-need imageio (data/scannet.py::jpeg_codec, imported when a frame is read).
+jax, orbax, imageio, h5py, cv2 or PIL.
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,4 @@
-# Ported from dmnerf_tpu/data/scannet.py (the palette through utils/hdf5.py, the nearest resize in numpy; only the JPEG frames need imageio).
+# Ported from dmnerf_tpu/data/scannet.py (the JPEG frames through utils/jpeg.py, the palette through utils/hdf5.py, the nearest resize in numpy).
 """ScanNet dataset loader.
 
 Behavior parity with the reference's datasets/loader_scannet.py:
@@ -13,8 +13,8 @@ Behavior parity with the reference's datasets/loader_scannet.py:
 - center crop mask of (crop_width, crop_height) (:23-29,165); per-image labeled
   flat pixel indices within the crop (:136-148).
 
-The .jpg frames need a JPEG decoder, imageio with Pillow, imported when a
-frame is read: without it the reader raises an ImportError that says so.
+The .jpg frames are read by utils/jpeg.py::read_jpeg, which gives what
+imageio.v2.imread gives through Pillow, to the bit.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ import numpy as np
 
 from dmnerf_torch.data.base import SceneData
 from dmnerf_torch.utils.hdf5 import read_dataset
+from dmnerf_torch.utils.jpeg import read_jpeg
 
 
 def crop_data(H: int, W: int, crop_size) -> np.ndarray:
@@ -33,18 +34,6 @@ def crop_data(H: int, W: int, crop_size) -> np.ndarray:
     mh, mw = (H - new_h) // 2, (W - new_w) // 2
     mask[mh:H - mh, mw:W - mw] = 1
     return mask.astype(np.int8)
-
-
-def jpeg_codec():
-    """imageio.v2, the JPEG decoder and encoder of ScanNet's frames, or an
-    ImportError that names what is missing."""
-    try:
-        import imageio.v2 as imageio
-    except ImportError:
-        raise ImportError("ScanNet frames are JPEG files: reading or writing them needs a "
-                          "JPEG decoder and encoder (imageio with Pillow), which is not "
-                          "installed") from None
-    return imageio
 
 
 def nearest_index(src: int, dst: int) -> np.ndarray:
@@ -63,8 +52,7 @@ def _resize(data: np.ndarray, H: int = 480, W: int = 640) -> np.ndarray:
 def _load_split_imgs(datadir, split, skip, resize):
     indices = np.loadtxt(os.path.join(datadir, f"{split}_split.txt")).astype(np.int32)
     base = os.path.join(datadir, split)
-    imageio = jpeg_codec()
-    rgbs = np.array([imageio.imread(os.path.join(base, f"{split}_images", f"{i}.jpg"))
+    rgbs = np.array([read_jpeg(os.path.join(base, f"{split}_images", f"{i}.jpg"))
                      for i in indices])
     poses = np.array([np.loadtxt(os.path.join(base, f"{split}_pose", f"{i}.txt"),
                                  delimiter=" ") for i in indices])

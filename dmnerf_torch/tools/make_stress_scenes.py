@@ -2,7 +2,7 @@
 tools/make_stress_scenes.py): the same layouts, file names, poses, palettes,
 JSON contents and default sizes, with the analytic ground truth rendered in
 torch (data/procedural.py) and the files written without imageio or h5py
-(utils/png.py, utils/hdf5.py).
+(utils/png.py, utils/jpeg.py, utils/hdf5.py).
 
     python -m dmnerf_torch.tools.make_stress_scenes --out data/stress_scenes \
         [--only dmsr|dmsr_quality|replica|replica64|scannet] [--device cuda|cpu]
@@ -20,10 +20,9 @@ Layouts written (matching the reference's datasets/loader_*.py):
                    (ins_2d_label_id, -1 = unlabeled room), intrinsic/
                    intrinsic_color.txt, ins_rgb.hdf5
 
-The ScanNet frames are JPEG files, which need imageio with Pillow
-(data/scannet.py::jpeg_codec); without it a run that includes ScanNet raises
-before it writes anything. --device defaults to cuda and raises without a
-card.
+The ScanNet frames are written by utils/jpeg.py::write_jpeg: the bytes
+that imageio.v2.imwrite writes for the same array. --device defaults to cuda
+and raises without a card.
 """
 
 import argparse
@@ -35,10 +34,10 @@ import numpy as np
 from dmnerf_torch.cli.test import resolve_device
 from dmnerf_torch.data.procedural import (edited_objects, make_objects, palette,
                                           render_gt)
-from dmnerf_torch.data.scannet import jpeg_codec
 from dmnerf_torch.edit.transforms import (_center_conjugate, _mode_matrix,
                                           pose_spherical)
 from dmnerf_torch.utils.hdf5 import write_dataset
+from dmnerf_torch.utils.jpeg import write_jpeg
 from dmnerf_torch.utils.png import write_png
 
 GL2CV = np.diag([1.0, -1.0, -1.0])  # right-handed look-down--z -> z-forward
@@ -187,9 +186,7 @@ def write_replica(out, rend, n_obj=10, H=120, W=160, name="replica"):
 
 def write_scannet(out, rend, n_obj=16, H=480, W=640, n_train=20, n_test=3):
     """Weak-label crop variant: room pixels are UNLABELED (-1 in the npz, the
-    loader remaps them to ins_num='air'); objects carry labels 0..n_obj-1.
-    The frames are JPEG files: without a JPEG encoder this raises first."""
-    imageio = jpeg_codec()
+    loader remaps them to ins_num='air'); objects carry labels 0..n_obj-1."""
     base = os.path.join(out, "scannet", "stress")
     objs = make_objects(n_obj, seed=7)
     pal = palette(n_obj + 1)[1:]  # loader truncates to ins_num
@@ -212,8 +209,7 @@ def write_scannet(out, rend, n_obj=16, H=480, W=640, n_train=20, n_test=3):
             cv = np.array(gl, np.float64)
             cv[:3, :3] = cv[:3, :3] @ GL2CV
             img, lab = rend(cv, H, W, K4[:3, :3], objs)
-            imageio.imwrite(os.path.join(base, split, f"{split}_images", f"{i}.jpg"),
-                            _to8b(img))
+            write_jpeg(os.path.join(base, split, f"{split}_images", f"{i}.jpg"), _to8b(img))
             np.savetxt(os.path.join(base, split, f"{split}_pose", f"{i}.txt"),
                        cv, delimiter=" ")
             ins = lab.astype(np.int16) - 1          # room 0 -> -1 unlabeled
@@ -236,8 +232,6 @@ def main(argv=None):
                          "the rigid-mani AP50 over 0.9 on the 17-object scene)")
     args = ap.parse_args(argv)
     rend = Renderer(args.device)
-    if args.only in (None, "scannet"):
-        jpeg_codec()                    # fail before writing anything
     if args.only in (None, "dmsr"):
         write_dmsr(args.out, rend, n_train=args.dmsr_train_views)
     if args.only == "dmsr_quality":

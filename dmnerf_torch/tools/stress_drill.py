@@ -13,9 +13,7 @@ window).
         [--datadir DIR] [--basedir DIR] [--n_iters N] [--demo] [--device cpu]
 
 --datadir, --basedir and --n_iters override the config's values, so a short
-run in a temporary directory needs no edited config. ScanNet needs a JPEG
-decoder (data/scannet.py::jpeg_codec): a drill that includes it raises
-before it runs anything where none is installed.
+run in a temporary directory needs no edited config.
 """
 
 import argparse
@@ -28,8 +26,6 @@ import sys
 import time
 
 import numpy as np
-
-from dmnerf_torch.data.scannet import jpeg_codec
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CFG = {
@@ -96,8 +92,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     scenes = args.scenes.split(",")
-    if "scannet" in scenes:
-        jpeg_codec()                    # fail before running anything
     rows = []
     for scene in scenes:
         cfg = CFG[scene]

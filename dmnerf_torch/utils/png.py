@@ -2,9 +2,10 @@
 and numpy, so that the port reads and writes the reference's image formats
 without imageio or Pillow.
 
-write_png writes 8-bit greyscale [H, W] or RGB [H, W, 3] uint8 images,
-unfiltered and deflate-compressed: what the render harness and the stress
-scene writer write.
+write_png writes 8-bit greyscale [H, W] or RGB [H, W, 3] uint8 images and
+16-bit greyscale uint16 [H, W] ones (ScanNet's depth frames), unfiltered
+and deflate-compressed: what the render harness, the stress scene writer
+and the ScanNet export write.
 
 read_png returns what imageio.v2.imread (through Pillow) returns for the same
 file, in dtype, shape and values:
@@ -42,21 +43,25 @@ def _chunk(tag: bytes, data: bytes) -> bytes:
 
 def write_png(path: str, img: np.ndarray) -> None:
     img = np.asarray(img)
-    if img.dtype != np.uint8:
-        raise TypeError(f"write_png: expected uint8, got {img.dtype}")
-    if img.ndim == 2:
-        color_type = 0                      # greyscale
+    if img.dtype == np.uint16 and img.ndim == 2:
+        depth, color_type = 16, 0           # 16-bit greyscale, big-endian samples
+        img = img.astype(">u2")
+    elif img.dtype != np.uint8:
+        raise TypeError(f"write_png: expected uint8, or uint16 [H,W], got {img.dtype} "
+                        f"{img.shape}")
+    elif img.ndim == 2:
+        depth, color_type = 8, 0            # greyscale
     elif img.ndim == 3 and img.shape[2] == 3:
-        color_type = 2                      # truecolour
+        depth, color_type = 8, 2            # truecolour
     else:
         raise ValueError(f"write_png: expected [H,W] or [H,W,3], got {img.shape}")
     h, w = img.shape[:2]
-    rows = np.ascontiguousarray(img).reshape(h, -1)
+    rows = np.ascontiguousarray(img).view(np.uint8).reshape(h, -1)
     # each scanline starts with its filter type byte (0 = none)
     raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
     with open(path, "wb") as f:
         f.write(_SIGNATURE)
-        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)))
+        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color_type, 0, 0, 0)))
         f.write(_chunk(b"IDAT", zlib.compress(raw, 6)))
         f.write(_chunk(b"IEND", b""))
 

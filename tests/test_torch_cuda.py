@@ -4,8 +4,9 @@ the render kernels K3/K4, the edit kernel K5 and the training kernels K1/K2
 raw at shapes whose rays cross tiles and blocks, K4 at every grouping of
 rays, the f32 builds of K1-K5 against the plain f32 path, the edit
 path's launches of K1 and K5, the mesh path's density query (K1) and
-vertex labels (K4 + K3), and the stress scenes' ground truth march
-(data/procedural.py) on the card against the CPU.
+vertex labels (K4 + K3), the stress scenes' ground truth march
+(data/procedural.py) on the card against the CPU, and the JPEG codec
+(native/jpeg.cpp, built by this machine's g++) on its golden fixtures.
 
 Imports no jax, so the machine with the card runs it without the JAX package's
 conftest:  python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -415,3 +416,27 @@ def test_stress_scene_ground_truth_on_the_card_equals_the_cpu(edited):
         assert img_g.dtype == np.float32 and lab_g.dtype == np.int32
         assert np.abs(img_g - img_c).max() <= 1e-5
         assert (lab_g == lab_c).mean() >= 0.999
+
+
+@pytest.mark.cuda
+def test_jpeg_codec_on_the_golden_fixtures():
+    """The codec that the card machine's g++ builds decodes every fixture of
+    tests/torch_golden/jpeg to the array Pillow decoded and encodes every
+    imageio-default source to its bytes (jpeg_fixtures.jpeg_golden, as
+    chip_smoke.py phase 15(a) does), and reads a 968x1296 frame that goes
+    to the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs the card machine: its toolchain builds the codec")
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_golden",
+                                    "jpeg"))
+    import jpeg_fixtures
+    from dmnerf_torch.utils.jpeg import encode_jpeg, read_jpeg
+
+    n_dec, n_enc = jpeg_fixtures.jpeg_golden()
+    assert n_dec >= 10 and n_enc == 3
+    frame = jpeg_fixtures.smooth_frame(968, 1296)
+    img = torch.from_numpy(read_jpeg(encode_jpeg(frame))).cuda()
+    assert img.shape == (968, 1296, 3) and img.dtype == torch.uint8
+    assert (img.float() - torch.from_numpy(frame).cuda().float()).abs().mean() < 2.0

@@ -1,15 +1,15 @@
 """The port's copies of the JAX package's host modules (config, data/base
 and data/synthetic, edit transforms and deform, utils/viz, mesh and native)
 give what their sources give, and no module of the port imports the JAX
-package, or (one lazy JPEG import in data/scannet.py aside) imageio, h5py,
-cv2 or PIL.
+package, imageio, h5py, cv2 or PIL.
 
 The copies live in dmnerf_torch/ and name their source on their first line
 ("Copied from"); each case here runs a source and its copy on the same
-inputs. The DM-SR, DM-SR-mani, Replica and ScanNet readers and
-data/procedural.py are ported ("Ported from": PNG and HDF5 through
-utils/png.py and utils/hdf5.py, the march in torch); tests/test_torch_scenes.py
-holds them to the JAX package's.
+inputs. The DM-SR, DM-SR-mani, Replica and ScanNet readers, ScanNet's
+preprocessing and data/procedural.py are ported ("Ported from": PNG, JPEG and
+HDF5 through utils/png.py, utils/jpeg.py and utils/hdf5.py, the march in
+torch); tests/test_torch_scenes.py and tests/test_torch_preprocess.py hold
+them to the JAX package's.
 """
 
 import ast
@@ -257,45 +257,19 @@ def test_the_port_imports_nothing_of_the_jax_package(path):
 
 
 READER_LIBRARIES = ("imageio", "h5py", "cv2", "PIL")
-# the one exception: the JPEG frames of ScanNet, imported inside this function
-LAZY_JPEG = ("dmnerf_torch/data/scannet.py", "jpeg_codec", "imageio.v2")
-
-
-def _imports_outside(path, allowed_function):
-    """The modules `path` imports, leaving out those imported inside the
-    function named allowed_function."""
-    tree = ast.parse(open(os.path.join(REPO, path)).read(), filename=path)
-    skip = set()
-    for node in ast.walk(tree):
-        if isinstance(node, ast.FunctionDef) and node.name == allowed_function:
-            skip.update(id(n) for n in ast.walk(node))
-    for node in ast.walk(tree):
-        if id(node) in skip:
-            continue
-        if isinstance(node, ast.Import):
-            yield from (a.name for a in node.names)
-        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
-            yield node.module
 
 
 @pytest.mark.parametrize("path", PORT_FILES)
 def test_the_port_imports_no_reader_library(path):
-    allowed = LAZY_JPEG[1] if path == LAZY_JPEG[0] else None
-    bad = [m for m in _imports_outside(path, allowed) if m.split(".")[0] in READER_LIBRARIES]
+    bad = [m for m in _imports(path) if m.split(".")[0] in READER_LIBRARIES]
     assert not bad, f"{path} imports {bad}"
-
-
-def test_the_lazy_jpeg_import_is_the_only_one():
-    path, function, module = LAZY_JPEG
-    inside = [m for m in _imports(path) if m.split(".")[0] in READER_LIBRARIES]
-    assert inside == [module]
-    assert not [m for m in _imports_outside(path, function)
-                if m.split(".")[0] in READER_LIBRARIES]
 
 
 PORTED = ["dmnerf_torch/data/dmsr.py", "dmnerf_torch/data/dmsr_mani.py",
           "dmnerf_torch/data/replica.py", "dmnerf_torch/data/scannet.py",
-          "dmnerf_torch/data/procedural.py"]
+          "dmnerf_torch/data/procedural.py"] + [
+    f"dmnerf_torch/data/scannet_preprocess/{m}.py"
+    for m in ("__init__", "sensordata", "preprocess", "split", "run")]
 
 
 @pytest.mark.parametrize("path", [p for p in PORT_FILES if open(os.path.join(REPO, p))

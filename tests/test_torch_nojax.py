@@ -1,7 +1,7 @@
 """The port imports neither jax, orbax, imageio, h5py, cv2, PIL nor anything
-of the JAX package dmnerf_tpu: `import dmnerf_torch`, its edit modules, and
-a tiny CPU render, training run and mesh through its CLIs, in a fresh
-interpreter."""
+of the JAX package dmnerf_tpu: `import dmnerf_torch`, its edit modules, every
+module of the port, a tiny CPU render, training run and mesh through its
+CLIs, and ScanNet's preprocessing, in a fresh interpreter."""
 
 import json
 import os
@@ -122,3 +122,43 @@ def test_cli_mesh_loads_no_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out == {"loaded": [], "plys": ["color_nj.ply", "nj.ply"]}
+
+
+def test_every_port_module_and_the_scannet_preprocessing_load_no_jax(tmp_path):
+    """A fresh interpreter imports every module of dmnerf_torch, writes a
+    tiny raw ScanNet scene (chip_smoke.write_raw_scannet on the CPU: a .sens
+    of JPEG frames, label PNGs, a TSV) and runs
+    dmnerf_torch.data.scannet_preprocess.run on it; none of jax, orbax,
+    imageio, h5py, cv2, PIL or dmnerf_tpu is loaded."""
+    script = textwrap.dedent(f"""
+        import glob, importlib, json, os, sys
+        import chip_smoke as cs
+        from dmnerf_torch.data.procedural import make_objects
+        from dmnerf_torch.data.scannet_preprocess import run
+
+        mods = sorted(os.path.relpath(p, {REPO!r})[:-3].replace(os.sep, ".").replace(
+            ".__init__", "") for p in glob.glob(os.path.join({REPO!r}, "dmnerf_torch", "**",
+                                                             "*.py"), recursive=True))
+        for m in mods:
+            importlib.import_module(m)
+        cs.COLOR_HW, cs.DEPTH_HW, cs.SENS_FRAMES = (25, 34), (12, 17), 4
+        root = {str(tmp_path)!r}
+        tsv = cs.write_raw_scannet(root, "scene0001_00", make_objects(3, seed=1), "cpu",
+                                   device="cpu")
+        run.main(["--scans", os.path.join(root, "scans"), "--out", os.path.join(root, "out"),
+                  "--label_map", tsv, "--save_dir", os.path.join(root, "scannet"),
+                  "--frames", "2"])
+        print(json.dumps({{
+            "modules": len(mods),
+            "loaded": sorted(m for m in sys.modules
+                             if m.split(".")[0] in ("jax", "jaxlib", "orbax", "imageio",
+                                                     "h5py", "cv2", "PIL", "dmnerf_tpu")),
+            "split": os.path.exists(os.path.join(root, "scannet", "scene0001_00",
+                                                 "train_split.txt")),
+        }}))
+    """)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["modules"] >= 60 and out["loaded"] == [] and out["split"]

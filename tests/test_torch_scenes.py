@@ -10,10 +10,13 @@
 - data/procedural.py's torch march equals the JAX package's numpy march
   (images within 1e-5, labels on at least 99.9% of the pixels);
 - dmnerf_torch.tools.make_stress_scenes writes the JAX tool's layout: the
-  same files, equal JSON, poses and palettes, and PNGs equal on at least
-  99.9% of the pixels and within 1 everywhere;
-- without a JPEG decoder the ScanNet reader and writer raise an ImportError
-  that names it, before they write anything.
+  same files, equal JSON, poses and palettes, and PNGs and JPEGs equal on at
+  least 99.9% of the pixels and within 1 everywhere; each ScanNet .jpg is
+  equal to the JAX tool's byte for byte wherever the two GT frames are equal
+  as uint8, and every one is when both tools write from one GT renderer;
+- in a fresh interpreter where imageio, h5py, cv2 and PIL cannot be
+  imported, the ScanNet stress scene loads with and without resize to the
+  JAX loader's SceneData and trains 2 steps through cli.train on the CPU.
 """
 
 import dataclasses
@@ -60,12 +63,31 @@ def _write(tool, out, scene, rend):
     return os.path.join(out, scene, "stress")
 
 
+def _recording(renderer):
+    """The tool's GT renderer, keeping each frame's uint8 image in call order."""
+    class Recording(renderer):
+        def __call__(self, *a):
+            img, lab = super().__call__(*a)
+            self.frames.append((255 * np.clip(img, 0, 1)).astype(np.uint8))
+            return img, lab
+    rend = Recording("cpu", n_samples=48)
+    rend.frames = []
+    return rend
+
+
+GT_FRAMES = {}      # tool -> the uint8 GT frames of its ScanNet scene, in write order
+
+
 @pytest.fixture(scope="module")
 def jax_scenes(tmp_path_factory):
     """scene -> directory, written by the JAX package's tool (numpy GT)."""
     out = str(tmp_path_factory.mktemp("jax_scenes"))
     rend = jtool.Renderer("cpu", n_samples=48)
-    return {s: _write(jtool, out, s, rend) for s in SIZES}
+    dirs = {s: _write(jtool, out, s, rend) for s in SIZES if s != "scannet"}
+    rend = _recording(jtool.Renderer)
+    dirs["scannet"] = _write(jtool, out, "scannet", rend)
+    GT_FRAMES["tpu"] = rend.frames
+    return dirs
 
 
 @pytest.fixture(scope="module")
@@ -73,7 +95,20 @@ def port_scenes(tmp_path_factory):
     """scene -> directory, written by the port's tool (torch GT on the CPU)."""
     out = str(tmp_path_factory.mktemp("port_scenes"))
     rend = ttool.Renderer("cpu", n_samples=48)
-    return {s: _write(ttool, out, s, rend) for s in SIZES}
+    dirs = {s: _write(ttool, out, s, rend) for s in SIZES if s != "scannet"}
+    rend = _recording(ttool.Renderer)
+    dirs["scannet"] = _write(ttool, out, "scannet", rend)
+    GT_FRAMES["torch"] = rend.frames
+    return dirs
+
+
+def _scannet_jpgs(root):
+    """The ScanNet scene's .jpg files in the order the tools write them."""
+    out = []
+    for split in ("train", "test"):
+        ids = np.loadtxt(os.path.join(root, f"{split}_split.txt")).astype(int).reshape(-1)
+        out += [os.path.join(split, f"{split}_images", f"{i}.jpg") for i in ids]
+    return out
 
 
 def _equal(a, b):
@@ -212,21 +247,103 @@ def test_port_tool_writes_the_jax_tools_layout(jax_scenes, port_scenes, scene):
         else:
             raise AssertionError(f"unexpected file {f}")
     assert equal_px >= 0.999 * total_px
+    if scene == "scannet":
+        jpgs = _scannet_jpgs(j)
+        assert sorted(jpgs) == sorted(f for f in files if f.endswith(".jpg"))
+        same_gt = [np.array_equal(a, b) for a, b in zip(GT_FRAMES["tpu"], GT_FRAMES["torch"])]
+        assert len(same_gt) == len(jpgs) and any(same_gt)
+        for f, same in zip(jpgs, same_gt):
+            if same:
+                assert open(os.path.join(j, f), "rb").read() == \
+                    open(os.path.join(t, f), "rb").read(), f
 
 
-def test_scannet_without_a_jpeg_decoder_raises(jax_scenes, tmp_path, monkeypatch):
-    for name in ("imageio", "imageio.v2"):
-        monkeypatch.setitem(sys.modules, name, None)
-    args = types.SimpleNamespace(datadir=jax_scenes["scannet"], testskip=1, resize=False,
-                                 crop_width=28, crop_height=20)
-    with pytest.raises(ImportError, match="JPEG decoder"):
-        tscannet.load_data(args)
-    out = tmp_path / "out"
-    with pytest.raises(ImportError, match="JPEG decoder"):
-        ttool.write_scannet(str(out), ttool.Renderer("cpu", n_samples=8), **SIZES["scannet"])
-    with pytest.raises(ImportError, match="JPEG decoder"):
-        ttool.main(["--out", str(out), "--device", "cpu"])
-    assert not out.exists()
+def test_scannet_jpgs_equal_the_jax_tools_on_one_gt(tmp_path):
+    """Both tools write the ScanNet scene from one GT renderer (the JAX
+    package's numpy march): every file is equal byte for byte."""
+    march = jtool.Renderer("cpu", n_samples=16)
+    objs = jproc.make_objects(SIZES["scannet"]["n_obj"], seed=7)    # write_scannet's scene
+
+    def rend(pose, H, W, K, _objs):
+        return march(pose, H, W, K, objs)
+    j = _write(jtool, str(tmp_path / "j"), "scannet", rend)
+    t = _write(ttool, str(tmp_path / "t"), "scannet", rend)
+    files = _files(j)
+    assert _files(t) == files and sum(f.endswith(".jpg") for f in files) == 5
+    for f in files:
+        a, b = os.path.join(j, f), os.path.join(t, f)
+        if f.endswith(".npz"):
+            assert _equal(np.load(a)["ins_2d_label_id"], np.load(b)["ins_2d_label_id"]), f
+        elif f.endswith(".hdf5"):
+            with h5py.File(a, "r") as fa, h5py.File(b, "r") as fb:
+                assert _equal(fa["datasets"][()], fb["datasets"][()]), f
+        else:
+            assert open(a, "rb").read() == open(b, "rb").read(), f
+
+
+def test_scannet_loads_and_trains_without_the_reader_libraries(jax_scenes, tmp_path):
+    """A fresh interpreter where imageio, h5py, cv2 and PIL cannot be
+    imported loads the ScanNet stress scene through the port with and without
+    resize (the arrays come back through an .npz and must equal the JAX
+    loader's to the bit), then trains 2 steps on it through
+    dmnerf_torch.cli.train on the CPU."""
+    datadir = shutil.copytree(jax_scenes["scannet"], tmp_path / "scannet" / "stress")
+    K = np.loadtxt(os.path.join(datadir, "intrinsic", "intrinsic_color.txt"))
+    np.savetxt(os.path.join(datadir, "intrinsic", "intrinsic_depth.txt"), K)
+    kws = {"plain": dict(resize=False, crop_width=28, crop_height=20),
+           "resized": dict(resize=True, crop_width=576, crop_height=432)}
+    cfg = tmp_path / "tiny.txt"
+    cfg.write_text("\n".join([
+        "expname = tiny", f"basedir = {tmp_path / 'logs'}", "log_time = run",
+        f"datadir = {datadir}", "N_train = 32", "N_samples = 8", "N_importance = 8",
+        "N_test = 256", "near = 0.5", "far = 16.0", "testskip = 1", "netdepth = 2",
+        "netwidth = 32", "multires = 4", "multires_views = 2", "penalize",
+        "tolerance = 0.1", "deta_w = 0.1", "crop_width = 28", "crop_height = 20",
+        "n_iters = 1", "i_print = 1", "i_save = 2", "i_test = 0"]) + "\n")
+    script = textwrap.dedent(f"""
+        import json, sys, types
+        for m in {BLOCKED!r}:
+            sys.modules[m] = None
+        import numpy as np
+        from dmnerf_torch.data.base import load_dataset
+        import dmnerf_torch.cli.train as cli_train
+
+        out, nones = {{}}, []
+        for key, kw in {kws!r}.items():
+            scene = load_dataset(types.SimpleNamespace(datadir={str(datadir)!r}, testskip=1,
+                                                       **kw))
+            for name, value in vars(scene).items():
+                if value is None:
+                    nones.append(f"{{key}}.{{name}}")
+                elif name == "ins_indices":
+                    out.update({{f"{{key}}.{{name}}.{{i}}": v for i, v in enumerate(value)}})
+                else:
+                    out[f"{{key}}.{{name}}"] = np.asarray(value)
+        np.savez({str(tmp_path / 'scenes.npz')!r}, **out)
+        state = cli_train.main(["--config", {str(cfg)!r}, "--device", "cpu"])
+        print(json.dumps({{
+            "nones": nones, "step": state.step,
+            "loaded": sorted(m for m in sys.modules if m.split(".")[0] in {BLOCKED!r}
+                             and sys.modules[m] is not None)}}))
+    """)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["step"] == 2 and res["loaded"] == []
+    got = np.load(tmp_path / "scenes.npz")
+    for key, kw in kws.items():
+        want = jbase.load_dataset(types.SimpleNamespace(datadir=str(datadir), testskip=1, **kw))
+        for f in dataclasses.fields(want):
+            value = getattr(want, f.name)
+            if value is None:
+                assert f"{key}.{f.name}" in res["nones"], f"{key}.{f.name}"
+            elif f.name == "ins_indices":
+                assert len(value) == sum(k.startswith(f"{key}.ins_indices.") for k in got.files)
+                for i, v in enumerate(value):
+                    assert _equal(got[f"{key}.ins_indices.{i}"], v), f"{key}.ins_indices.{i}"
+            else:
+                assert _equal(got[f"{key}.{f.name}"], np.asarray(value)), f"{key}.{f.name}"
 
 
 def test_readers_and_clis_run_without_the_reader_libraries(jax_scenes, tmp_path):
