@@ -2,8 +2,9 @@
 path (kernels K3/K4), the training step (kernels K1/K2), the edit path
 (kernels K1/K5) and mesh extraction (kernels K1, K4/K3), each in bf16 and,
 through the kernels' f32 builds, in f32; then the reference-format stress
-scenes written, read and run through the CLIs, and ScanNet (JPEG frames,
-the .sens preprocessing, the flagship config) through them.
+scenes written, read and run through the CLIs, ScanNet (JPEG frames, the
+.sens preprocessing, the flagship config) through them, and LPIPS and the
+profiler trace of the train step.
 
     python3 chip_smoke.py
 
@@ -145,17 +146,36 @@ Phases (each fails the run by raising; nothing is caught):
    chunks of 480x640, width 256, its ins_num) as in (b), and cli.test
    --render of configs/scannet/test/scene0010_00.txt on every 8th test view
    (s/view). Exact launch counts throughout.
+16. LPIPS and the trace: (a) eval/lpips.py with random weights in the .npz
+   layout (LPIPS_SEED) on the card against the CPU on a 480x640 pair and its
+   432x576 crop, normalize False and True, within LPIPS_TOL of max(1,
+   |CPU|), with the TF32-on difference beside it (a finding only), ms per
+   call (median of 5) and the fp32 bound; (b) cli.test --render and
+   --mani_eval with --lpips_weights on phase 14's trained dmsr_stress field
+   (4 views each): a finite LPIPS column and mean, s/view against phase
+   14's calls without LPIPS, exact launches; (c) cli.train --profile_steps
+   PROFILE_STEPS --scan_steps PROFILE_SCAN for PROFILE_ITERS steps at
+   flagship width (3072 rays, 64+128 samples, on PROFILE_SCENE) and the
+   same run untraced: metrics.jsonl equal but for
+   rays_per_sec, and `python -m dmnerf_torch.tools.trace_step --parse_only`
+   on its trace, which must hold device events and exactly 2 launches of
+   K1 and of K2 per traced step; (d) `python -m
+   dmnerf_torch.tools.trace_step` capturing bench.py's train workload
+   (CAPTURE_STEPS steps): device time by category, the top kernels, the device's busy
+   share and the host's time in launches, copies and waits, torch ops and
+   Python, with the LAP's spans.
 Phases 3, 6, 9 and 12 also print each kernel's bound (the larger of its
 operations over the peak of its type, bf16 tensor cores or fp32 CUDA cores,
 and its bytes over the memory rate), its TFLOP/s and its share of the bound.
 The line before the last is a JSON object with one entry per kernel and
 build (its K=64 reading under "k64", its phase-14 and phase-15 errors per
 config under "stress_max_abs_err"; launches summed over the main paths,
-phases 14 and 15 included); the line before it is the smoke's total time; the
+phases 14, 15 and 16 included); the line before it is the smoke's total time; the
 last line is {"ok": true, "device": {...}}. The run fails if it loaded jax,
 the JAX package, imageio, h5py, cv2 or PIL.
 """
 
+import contextlib
 import json
 import os
 import re
@@ -688,11 +708,13 @@ def main():
         edit_throughput(dev, card, cfg, {"coarse": coarse, "fine": fine})
         kernels += f32_builds(dev, card, ro, rd, vd, z_c, z_f, mesh_cfg)
         mesh_launches = mesh_slice(dev, card, mesh_cfg)
-    scene_launches, scene_errs = reference_scenes(card)
-    scannet_launches, scannet_errs = scannet_slice(card)
+    with tempfile.TemporaryDirectory() as scenes_tmp:
+        scene_launches, scene_errs, scene_secs = reference_scenes(card, scenes_tmp)
+        scannet_launches, scannet_errs = scannet_slice(card)
+        lpips_launches = lpips_and_trace(card, scenes_tmp, scene_secs)
     for k in kernels:                   # the f32 entries hold phase 12's mesh launches
-        k["launches"] += (mesh_launches.get(k["name"], 0) + scene_launches.get(k["name"], 0)
-                          + scannet_launches.get(k["name"], 0))
+        k["launches"] += sum(p.get(k["name"], 0) for p in (mesh_launches, scene_launches,
+                                                            scannet_launches, lpips_launches))
         for errs in (scene_errs, scannet_errs):   # {config: max abs err} at the stress shapes
             if k["name"] in errs:
                 k.setdefault("stress_max_abs_err", {}).update(errs[k["name"]])
@@ -1887,7 +1909,7 @@ def stress_kernels_vs_plain(name, args, scene, params, edits):
     return errs
 
 
-def reference_scenes(card):
+def reference_scenes(card, tmp):
     """Phase 14: the DM-SR and replica64 stress scenes written by
     dmnerf_torch.tools.make_stress_scenes at the tool's full sizes, loaded
     through load_dataset without imageio, h5py, cv2 or PIL, then
@@ -1896,8 +1918,9 @@ def reference_scenes(card):
     rendered, all through the CLIs with exact launch counts. After each
     training run, every kernel that the config's path launches is held
     against its plain version on the trained field at the config's shapes.
+    The scenes, logs and checkpoints stay in `tmp` (phase 16 reads them).
     Returns ({kernel: launches of the phase}, {kernel: {config: max abs
-    error}})."""
+    error}}, {CLI call: s/view})."""
     from dmnerf_torch.cli import test as cli_test
     from dmnerf_torch.cli import train as cli_train
     from dmnerf_torch.config import parse_args
@@ -1909,7 +1932,7 @@ def reference_scenes(card):
     phase(f"14 reference-format scenes: the DM-SR and replica64 stress scenes written and "
           f"loaded by the port, dmsr_stress.txt through train ({STRESS_STEPS} steps), render, "
           f"mani_eval, mani_demo and mesh, replica64_stress.txt through train and render (bf16)")
-    totals, errs = {}, {}
+    totals, errs, per_view_secs = {}, {}, {}
 
     def run(what, want, fn):
         out, secs, launches = counted(what, want, fn)
@@ -1928,130 +1951,130 @@ def reference_scenes(card):
             self.seconds += time.perf_counter() - t
             return out
 
-    with tempfile.TemporaryDirectory() as tmp:
-        for what, write in (("dmsr/stress (16 objects, 640x480, 48 + 4 views, 4 edited)",
-                             lambda rend: mss.write_dmsr(tmp, rend)),
-                            ("replica64/stress (64 objects, 120x160, 360 frames)",
-                             lambda rend: mss.write_replica(tmp, rend, n_obj=64,
-                                                            name="replica64"))):
-            rend = TimedRenderer(torch.device("cuda"))
-            t0 = time.perf_counter()
-            write(rend)
-            secs = time.perf_counter() - t0
-            print(f"make_stress_scenes {what}: {secs:.2f} s, of which GT renders "
-                  f"{rend.seconds:.2f} s and the rest (the PNG writes, with the JSON, pose "
-                  f"and HDF5 files) {secs - rend.seconds:.2f} s ({card})")
+    for what, write in (("dmsr/stress (16 objects, 640x480, 48 + 4 views, 4 edited)",
+                         lambda rend: mss.write_dmsr(tmp, rend)),
+                        ("replica64/stress (64 objects, 120x160, 360 frames)",
+                         lambda rend: mss.write_replica(tmp, rend, n_obj=64,
+                                                        name="replica64"))):
+        rend = TimedRenderer(torch.device("cuda"))
+        t0 = time.perf_counter()
+        write(rend)
+        secs = time.perf_counter() - t0
+        print(f"make_stress_scenes {what}: {secs:.2f} s, of which GT renders "
+              f"{rend.seconds:.2f} s and the rest (the PNG writes, with the JSON, pose "
+              f"and HDF5 files) {secs - rend.seconds:.2f} s ({card})")
 
-        runs = {"dmsr": ("configs/stress/dmsr_stress.txt", os.path.join(tmp, "dmsr", "stress")),
-                "replica64": ("configs/stress/replica64_stress.txt",
-                              os.path.join(tmp, "replica64", "stress"))}
-        scenes = {}
-        for name, (cfg, datadir) in runs.items():
-            args = parse_args(["--config", os.path.join(REPO, cfg), "--datadir", datadir])
-            args.is_train = True
-            t0 = time.perf_counter()
-            scene = load_dataset(args)
-            args.ins_num = scene.ins_num
-            scenes[name] = (args, scene)
-            print(f"load_dataset {name}: {len(scene.images)} images {scene.H}x{scene.W}, "
-                  f"ins_num {scene.ins_num}, in {time.perf_counter() - t0:.2f} s")
-        if banned_modules():
-            raise AssertionError(f"the readers loaded {banned_modules()}")
+    runs = {"dmsr": ("configs/stress/dmsr_stress.txt", os.path.join(tmp, "dmsr", "stress")),
+            "replica64": ("configs/stress/replica64_stress.txt",
+                          os.path.join(tmp, "replica64", "stress"))}
+    scenes = {}
+    for name, (cfg, datadir) in runs.items():
+        args = parse_args(["--config", os.path.join(REPO, cfg), "--datadir", datadir])
+        args.is_train = True
+        t0 = time.perf_counter()
+        scene = load_dataset(args)
+        args.ins_num = scene.ins_num
+        scenes[name] = (args, scene)
+        print(f"load_dataset {name}: {len(scene.images)} images {scene.H}x{scene.W}, "
+              f"ins_num {scene.ins_num}, in {time.perf_counter() - t0:.2f} s")
+    if banned_modules():
+        raise AssertionError(f"the readers loaded {banned_modules()}")
 
-        def cli_args(name, *flags):
-            cfg, datadir = runs[name]
-            return ["--config", os.path.join(REPO, cfg), "--datadir", datadir,
-                    "--basedir", os.path.join(tmp, "logs"), *flags, "--device", "cuda"]
+    def cli_args(name, *flags):
+        cfg, datadir = runs[name]
+        return ["--config", os.path.join(REPO, cfg), "--datadir", datadir,
+                "--basedir", os.path.join(tmp, "logs"), *flags, "--device", "cuda"]
 
-        def train(name, edits):
-            args, scene = scenes[name]
-            _, secs = run(f"cli.train {name}, {STRESS_STEPS} steps", {
-                "field_forward": 2 * STRESS_STEPS, "field_backward": 2 * STRESS_STEPS},
-                lambda: cli_train.main(cli_args(name, "--n_iters", str(STRESS_STEPS - 1),
-                                                "--i_print", "10")))
-            ldir = os.path.join(tmp, "logs", f"{name}_stress", "drill")
-            lines = [json.loads(l) for l in open(os.path.join(ldir, "metrics.jsonl"))]
-            if len(lines) != STRESS_STEPS // 10 or not np.isfinite(
-                    [l[k] for l in lines for k in ("total_loss", "psnr_fine")]).all():
-                raise AssertionError(f"cli.train {name}: metrics {lines[-1]}")
-            ms = np.mean([1e3 * args.N_train / l["rays_per_sec"] for l in lines[1:]])
-            print(f"cli.train {name}: {ms:.2f} ms/step after its first 10 steps, "
-                  f"{secs:.1f} s in all (the scene's load included); last {lines[-1]} ({card})")
-            params, _ = cli_test.load_fields(cli_test.latest_tar(ldir),
-                                             FieldConfig.from_args(args), torch.device("cuda"))
-            for k, e in stress_kernels_vs_plain(name, args, scene, params, edits).items():
-                errs.setdefault(k, {})[name] = e
+    def train(name, edits):
+        args, scene = scenes[name]
+        _, secs = run(f"cli.train {name}, {STRESS_STEPS} steps", {
+            "field_forward": 2 * STRESS_STEPS, "field_backward": 2 * STRESS_STEPS},
+            lambda: cli_train.main(cli_args(name, "--n_iters", str(STRESS_STEPS - 1),
+                                            "--i_print", "10")))
+        ldir = os.path.join(tmp, "logs", f"{name}_stress", "drill")
+        lines = [json.loads(l) for l in open(os.path.join(ldir, "metrics.jsonl"))]
+        if len(lines) != STRESS_STEPS // 10 or not np.isfinite(
+                [l[k] for l in lines for k in ("total_loss", "psnr_fine")]).all():
+            raise AssertionError(f"cli.train {name}: metrics {lines[-1]}")
+        ms = np.mean([1e3 * args.N_train / l["rays_per_sec"] for l in lines[1:]])
+        print(f"cli.train {name}: {ms:.2f} ms/step after its first 10 steps, "
+              f"{secs:.1f} s in all (the scene's load included); last {lines[-1]} ({card})")
+        params, _ = cli_test.load_fields(cli_test.latest_tar(ldir),
+                                         FieldConfig.from_args(args), torch.device("cuda"))
+        for k, e in stress_kernels_vs_plain(name, args, scene, params, edits).items():
+            errs.setdefault(k, {})[name] = e
 
-        def per_view(what, secs, views):
-            print(f"{what}: {secs / views:.3f} s/view over {views} views (the whole CLI call "
-                  f"over the views: the scene's load and the checkpoint included; {card})")
+    def per_view(what, secs, views):
+        per_view_secs[what] = secs / views
+        print(f"{what}: {secs / views:.3f} s/view over {views} views (the whole CLI call "
+              f"over the views: the scene's load and the checkpoint included; {card})")
 
-        def results(savedir, what, n):
-            table = np.loadtxt(os.path.join(savedir, "test_results.txt"))
-            if table.shape != (n + 1, 9) or not np.isfinite(table[:, 0]).all():
-                raise AssertionError(f"{what}: test_results.txt {table.shape}, PSNR {table[:, 0]}")
-            print(f"{what}: test_results.txt mean row PSNR {table[-1, 0]:.4f} SSIM "
-                  f"{table[-1, 1]:.4f} AP50 {table[-1, 3]:.4f}")
+    def results(savedir, what, n):
+        table = np.loadtxt(os.path.join(savedir, "test_results.txt"))
+        if table.shape != (n + 1, 9) or not np.isfinite(table[:, 0]).all():
+            raise AssertionError(f"{what}: test_results.txt {table.shape}, PSNR {table[:, 0]}")
+        print(f"{what}: test_results.txt mean row PSNR {table[-1, 0]:.4f} SSIM "
+              f"{table[-1, 1]:.4f} AP50 {table[-1, 3]:.4f}")
 
-        def render(name, views, chunks):
-            what = f"cli.test --render {name}"
-            savedir, secs = run(f"{what}, {views} views", {
-                "render_field_sigma": views * chunks, "render_field_all": views * chunks},
-                lambda: cli_test.main(cli_args(name, "--render")))
-            per_view(what, secs, views)
-            results(savedir, what, views)
+    def render(name, views, chunks):
+        what = f"cli.test --render {name}"
+        savedir, secs = run(f"{what}, {views} views", {
+            "render_field_sigma": views * chunks, "render_field_all": views * chunks},
+            lambda: cli_test.main(cli_args(name, "--render")))
+        per_view(what, secs, views)
+        results(savedir, what, views)
 
-        chunks = -(-640 * 480 // 4096)
-        resolve = 3 * chunks            # resolve_target_label renders 3 test views
-        train("dmsr", edits=True)
-        render("dmsr", 4, chunks)
+    chunks = -(-640 * 480 // 4096)
+    resolve = 3 * chunks            # resolve_target_label renders 3 test views
+    train("dmsr", edits=True)
+    render("dmsr", 4, chunks)
 
-        want = {"field_forward": 4 * chunks * 2 * 2, "render_field_ins": 4 * chunks * 2,
+    want = {"field_forward": 4 * chunks * 2 * 2, "render_field_ins": 4 * chunks * 2,
+            "render_field_sigma": resolve, "render_field_all": resolve}
+    savedir, secs = run("cli.test --mani_eval dmsr, 4 views, 1 object", want,
+                        lambda: cli_test.main(cli_args("dmsr", "--mani_eval")))
+    per_view("cli.test --mani_eval dmsr (after a 3-view resolve render)", secs, 4)
+    results(os.path.join(savedir, "translation"), "cli.test --mani_eval dmsr", 4)
+    for mani_type, n_obj in (("rigid", 1), ("deform", 2)):
+        what = f"cli.test --mani_demo --mani_type {mani_type} dmsr"
+        want = {"field_forward": 2 * chunks * 2 * (1 + n_obj),
+                "render_field_ins": 2 * chunks * (1 + n_obj),
                 "render_field_sigma": resolve, "render_field_all": resolve}
-        savedir, secs = run("cli.test --mani_eval dmsr, 4 views, 1 object", want,
-                            lambda: cli_test.main(cli_args("dmsr", "--mani_eval")))
-        per_view("cli.test --mani_eval dmsr (after a 3-view resolve render)", secs, 4)
-        results(os.path.join(savedir, "translation"), "cli.test --mani_eval dmsr", 4)
-        for mani_type, n_obj in (("rigid", 1), ("deform", 2)):
-            what = f"cli.test --mani_demo --mani_type {mani_type} dmsr"
-            want = {"field_forward": 2 * chunks * 2 * (1 + n_obj),
-                    "render_field_ins": 2 * chunks * (1 + n_obj),
-                    "render_field_sigma": resolve, "render_field_all": resolve}
-            savedir, secs = run(f"{what}, 2 views, {n_obj} object(s)", want, lambda: cli_test.main(
-                cli_args("dmsr", "--mani_demo", "--mani_type", mani_type, "--views", "2")))
-            per_view(f"{what} (after a 3-view resolve render)", secs, 2)
-            names = sorted(os.listdir(os.path.join(savedir, mani_type)))
-            if names != sorted(f"{i}_{k}.png" for i in range(2)
-                               for k in ("rgb", "ins", "ins_pred_mask")):
-                raise AssertionError(f"--mani_demo {mani_type} wrote {names}")
+        savedir, secs = run(f"{what}, 2 views, {n_obj} object(s)", want, lambda: cli_test.main(
+            cli_args("dmsr", "--mani_demo", "--mani_type", mani_type, "--views", "2")))
+        per_view(f"{what} (after a 3-view resolve render)", secs, 2)
+        names = sorted(os.listdir(os.path.join(savedir, mani_type)))
+        if names != sorted(f"{i}_{k}.png" for i in range(2)
+                           for k in ("rgb", "ins", "ins_pred_mask")):
+            raise AssertionError(f"--mani_demo {mani_type} wrote {names}")
 
-        # the mesh: K1 on the 192^3 grid, then K4 + K3 on the vertex rays
-        from dmnerf_torch.mesh import extract
+    # the mesh: K1 on the 192^3 grid, then K4 + K3 on the vertex rays
+    from dmnerf_torch.mesh import extract
 
-        def mesh():
-            ply = os.path.join(cli_test.main(cli_args("dmsr", "--mesh")),
-                               "color_dmsr_stress.ply")
-            if not os.path.exists(ply):
-                raise AssertionError(f"cli.test --mesh dmsr wrote no {ply} (an empty isosurface)")
-            return tuple(len(a) for a in read_ply(ply))
-        (V, F), secs = run("cli.test --mesh dmsr (grid 192, extents 13,13,13)", lambda vf: {
-            "field_forward": -(-192 ** 3 // extract.DENSITY_BATCH),
-            "render_field_sigma": -(-vf[0] // 4096), "render_field_all": -(-vf[0] // 4096)},
-            mesh)
-        print(f"cli.test --mesh dmsr: V {V}, F {F} after cleanup, {secs:.1f} s in all (the "
-              f"scene's load and the checkpoint included; {card})")
-        if V == 0 or F == 0:
-            raise AssertionError(f"cli.test --mesh dmsr: an empty mesh (V {V}, F {F})")
+    def mesh():
+        ply = os.path.join(cli_test.main(cli_args("dmsr", "--mesh")),
+                           "color_dmsr_stress.ply")
+        if not os.path.exists(ply):
+            raise AssertionError(f"cli.test --mesh dmsr wrote no {ply} (an empty isosurface)")
+        return tuple(len(a) for a in read_ply(ply))
+    (V, F), secs = run("cli.test --mesh dmsr (grid 192, extents 13,13,13)", lambda vf: {
+        "field_forward": -(-192 ** 3 // extract.DENSITY_BATCH),
+        "render_field_sigma": -(-vf[0] // 4096), "render_field_all": -(-vf[0] // 4096)},
+        mesh)
+    print(f"cli.test --mesh dmsr: V {V}, F {F} after cleanup, {secs:.1f} s in all (the "
+          f"scene's load and the checkpoint included; {card})")
+    if V == 0 or F == 0:
+        raise AssertionError(f"cli.test --mesh dmsr: an empty mesh (V {V}, F {F})")
 
-        train("replica64", edits=False)
-        views = len(range(0, 180, 8))          # replica64_stress.txt's testskip 8
-        render("replica64", views, -(-120 * 160 // 4096))
+    train("replica64", edits=False)
+    views = len(range(0, 180, 8))          # replica64_stress.txt's testskip 8
+    render("replica64", views, -(-120 * 160 // 4096))
     if banned_modules():
         raise AssertionError(f"phase 14 loaded {banned_modules()}")
     for k, n in totals.items():
         print(f"phase 14 {k}: {n} launches; against its plain version at the stress "
               f"configs' shapes, max abs err {errs.get(k)}")
-    return totals, errs
+    return totals, errs, per_view_secs
 
 
 # the JPEG fixtures and their checker, jpeg_fixtures.py
@@ -2299,6 +2322,182 @@ def scannet_slice(card):
               f"and scene0010_00's shapes, max abs err {errs.get(k)}")
     print(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
     return totals, errs
+
+
+# phase 16: the random LPIPS weights' seed and the bar of the card against the
+# CPU (both fp32, TF32 off: only the order of the convolutions' sums differs)
+LPIPS_SEED = 0
+LPIPS_TOL = 1e-4
+# phase 16(c): cli.train for PROFILE_ITERS steps in dispatches of PROFILE_SCAN,
+# of which PROFILE_STEPS after the first are traced, on a scene that is quick
+# to make and has more pixels than the 3072 rays of a step; (d): the steps of
+# trace_step's traced dispatch (its default is 50: a shorter trace writes and
+# parses faster)
+PROFILE_ITERS, PROFILE_SCAN, PROFILE_STEPS = 20, 5, 2
+PROFILE_SCENE = "./data/synthetic/boxroom64x4"
+CAPTURE_STEPS = 20
+
+
+def lpips_flops(H, W):
+    """Multiply-adds x 2 of LPIPS-VGG's 13 convolutions on one H x W image."""
+    from dmnerf_torch.eval.lpips import _VGG_CFG
+    flops, cin = 0, 3
+    for item in _VGG_CFG:
+        if item == "M":
+            H, W = H // 2, W // 2
+        else:
+            flops += 2 * 9 * cin * item * H * W
+            cin = item
+    return flops
+
+
+def lpips_and_trace(card, tmp, phase14_secs):
+    """Phase 16: (a) LPIPS (random weights in the .npz layout) on the card
+    against the CPU on a 480x640 pair and its 432x576 ScanNet-sized crop,
+    normalize False and True, within LPIPS_TOL of max(1, |CPU|), the TF32-on
+    difference beside it (a finding only) and ms per call; (b) cli.test
+    --render and --mani_eval with --lpips_weights on phase 14's trained
+    dmsr_stress field in `tmp` (finite LPIPS column and mean, s/view against
+    phase 14's calls without LPIPS, exact launches); (c) cli.train --profile_steps
+    on the flagship: the trace's K1/K2 launches exact, device events present,
+    metrics.jsonl equal to the untraced run's but for rays_per_sec; (d)
+    `python -m dmnerf_torch.tools.trace_step` capturing bench.py's train
+    workload. Returns {kernel: launches of the phase}."""
+    from dmnerf_torch.cli import test as cli_test
+    from dmnerf_torch.cli import train as cli_train
+    from dmnerf_torch.eval import lpips
+    from dmnerf_torch.tools import trace_step
+
+    phase("16 LPIPS and the trace: LPIPS on the card against the CPU; cli.test --render and "
+          "--mani_eval with --lpips_weights on the dmsr_stress field; cli.train --profile_steps "
+          "and trace_step's reader; trace_step capturing bench.py's train workload")
+    t_phase = time.perf_counter()
+    totals = {}
+
+    def run(what, want, fn):
+        out, secs, launches = counted(what, want, fn)
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        return out, secs
+
+    # (a) the card against the CPU
+    weights = os.path.join(tmp, "lpips_random.npz")
+    arrays = lpips.random_weights(LPIPS_SEED)
+    np.savez(weights, **arrays)
+    rng = np.random.default_rng(16)
+    a = rng.uniform(0, 1, (480, 640, 3)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1).astype(np.float32)
+    pairs = {"480x640": (a, b), "432x576 crop": (a[24:456, 32:608], b[24:456, 32:608])}
+    on_card = lpips.prepare_params(arrays, "cuda")
+
+    @contextlib.contextmanager
+    def tf32():
+        prev = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.allow_tf32 = prev
+    for normalize in (False, True):
+        card_fn = lpips.load_lpips(weights, normalize, device="cuda")
+        cpu_fn = lpips.load_lpips(weights, normalize, device="cpu")
+        for name, (x, y) in pairs.items():
+            want, got = cpu_fn(x, y), card_fn(x, y)
+            saved, lpips._cudnn_fp32 = lpips._cudnn_fp32, tf32
+            try:
+                got_tf32 = float(lpips.lpips_distance(on_card, torch.from_numpy(x).cuda(),
+                                                      torch.from_numpy(y).cuda(), normalize))
+            finally:
+                lpips._cudnn_fp32 = saved
+            ms = cuda_ms(lambda: card_fn(x, y), reps=5, warmup=1)
+            bound = 2 * lpips_flops(*x.shape[:2]) / PEAK_FP32_FLOPS * 1e3
+            err, bar = abs(got - want), LPIPS_TOL * max(1.0, abs(want))
+            print(f"LPIPS {name}, normalize {normalize}: card {got:.9f}, CPU {want:.9f}, "
+                  f"|card - CPU| {err:.3e} (bar {bar:.1e}); TF32 on: |card - CPU| "
+                  f"{abs(got_tf32 - want):.3e} (a finding only); {ms:.3f} ms per call "
+                  f"(median of 5, the host->device copy and the read-back included; fp32 "
+                  f"bound {bound:.3f} ms, {2 * lpips_flops(*x.shape[:2]) / 1e9:.1f} GFLOP; "
+                  f"{card})")
+            if not np.isfinite(got) or err > bar:
+                raise AssertionError(f"LPIPS {name} normalize {normalize}: card {got} against "
+                                     f"the CPU's {want}")
+
+    # (b) the CLIs with LPIPS on phase 14's trained dmsr_stress field
+    def cli_args(*flags):
+        return ["--config", os.path.join(REPO, "configs/stress/dmsr_stress.txt"),
+                "--datadir", os.path.join(tmp, "dmsr", "stress"),
+                "--basedir", os.path.join(tmp, "logs"), "--lpips_weights", weights, *flags,
+                "--device", "cuda"]
+
+    def lpips_column(savedir, what, secs, n, before):
+        table = np.loadtxt(os.path.join(savedir, "test_results.txt"))
+        if table.shape != (n + 1, 9) or not np.isfinite(table[:, 2]).all():
+            raise AssertionError(f"{what}: test_results.txt {table.shape}, LPIPS {table[:, 2]}")
+        print(f"{what}: LPIPS per view {table[:-1, 2]}, mean {table[-1, 2]:.6f}; {secs / n:.3f} "
+              f"s/view against {before:.3f} without LPIPS (phase 14; the whole CLI call over "
+              f"its views; {card})")
+
+    chunks = -(-640 * 480 // 4096)
+    resolve = 3 * chunks
+    what = "cli.test --render dmsr --lpips_weights"
+    savedir, secs = run(f"{what}, 4 views", {"render_field_sigma": 4 * chunks,
+                                            "render_field_all": 4 * chunks},
+                        lambda: cli_test.main(cli_args("--render")))
+    lpips_column(savedir, what, secs, 4, phase14_secs["cli.test --render dmsr"])
+    what = "cli.test --mani_eval dmsr --lpips_weights"
+    savedir, secs = run(f"{what}, 4 views, 1 object", {
+        "field_forward": 4 * chunks * 2 * 2, "render_field_ins": 4 * chunks * 2,
+        "render_field_sigma": resolve, "render_field_all": resolve},
+        lambda: cli_test.main(cli_args("--mani_eval")))
+    lpips_column(os.path.join(savedir, "translation"), what, secs, 4,
+                 phase14_secs["cli.test --mani_eval dmsr (after a 3-view resolve render)"])
+
+    with tempfile.TemporaryDirectory() as ptmp:
+        # (c) --profile_steps through the train CLI, against the same run untraced
+        n_traced = PROFILE_STEPS * PROFILE_SCAN
+        rows = {}
+        for name, extra in (("untraced", []), ("traced", ["--profile_steps",
+                                                          str(PROFILE_STEPS)])):
+            cfg = train_cfg(ptmp, name, PROFILE_ITERS - 1, ["i_print = 5", "i_save = 20",
+                                                           "i_test = 0"])
+            run(f"cli.train {name}, {PROFILE_ITERS} steps in dispatches of {PROFILE_SCAN}",
+                {"field_forward": 2 * PROFILE_ITERS, "field_backward": 2 * PROFILE_ITERS},
+                lambda: cli_train.main(["--config", cfg, "--datadir", PROFILE_SCENE,
+                                        "--scan_steps", str(PROFILE_SCAN), "--device", "cuda",
+                                        *extra]))
+            rows[name] = [{k: v for k, v in json.loads(line).items() if k != "rays_per_sec"}
+                          for line in open(os.path.join(ptmp, name, "run", "metrics.jsonl"))]
+        if rows["traced"] != rows["untraced"] or len(rows["traced"]) != PROFILE_ITERS // 5:
+            raise AssertionError(f"--profile_steps moved the metrics: {rows}")
+        prof = os.path.join(ptmp, "traced", "run", "profile")
+        proc = subprocess.run([sys.executable, "-m", "dmnerf_torch.tools.trace_step",
+                               "--parse_only", "--out", prof, "--steps", str(n_traced),
+                               "--top", "12"], cwd=REPO, capture_output=True, text=True,
+                              timeout=300)
+        print(proc.stdout + proc.stderr)
+        s = trace_step.summarize(trace_step.load_trace(trace_step.newest_trace(prof)))
+        want = {"field_forward": 2 * n_traced, "field_backward": 2 * n_traced}
+        if proc.returncode or not s["by_category"] or s["launches"] != want:
+            raise AssertionError(f"the --profile_steps trace: rc {proc.returncode}, launches "
+                                 f"{s['launches']}, expected {want}")
+        print(f"cli.train --profile_steps {PROFILE_STEPS} --scan_steps {PROFILE_SCAN}: "
+              f"{os.path.getsize(trace_step.newest_trace(prof)) / 2**20:.1f} MiB of trace, "
+              f"launches in it {s['launches']}, metrics equal to the untraced run's")
+
+        # (d) the bench train step through trace_step's capture
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "dmnerf_torch.tools.trace_step",
+                               "--out", os.path.join(ptmp, "bench"), "--steps",
+                               str(CAPTURE_STEPS), "--top", "25"],
+                              cwd=REPO, capture_output=True, text=True, timeout=600)
+        print(proc.stdout + proc.stderr)
+        if proc.returncode:
+            raise AssertionError(f"trace_step's capture failed with rc {proc.returncode}")
+        print(f"trace_step capture: {time.perf_counter() - t0:.1f} s in all ({card})")
+    if banned_modules():
+        raise AssertionError(f"phase 16 loaded {banned_modules()}")
+    print(f"phase 16: launches {totals}; {time.perf_counter() - t_phase:.1f} s")
+    return totals
 
 
 if __name__ == "__main__":

@@ -5,7 +5,7 @@ package's (copied into dmnerf_torch.config), the dataset follows --datadir and t
 sampler (full vs 30%-labeled crop) follows the dataset. Adds --device
 (default cuda; a CUDA device that is not there is an error, never a silent
 move to the CPU). One device: multi-GPU is not ported yet (ROADMAP.md queue
-1, item 10). --pallas_train (default True) runs the field through the CUDA
+1, item 3). --pallas_train (default True) runs the field through the CUDA
 kernels K1/K2; --pallas_train False is the plain autograd path.
 """
 

@@ -1,4 +1,4 @@
-# Copied from dmnerf_tpu/config.py (the help of use_pallas and pallas_train without its TPU timings).
+# Copied from dmnerf_tpu/config.py (the help of use_pallas and pallas_train without its TPU timings, profile_steps naming torch.profiler).
 """Config / flag system.
 
 Reads the reference's ini-style ``.txt`` config files verbatim (the 43 files under
@@ -123,7 +123,7 @@ FLAG_SPECS: List[FlagSpec] = [
     FlagSpec("use_pallas", bool, True, "use the fused field kernels on eval/render paths (--use_pallas False for the plain path)"),
     FlagSpec("pallas_train", bool, True, "use the fused fwd+bwd field kernels in training (--pallas_train False for the plain path)"),
     FlagSpec("scan_steps", int, 0, "training steps per device dispatch (lax.scan); 0 = auto (largest divisor of the print/save/eval cadences <= 100)"),
-    FlagSpec("profile_steps", int, 0, "capture a jax.profiler trace of this many training dispatches into {logdir}/profile (0 = off)"),
+    FlagSpec("profile_steps", int, 0, "capture a torch.profiler trace of this many training dispatches (after the first) into {logdir}/profile (0 = off); a step launches hundreds of kernels, so a small --scan_steps keeps a traced dispatch small"),
     FlagSpec("remat", bool, False, "rematerialize MLP activations in backward "
              "(profiled slower than storing bf16 activations at reference batch sizes)"),
     FlagSpec("lpips_weights", str, None, "path to LPIPS-VGG weights (.npz); metric gated if absent"),

@@ -11,9 +11,9 @@
   {i}_ins.png and {i}_ins_pred_mask.png.
 
 Views are launched one ahead: view i+1's edit runs on the device while the
-host copies view i and computes its metrics and pngs. LPIPS is not ported
-yet: its column is NaN, as in the JAX package without --lpips_weights, and
---lpips_weights raises.
+host copies view i and computes its metrics and pngs. LPIPS
+(eval/lpips.py) runs on the edit's device with --lpips_weights; without
+weights its column and mean are NaN, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -29,9 +29,9 @@ import torch
 from dmnerf_torch.edit.manipulator import make_pose_image_manipulator
 from dmnerf_torch.eval import renderer
 from dmnerf_torch.eval.instance_ap import ins_eval_from_labels
+from dmnerf_torch.eval.lpips import load_lpips
 from dmnerf_torch.eval.metrics import psnr as psnr_fn, ssim as ssim_fn
 from dmnerf_torch.eval.renderer import _copy_to_host, _wait
-from dmnerf_torch.eval.tester import no_lpips
 from dmnerf_torch.utils.png import write_png
 from dmnerf_torch.edit.deform import deform_scale
 from dmnerf_torch.utils.viz import render_gt_label2img, render_label2img, to8b
@@ -87,7 +87,6 @@ def resolve_target_channel(cfg, params, args, scene, *, device, n_views=3, targe
 def manipulator_eval(cfg, params, ori_poses, hwk, trans_dicts, save_dir, ins_rgbs, args,
                      gt_rgbs=None, gt_labels=None, color_dict=None, *, device):
     """Returns (mean PSNR, mean AP[6]) with ground truth, else None."""
-    no_lpips(args)
     H, W, K = hwk
     trans_dict = trans_dicts["transformations"][0]
     trans = np.array(trans_dict["transformation"], np.float64)
@@ -99,6 +98,7 @@ def manipulator_eval(cfg, params, ori_poses, hwk, trans_dicts, save_dir, ins_rgb
         H=H, W=W, K=K, device=device, use_pallas=getattr(args, "use_pallas", False))
     if color_dict is None:
         color_dict = {str(i): i for i in range(len(ins_rgbs))}
+    lpips_fn = load_lpips(getattr(args, "lpips_weights", None), device=device)
 
     psnrs, ssims, lpipses, aps, full_map = [], [], [], [], {}
 
@@ -118,7 +118,7 @@ def manipulator_eval(cfg, params, ori_poses, hwk, trans_dicts, save_dir, ins_rgb
             gt_img = np.asarray(gt_rgbs[i])
             psnrs.append(psnr_fn(rgb, gt_img))
             ssims.append(ssim_fn(rgb, gt_img))
-            lpipses.append(float("nan"))
+            lpipses.append(lpips_fn(rgb, gt_img) if lpips_fn else float("nan"))
             gt_label = np.asarray(gt_labels[i])
             # air channel dropped before AP (reference manipulator.py:294)
             _, ap, matched = ins_eval_from_labels(
@@ -146,7 +146,9 @@ def manipulator_eval(cfg, params, ori_poses, hwk, trans_dicts, save_dir, ins_rgb
         json.dump(full_map, f)
     aps_arr = np.array(aps)
     rows = np.stack([psnrs, ssims, lpipses] + [aps_arr[:, k] for k in range(6)], 1)
-    mean_row = np.concatenate([[np.nanmean(psnrs), np.nanmean(ssims), float("nan")],
+    # nanmean of an all-NaN column (no weights) warns: keep the NaN instead
+    lpips_mean = np.nanmean(lpipses) if np.isfinite(lpipses).any() else float("nan")
+    mean_row = np.concatenate([[np.nanmean(psnrs), np.nanmean(ssims), lpips_mean],
                                aps_arr.mean(0)])
     np.savetxt(os.path.join(save_dir, "test_results.txt"),
                np.concatenate([rows, mean_row[None]], 0), fmt="%.6f", delimiter=" ")

@@ -125,7 +125,8 @@ def make_image_renderer(cfg: FieldConfig, args, H: int, W: int, *, device,
 
     render_im.many(params, K, c2ws) yields one such tuple per pose, launching
     view i+1 before it waits for view i's copy, so host work on view i
-    (metrics, pngs) overlaps the device's work on view i+1."""
+    (metrics, pngs) overlaps the device's work on view i+1; render_im.device
+    is `device`."""
     chunk = int(args.N_test)
     device = torch.device(device)
     n = H * W
@@ -165,6 +166,7 @@ def make_image_renderer(cfg: FieldConfig, args, H: int, W: int, *, device,
             yield _wait(pending)
 
     render_im.many = render_many
+    render_im.device = device
     return render_im
 
 

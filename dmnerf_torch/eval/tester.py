@@ -7,8 +7,9 @@ out-of-crop prediction. Writes {i:03d}.png, instance_{i:03d}.png,
 {i}_ins_gt.png, {i}_ins_gt_mask.png, matching_log.json and test_results.txt
 (PSNR SSIM LPIPS AP50 AP75 AP80 AP85 AP90 AP95; one row per view + the mean).
 
-LPIPS is not ported yet: its column is NaN, as it is in the JAX package
-without --lpips_weights; passing --lpips_weights raises.
+LPIPS (eval/lpips.py) runs on the renderer's device with --lpips_weights; on
+ScanNet it is taken on the centre crop. Without weights its column is NaN,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,16 +22,10 @@ from typing import Optional
 import numpy as np
 
 from dmnerf_torch.eval.instance_ap import ins_eval_from_labels
+from dmnerf_torch.eval.lpips import load_lpips
 from dmnerf_torch.eval.metrics import psnr as psnr_fn, ssim as ssim_fn
 from dmnerf_torch.utils.png import write_png
 from dmnerf_torch.utils.viz import render_gt_label2img, render_label2img, to8b
-
-
-def no_lpips(args) -> None:
-    """LPIPS is not ported: its column is NaN, and --lpips_weights raises."""
-    if getattr(args, "lpips_weights", None):
-        raise NotImplementedError("LPIPS is not ported yet (ROADMAP.md queue 1, "
-                                  "item 6); run without --lpips_weights")
 
 
 def render_test(render_im, params, render_poses, hwk, args,
@@ -39,8 +34,8 @@ def render_test(render_im, params, render_poses, hwk, args,
                 color_dict: Optional[dict] = None):
     """Returns (mean_psnr, mean_ssim, mean_lpips, mean_ap[6]) and writes the
     artifacts. render_im comes from eval.renderer.make_image_renderer."""
-    no_lpips(args)
     H, W, K = hwk
+    lpips_fn = load_lpips(getattr(args, "lpips_weights", None), device=render_im.device)
     psnrs, ssims, lpipses, aps = [], [], [], []
     full_map = {}
 
@@ -82,7 +77,7 @@ def render_test(render_im, params, render_poses, hwk, args,
         if gt_img is not None:
             psnrs.append(psnr_fn(rgb, gt_img))
             ssims.append(ssim_fn(rgb, gt_img))
-            lpipses.append(float("nan"))
+            lpipses.append(lpips_fn(rgb, gt_img) if lpips_fn else float("nan"))
 
             pred_label, ap, matched = ins_eval_from_labels(
                 label, conf, gt_label, args.ins_num, mask)

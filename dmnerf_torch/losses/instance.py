@@ -18,6 +18,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from dmnerf_torch.ops.lap import lap_square
 
@@ -70,10 +71,15 @@ def ins_criterion_pair(pred_coarse: torch.Tensor, pred_fine: torch.Tensor,
     ce_f, siou_f = cost_matrices(pred_fine, gt, logits_fine)
     cost = torch.stack([ce_c + siou_c, ce_f + siou_f]).detach()
     cost = torch.where(row_valid[None, :, None], cost, 0.0)
-    host = torch.cat([cost.reshape(-1).double(), valid_num.double()[None]]).cpu().numpy()
+    # the spans name the copy (it waits for the queued forward) and the solve
+    # in a torch.profiler trace (tools/trace_step.py)
+    with record_function("lap.copy_to_host"):
+        host = torch.cat([cost.reshape(-1).double(), valid_num.double()[None]]).cpu().numpy()
     nv = int(host[-1])
     costs = host[:-1].reshape(2, ins_num, ins_num)
-    col4rows = torch.from_numpy(np.stack([lap_square(c, nv) for c in costs])).to(gt.device)
+    with record_function("lap.solve"):
+        col4rows = np.stack([lap_square(c, nv) for c in costs])
+    col4rows = torch.from_numpy(col4rows).to(gt.device)
     return tuple(_matched_loss(ce, siou, pred.mean(0), row_valid, valid_num, ins_num, c4r)
                  for ce, siou, pred, c4r in ((ce_c, siou_c, pred_coarse, col4rows[0]),
                                              (ce_f, siou_f, pred_fine, col4rows[1])))

@@ -10,11 +10,15 @@ train_dmsr.py:17-107).
   latest one (the checkpoint of N completed steps; nothing re-runs);
 - an in-training eval of args.eval_views test views every i_test, through
   the eval renderer and tester;
-- `metrics.jsonl` with rays/s per print window.
+- `metrics.jsonl` with rays/s per print window;
+- --profile_steps N: a torch.profiler trace of N dispatches after the first
+  (which holds the kernels' builds and the cuBLAS/cuDNN set-up) into
+  {log_dir}/profile (utils/profiling.trace).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -29,6 +33,7 @@ from dmnerf_torch.train.checkpoint import (latest_checkpoint, restore_checkpoint
 from dmnerf_torch.train.step import (create_train_state, make_train_scan_step,
                                      scene_arrays)
 from dmnerf_torch.config import log_dir
+from dmnerf_torch.utils.profiling import trace
 
 
 def _scan_stride(args, eval_every: int) -> int:
@@ -43,9 +48,6 @@ def _scan_stride(args, eval_every: int) -> int:
 def train(args, scene, device, n_iters=None):
     """Run training on `device` for n_iters steps (default: the reference's
     args.n_iters + 1). Returns the final TrainState."""
-    if int(getattr(args, "profile_steps", 0) or 0):
-        raise NotImplementedError("--profile_steps is not ported to dmnerf_torch yet "
-                                  "(ROADMAP.md queue 1, item 9)")
     device = torch.device(device)
     args.ins_num = scene.ins_num
     cfg = FieldConfig.from_args(args)
@@ -68,15 +70,28 @@ def train(args, scene, device, n_iters=None):
     arrs = scene_arrays(scene, device)
     i_train = np.asarray(scene.i_train)
     base_seed = args.seed + 1
+    profile_steps = int(getattr(args, "profile_steps", 0) or 0)
+    profile_dir = os.path.join(ldir, "profile")
+    dispatch_i = 0
 
     render_im = None          # built at the first eval, reused after
     t_window = time.time()
     rays_done = 0
     done = state.step
+    profiling = contextlib.ExitStack()
     while done < n_iters:
+        if profile_steps and dispatch_i == 1:
+            # dispatch 0 is left out: it holds the kernels' builds
+            profiling.enter_context(trace(profile_dir, device))
         ran = min(k, n_iters - done)
         metrics = step_k(state, arrs, base_seed, i_train, ran)
         done += ran
+        dispatch_i += 1
+        if profile_steps and dispatch_i > 1 and (dispatch_i > profile_steps
+                                                 or done >= n_iters):
+            profiling.close()             # synchronises the device, then stops
+            print(f"profiler trace written to {profile_dir}")
+            profile_steps = 0
         rays_done += args.N_train * ran
         prev = done - ran
 

@@ -5,8 +5,9 @@ raw at shapes whose rays cross tiles and blocks, K4 at every grouping of
 rays, the f32 builds of K1-K5 against the plain f32 path, the edit
 path's launches of K1 and K5, the mesh path's density query (K1) and
 vertex labels (K4 + K3), the stress scenes' ground truth march
-(data/procedural.py) on the card against the CPU, and the JPEG codec
-(native/jpeg.cpp, built by this machine's g++) on its golden fixtures.
+(data/procedural.py) on the card against the CPU, the JPEG codec
+(native/jpeg.cpp, built by this machine's g++) on its golden fixtures, and
+LPIPS (eval/lpips.py) on the card against the CPU.
 
 Imports no jax, so the machine with the card runs it without the JAX package's
 conftest:  python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -440,3 +441,30 @@ def test_jpeg_codec_on_the_golden_fixtures():
     img = torch.from_numpy(read_jpeg(encode_jpeg(frame))).cuda()
     assert img.shape == (968, 1296, 3) and img.dtype == torch.uint8
     assert (img.float() - torch.from_numpy(frame).cuda().float()).abs().mean() < 2.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normalize", [False, True])
+def test_lpips_on_the_card_equals_the_cpu(normalize):
+    """eval/lpips.py on a 480x640 pair (640x480 frames) on the card against
+    the CPU, random weights in the .npz layout: cuDNN runs the convolutions
+    with TF32 off (lpips_distance turns it off around them, even when the
+    global flag is on), so the two agree within 1e-4 of max(1, |CPU|)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from dmnerf_torch.eval.lpips import lpips_distance, prepare_params, random_weights
+    w = random_weights(0)
+    rng = np.random.default_rng(7)
+    a = rng.uniform(0, 1, (480, 640, 3)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1).astype(np.float32)
+    cpu = float(lpips_distance(prepare_params(w, "cpu"), torch.from_numpy(a),
+                               torch.from_numpy(b), normalize=normalize))
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        card = float(lpips_distance(prepare_params(w, "cuda"), torch.from_numpy(a).cuda(),
+                                    torch.from_numpy(b).cuda(), normalize=normalize))
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    assert cpu > 0 and abs(card - cpu) <= 1e-4 * max(1.0, abs(cpu))

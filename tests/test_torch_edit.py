@@ -311,10 +311,38 @@ def test_manipulator_eval_matches_jax(tmp_path):
     logs = [json.load(open(d / "matching_log.json")) for d in dirs]
     assert logs[0] == logs[1]
     _tables_close(*(np.loadtxt(d / "test_results.txt") for d in dirs))
-    with pytest.raises(NotImplementedError, match="LPIPS"):
-        trun.manipulator_eval(cfg_t, pt, scene.poses[sel], scene.hwk, trans_dicts,
-                              str(tmp_path / "x"), scene.ins_rgbs,
-                              args.replace(lpips_weights="vgg.npz"), device="cpu", **kw)
+
+
+def test_manipulator_eval_lpips_matches_jax(tmp_path):
+    """manipulator_eval with --lpips_weights (random weights in the .npz
+    layout) at 16x16, so that the last VGG tap is 1x1, against the JAX
+    runner (this case raised until LPIPS was ported): the LPIPS column and
+    its nanmean within 2e-6 (two units of the table's last digit; the edits
+    differ at f32 rounding), every value finite. Without weights the column
+    and its mean stay NaN (test_manipulator_eval_matches_jax)."""
+    from dmnerf_torch.eval.lpips import random_weights
+
+    weights = str(tmp_path / "lpips.npz")
+    np.savez(weights, **random_weights(1))
+    scene, args, cfg_j, pj, cfg_t, pt = _scene_pair(
+        16, 16, n_test=2, N_test=256, N_samples=6, N_importance=6, netdepth=2,
+        multires=3, target_label=1, mani_mode="translation", lpips_weights=weights)
+    trans = _center_conjugate(_mode_matrix("translation"), [0.0, 0.0, 0.0])
+    trans_dicts = {"transformations": [{"transformation": trans.tolist(),
+                                        "mode": "translation"}]}
+    sel = scene.i_test
+    kw = dict(gt_rgbs=scene.images[sel], gt_labels=scene.gt_labels[sel])
+    jrun.manipulator_eval(cfg_j, pj, scene.poses[sel], scene.hwk, trans_dicts,
+                          str(tmp_path / "jax"), scene.ins_rgbs,
+                          args.replace(use_pallas=False), **kw)
+    trun.manipulator_eval(cfg_t, pt, scene.poses[sel], scene.hwk, trans_dicts,
+                          str(tmp_path / "torch"), scene.ins_rgbs,
+                          args.replace(use_pallas=True), device="cpu", **kw)
+    a, b = (np.loadtxt(tmp_path / d / "translation" / "test_results.txt")
+            for d in ("torch", "jax"))
+    assert a.shape == b.shape == (3, 9)
+    assert np.isfinite(a[:, 2]).all() and (a[:, 2] > 0).all()
+    np.testing.assert_allclose(a[:, 2], b[:, 2], rtol=0, atol=2e-6)
 
 
 def test_manipulator_demo_matches_jax(tmp_path):

@@ -267,7 +267,8 @@ def test_the_port_imports_no_reader_library(path):
 
 PORTED = ["dmnerf_torch/data/dmsr.py", "dmnerf_torch/data/dmsr_mani.py",
           "dmnerf_torch/data/replica.py", "dmnerf_torch/data/scannet.py",
-          "dmnerf_torch/data/procedural.py"] + [
+          "dmnerf_torch/data/procedural.py", "dmnerf_torch/eval/lpips.py",
+          "dmnerf_torch/utils/profiling.py"] + [
     f"dmnerf_torch/data/scannet_preprocess/{m}.py"
     for m in ("__init__", "sensordata", "preprocess", "split", "run")]
 

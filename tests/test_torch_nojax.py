@@ -1,7 +1,9 @@
 """The port imports neither jax, orbax, imageio, h5py, cv2, PIL nor anything
 of the JAX package dmnerf_tpu: `import dmnerf_torch`, its edit modules, every
 module of the port, a tiny CPU render, training run and mesh through its
-CLIs, and ScanNet's preprocessing, in a fresh interpreter."""
+CLIs, and ScanNet's preprocessing, in a fresh interpreter; trace_step's
+reader and LPIPS in render_test with jax and dmnerf_tpu blocked from
+loading."""
 
 import json
 import os
@@ -162,3 +164,73 @@ def test_every_port_module_and_the_scannet_preprocessing_load_no_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["modules"] >= 60 and out["loaded"] == [] and out["split"]
+
+
+# a fresh interpreter in which importing jax, jaxlib, orbax or dmnerf_tpu raises
+BLOCK = textwrap.dedent("""
+    import importlib.abc, sys
+
+    class Blocked(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib", "orbax", "dmnerf_tpu"):
+                raise ImportError(f"blocked: {name}")
+            return None
+
+    sys.meta_path.insert(0, Blocked())
+""")
+
+
+def test_trace_step_reader_runs_with_jax_blocked():
+    """python -m dmnerf_torch.tools.trace_step --parse_only on the committed
+    fixture, with jax and dmnerf_tpu blocked."""
+    fixture = os.path.join(REPO, "tests", "torch_golden", "trace")
+    script = BLOCK + textwrap.dedent(f"""
+        import runpy
+        sys.argv = ["trace_step", "--parse_only", "--out", {fixture!r}, "--steps", "2"]
+        runpy.run_module("dmnerf_torch.tools.trace_step", run_name="__main__")
+    """)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "device time 1.180 ms" in proc.stdout and "field_forward" in proc.stdout
+
+
+def test_lpips_in_render_test_runs_with_jax_blocked(tmp_path):
+    """load_lpips and render_test with --lpips_weights (random weights, a
+    16x16 render on the CPU) with jax and dmnerf_tpu blocked: a finite LPIPS
+    column."""
+    script = BLOCK + textwrap.dedent(f"""
+        import json, os
+        import numpy as np
+        import torch
+        from dmnerf_torch.config import default_config
+        from dmnerf_torch.data.synthetic import make_scene
+        from dmnerf_torch.eval.lpips import load_lpips, random_weights
+        from dmnerf_torch.eval.renderer import make_image_renderer
+        from dmnerf_torch.eval.tester import render_test
+        from dmnerf_torch.models.fields import FieldConfig, init_field_params
+
+        weights = os.path.join({str(tmp_path)!r}, "lpips.npz")
+        np.savez(weights, **random_weights(0))
+        scene = make_scene(H=16, W=16, n_train=1, n_test=1)
+        args = default_config(N_test=64, N_samples=4, N_importance=4, near=1.0, far=12.0,
+                              netdepth=2, netwidth=32, multires=2, multires_views=2,
+                              ins_num=scene.ins_num, lpips_weights=weights)
+        cfg = FieldConfig.from_args(args)
+        g = torch.Generator().manual_seed(0)
+        params = {{"coarse": init_field_params(g, cfg), "fine": init_field_params(g, cfg)}}
+        sel = scene.i_test
+        out = render_test(make_image_renderer(cfg, args, 16, 16, device="cpu"), params,
+                          scene.poses[sel], scene.hwk, args, gt_imgs=scene.images[sel],
+                          gt_labels=scene.gt_labels[sel], ins_rgbs=scene.ins_rgbs,
+                          savedir={str(tmp_path)!r})
+        table = np.loadtxt(os.path.join({str(tmp_path)!r}, "test_results.txt"))
+        print(json.dumps({{"lpips": table[:, 2].tolist(), "mean": out[2],
+                          "metric": load_lpips(weights, device="cpu") is not None}}))
+    """)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["metric"] and len(out["lpips"]) == 2
+    assert all(0 < v < float("inf") for v in out["lpips"] + [out["mean"]])

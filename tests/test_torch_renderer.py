@@ -112,7 +112,8 @@ def test_unported_combinations_raise():
     """use_pallas with fused=False renders through K1's wrapper (on the CPU
     its plain version, DMNeRFField.forward: the module path's numbers
     exactly, and no launch); a ray count that is not a multiple of the chunk
-    and --lpips_weights raise."""
+    raises. (--lpips_weights raised here until LPIPS was ported: see
+    test_render_test_lpips_matches_jax.)"""
     scene, args, _, _, cfg_t, pt, _ = _setup()
     rays = [torch.from_numpy(np.ascontiguousarray(np.asarray(r).reshape(-1, 3)))
             for r in get_rays_np(8, 8, scene.K, scene.poses[0])]
@@ -126,9 +127,6 @@ def test_unported_combinations_raise():
     assert sum(kf.LAUNCHES.values()) == sum(krf.LAUNCHES.values()) == 0
     with pytest.raises(ValueError):
         make_batch_renderer(cfg_t, 8, 8, 1.0, 12.0, 32, 48, device="cpu")
-    args.lpips_weights = "vgg.npz"
-    with pytest.raises(NotImplementedError, match="LPIPS"):
-        render_test(None, None, np.zeros((1, 4, 4)), (8, 8, None), args)
 
 
 def _tables_close(a, b):
@@ -160,6 +158,40 @@ def test_render_test_matches_jax(tmp_path):
     logs = [json.load(open(tmp_path / d / "matching_log.json")) for d in ("torch", "jax")]
     assert logs[0] == logs[1]
     _tables_close(*(np.loadtxt(tmp_path / d / "test_results.txt") for d in ("torch", "jax")))
+
+
+def test_render_test_lpips_matches_jax(tmp_path):
+    """render_test with --lpips_weights (random weights in the .npz layout;
+    16x16 views, so that the last VGG tap is 1x1): the LPIPS column equals
+    the JAX harness's within 2e-6 (two units of the table's last digit; the
+    renders differ at the 1e-4 level per pixel) and the returned mean within
+    1e-4 relative, and the column is the port's LPIPS of the render and GT."""
+    from dmnerf_torch.eval.lpips import load_lpips, random_weights
+
+    weights = str(tmp_path / "lpips.npz")
+    np.savez(weights, **random_weights(0))
+    scene, args, cfg_j, pj, cfg_t, pt, _ = _setup(H=16, W=16, N_test=64,
+                                                  lpips_weights=weights)
+    sel = scene.i_test
+    kw = dict(gt_imgs=scene.images[sel], gt_labels=scene.gt_labels[sel],
+              ins_rgbs=scene.ins_rgbs)
+    for d in ("jax", "torch"):
+        os.makedirs(tmp_path / d)
+    want = jax_render_test(jax_image_renderer(cfg_j, args, 16, 16, fused=False), pj,
+                           scene.poses[sel], scene.hwk, args,
+                           savedir=str(tmp_path / "jax"), **kw)
+    render = make_image_renderer(cfg_t, args, 16, 16, device="cpu", use_pallas=True)
+    got = render_test(render, pt, scene.poses[sel], scene.hwk, args,
+                      savedir=str(tmp_path / "torch"), **kw)
+    a, b = (np.loadtxt(tmp_path / d / "test_results.txt") for d in ("torch", "jax"))
+    assert np.isfinite(a[:, 2]).all() and (a[:, 2] > 0).all()
+    np.testing.assert_allclose(a[:, 2], b[:, 2], rtol=0, atol=2e-6)
+    assert got[2] == pytest.approx(want[2], rel=1e-4)
+    assert a[-1, 2] == pytest.approx(np.mean(a[:-1, 2]), abs=1e-6)
+    lp = load_lpips(weights, device="cpu")
+    for i, pose in zip(range(len(sel)), scene.poses[sel]):
+        assert a[i, 2] == pytest.approx(lp(render(pt, scene.K, pose)[0], kw["gt_imgs"][i]),
+                                        abs=1e-6)
 
 
 def test_cli_render_from_converted_tar(tmp_path, capsys):
