@@ -3,8 +3,9 @@ path (kernels K3/K4), the training step (kernels K1/K2), the edit path
 (kernels K1/K5) and mesh extraction (kernels K1, K4/K3), each in bf16 and,
 through the kernels' f32 builds, in f32; then the reference-format stress
 scenes written, read and run through the CLIs, ScanNet (JPEG frames, the
-.sens preprocessing, the flagship config) through them, and LPIPS and the
-profiler trace of the train step.
+.sens preprocessing, the flagship config) through them, LPIPS and the
+profiler trace of the train step, and the ray mesh (torchrun over NCCL;
+two ranks on the card over gloo).
 
     python3 chip_smoke.py
 
@@ -164,13 +165,29 @@ Phases (each fails the run by raising; nothing is caught):
    (CAPTURE_STEPS steps): device time by category, the top kernels, the device's busy
    share and the host's time in launches, copies and waits, torch ops and
    Python, with the LAP's spans.
+17. the ray mesh (dmnerf_torch/parallel/mesh.py): (a) `python -m
+   torch.distributed.run --nproc_per_node 1` of cli.train (phase 7's 30
+   flagship steps with an in-train eval at 15) and of cli.test --render,
+   each rank running this file with `--rank cli` so that it can report its
+   launches, over NCCL at world size 1: the weights and Adam state, the
+   metrics, the eval's and the render's files equal to the same runs in this
+   process bit for bit, and the launches equal. (b) two ranks of this file
+   (`--rank mesh`) on cuda:0, their collectives over gloo, while this process
+   runs the same work alone (mesh_work): RANK_STEPS steps of bench.py's
+   train workload (3072 rays, 64+128, K=32, penalizer and perturb on), then
+   a 128x128 render and a 1-object edit of a fresh pair; the first step's
+   raws equal to one rank's rows bit for bit, its gradients within GRAD_TOL
+   relative L2 per parameter, the ranks' parameters, gradients and metrics
+   bit-identical, the render bit for bit and the edit within phase 10b's
+   bars; exact launches per rank (2 K1 and 2 K2 per step, 4 K4 and 4 K3 per
+   render, 16 K1 and 8 K5 per edit), and the phase's seconds.
 Phases 3, 6, 9 and 12 also print each kernel's bound (the larger of its
 operations over the peak of its type, bf16 tensor cores or fp32 CUDA cores,
 and its bytes over the memory rate), its TFLOP/s and its share of the bound.
 The line before the last is a JSON object with one entry per kernel and
 build (its K=64 reading under "k64", its phase-14 and phase-15 errors per
 config under "stress_max_abs_err"; launches summed over the main paths,
-phases 14, 15 and 16 included); the line before it is the smoke's total time; the
+phases 14, 15, 16 and 17's sharded runs included); the line before it is the smoke's total time; the
 last line is {"ok": true, "device": {...}}. The run fails if it loaded jax,
 the JAX package, imageio, h5py, cv2 or PIL.
 """
@@ -712,9 +729,10 @@ def main():
         scene_launches, scene_errs, scene_secs = reference_scenes(card, scenes_tmp)
         scannet_launches, scannet_errs = scannet_slice(card)
         lpips_launches = lpips_and_trace(card, scenes_tmp, scene_secs)
+    ray_mesh_launches = ray_mesh(dev, card)
     for k in kernels:                   # the f32 entries hold phase 12's mesh launches
-        k["launches"] += sum(p.get(k["name"], 0) for p in (mesh_launches, scene_launches,
-                                                            scannet_launches, lpips_launches))
+        k["launches"] += sum(p.get(k["name"], 0) for p in (
+            mesh_launches, scene_launches, scannet_launches, lpips_launches, ray_mesh_launches))
         for errs in (scene_errs, scannet_errs):   # {config: max abs err} at the stress shapes
             if k["name"] in errs:
                 k.setdefault("stress_max_abs_err", {}).update(errs[k["name"]])
@@ -1018,21 +1036,17 @@ def train_slice(dev):
     return launches
 
 
-def train_throughput(dev, card):
-    """Phase 8: bench.py's train workload through the port's train step."""
+def bench_train_workload():
+    """bench.py's train workload (bench.py:56-82): (args, scene, cfg) of
+    train_cfg's flags (perturb 1 and lrate_decay 500 are the defaults) and
+    scene through the train CLI's loader, with K=32 on the subdivided labels.
+    bench.py's 128x128 scene is these 8 views, of which it trains on the
+    first 4."""
     from dmnerf_torch.cli import train as cli_train
-    from dmnerf_torch.kernels import field as kf
     from dmnerf_torch.models.fields import FieldConfig
-    from dmnerf_torch.ops import lap
-    from dmnerf_torch.train.step import create_train_state, make_train_scan_step, scene_arrays
 
-    phase("8 train throughput: bench.py's workload (3072 rays, 64+128, 8x256 x2, K=32, "
-          "penalizer, bf16)")
     ins_num = 32
     with tempfile.TemporaryDirectory() as tmp:
-        # the flags and the scene through the train CLI's loader (perturb 1
-        # and lrate_decay 500 are the defaults): bench.py's 128x128 scene is
-        # these 8 views, of which it trains on the first 4
         args, scene, _ = cli_train.load(["--config", train_cfg(tmp, "bench", 1),
                                          "--device", "cuda"])
     per = ins_num // 4                        # bench.py:76-81: labels subdivided
@@ -1040,7 +1054,18 @@ def train_throughput(dev, card):
     sub = ((yy * (per // 4)) // scene.H) * 4 + (xx * 4) // scene.W
     scene.gt_labels = (scene.gt_labels * per + sub[None]).astype(scene.gt_labels.dtype)
     args.ins_num = ins_num
-    cfg = FieldConfig.from_args(args)
+    return args, scene, FieldConfig.from_args(args)
+
+
+def train_throughput(dev, card):
+    """Phase 8: bench.py's train workload through the port's train step."""
+    from dmnerf_torch.kernels import field as kf
+    from dmnerf_torch.ops import lap
+    from dmnerf_torch.train.step import create_train_state, make_train_scan_step, scene_arrays
+
+    phase("8 train throughput: bench.py's workload (3072 rays, 64+128, 8x256 x2, K=32, "
+          "penalizer, bf16)")
+    args, scene, cfg = bench_train_workload()
     state = create_train_state(0, cfg, args.lrate, args.lrate_decay, device=dev)
     step = make_train_scan_step(args, cfg)
     arrs = scene_arrays(scene, dev)
@@ -2500,7 +2525,302 @@ def lpips_and_trace(card, tmp, phase14_secs):
     return totals
 
 
+RANK_STEPS = 5
+RANK_TIMEOUT = 300
+
+
+def launches_now():
+    from dmnerf_torch.kernels import field as kf
+    from dmnerf_torch.kernels import render_field as krf
+    return {k: v for k, v in {**kf.LAUNCHES, **krf.LAUNCHES}.items() if v}
+
+
+def reset_all_launches():
+    from dmnerf_torch.kernels import field as kf
+    from dmnerf_torch.kernels import render_field as krf
+    kf.reset_launches()
+    krf.reset_launches()
+
+
+def add_launches(total, more):
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def mesh_work(mesh, dev):
+    """Phase 17(b)'s work on one rank of `mesh`, or alone (mesh None):
+    RANK_STEPS steps of bench.py's train workload from seed 0, then a 128x128
+    render and a 1-object rigid edit (N_test 4096) of a fresh seed-0 pair.
+    Returns the first step's raws (this rank's rows) and gradients, the last
+    metrics and parameters, the render and the edit on the host, and the
+    launches of each part."""
+    import copy
+
+    from dmnerf_torch.edit.manipulator import make_pose_image_manipulator
+    from dmnerf_torch.eval.renderer import make_image_renderer
+    from dmnerf_torch.train import step as step_mod
+
+    args, scene, cfg = bench_train_workload()
+    state = step_mod.create_train_state(0, cfg, args.lrate, args.lrate_decay, device=dev)
+    fresh = copy.deepcopy(state.params)
+    scan = step_mod.make_train_scan_step(args, cfg, mesh=mesh)
+    arrs = step_mod.scene_arrays(scene, dev)
+    out = {"launches": {}}
+
+    def counted_part(name, fn):
+        reset_all_launches()
+        res = fn()
+        torch.cuda.synchronize()
+        out["launches"][name] = launches_now()
+        return res
+
+    raws, real = [], step_mod.render_rays
+
+    def capture(*a, **k):
+        o = real(*a, **k)
+        raws.append((o["raw_coarse"].detach().cpu(), o["raw_fine"].detach().cpu()))
+        return o
+
+    step_mod.render_rays = capture
+    try:
+        counted_part("train step 1", lambda: scan(state, arrs, 1, np.arange(4), 1))
+    finally:
+        step_mod.render_rays = real
+    out["raws"] = raws[0]
+    out["grads"] = [p.grad.cpu() for g in state.opt.param_groups for p in g["params"]]
+    m = counted_part(f"train steps 2-{RANK_STEPS}",
+                     lambda: scan(state, arrs, 1, np.arange(4), RANK_STEPS - 1))
+    out["metrics"] = {k: float(v) for k, v in m.items()}
+    out["params"] = [p.detach().cpu() for g in state.opt.param_groups for p in g["params"]]
+
+    bench = SimpleNamespace(N_test=4096, N_samples=64, N_importance=128, near=1.0, far=12.0)
+    K = np.array([[0.7 * 128, 0, 64], [0, -0.7 * 128, 64], [0, 0, -1.0]], np.float32)
+    pose = look_at_poses(1)[0].astype(np.float64)
+    out["render"] = counted_part("render 128x128", lambda: make_image_renderer(
+        cfg, bench, 128, 128, device=dev, use_pallas=True, mesh=mesh)(fresh, K, pose))
+    run = make_pose_image_manipulator(cfg, fresh, bench, [{"mode": "rigid"}], [1], 128, 128,
+                                      K, device=dev, use_pallas=True, mesh=mesh)
+    out["edit"] = counted_part("edit 128x128, 1 object", lambda: tuple(
+        t[:128 * 128].cpu().numpy() for t in run(pose, (translation(0.3) @ pose)[None],
+                                                 np.zeros(1))))
+    return out
+
+
+def rank_main(argv):
+    """A rank of phase 17, started by it: `cli OUT train|test CLI-ARGS` (under
+    torchrun) runs that CLI and writes its launches to OUT.rank{r}.json;
+    `mesh OUT` joins the two-rank group on cuda:0 over gloo and writes
+    mesh_work's result to OUT/rank{r}.pt."""
+    from dmnerf_torch.parallel.mesh import close_mesh, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    what, out = argv[:2]
+    rank = int(os.environ["RANK"])
+    reset_all_launches()
+    if what == "cli":
+        from dmnerf_torch.cli import test as cli_test
+        from dmnerf_torch.cli import train as cli_train
+        {"train": cli_train, "test": cli_test}[argv[2]].main(argv[3:])
+        torch.cuda.synchronize()
+        with open(f"{out}.rank{rank}.json", "w") as f:
+            json.dump(launches_now(), f)
+    else:
+        mesh = make_mesh(0, "cuda:0", backend="gloo")
+        torch.save(mesh_work(mesh, mesh.device), os.path.join(out, f"rank{rank}.pt"))
+        close_mesh(mesh)
+    return 0
+
+
+class Children:
+    """Processes started together, each writing its output to a file; wait()
+    needs every one to exit 0 within RANK_TIMEOUT of its start, else it
+    kills them all and fails the phase."""
+
+    def __init__(self, cmds_envs, what, tmp):
+        self.what, self.logs, self.t0 = what, [], time.perf_counter()
+        self.procs = []
+        for i, (cmd, env) in enumerate(cmds_envs):
+            self.logs.append(os.path.join(tmp, f"{what.replace(' ', '_')}.{i}.log"))
+            with open(self.logs[-1], "w") as log:
+                self.procs.append(subprocess.Popen(cmd, cwd=REPO, env=env, stdout=log,
+                                                   stderr=subprocess.STDOUT))
+        CHILDREN.extend(self.procs)
+
+    def wait(self):
+        try:
+            for p in self.procs:
+                p.wait(timeout=max(1.0, RANK_TIMEOUT - (time.perf_counter() - self.t0)))
+        finally:
+            for p in self.procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        outs = [open(log).read() for log in self.logs]
+        for i, (p, o) in enumerate(zip(self.procs, outs)):
+            if p.returncode:
+                raise AssertionError(f"{self.what}, process {i}: rc {p.returncode}\n{o[-4000:]}")
+        return outs
+
+
+def child_env(**kw):
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env.update({k: str(v) for k, v in kw.items()})
+    return env
+
+
+def same_tensors(a, b):
+    """Bit-for-bit equality of two nested dicts / lists of tensors."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_tensors(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_tensors(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b)
+    return a == b
+
+
+def ray_mesh(dev, card):
+    """Phase 17: the ray mesh (parallel/mesh.py) on the one card. The
+    torchrun runs, the two gloo ranks and this process's one-process runs
+    overlap; their checks follow. Returns the launches of the sharded runs,
+    summed over the ranks."""
+    import socket
+
+    from dmnerf_torch.cli import test as cli_test
+    from dmnerf_torch.cli import train as cli_train
+    from dmnerf_torch.models.convert import load_tar
+
+    phase("17 the ray mesh: (a) torchrun --nproc_per_node 1 (NCCL) of cli.train (30 steps, "
+          "boxroom128x8, flagship) and cli.test --render against the same runs in this "
+          f"process; (b) two ranks on cuda:0 over gloo: {RANK_STEPS} steps of bench.py's train "
+          "workload (3072 rays, 64+128, 8x256 x2, K=32, penalizer and perturb), a 128x128 "
+          "render and a 1-object edit, against one rank")
+    t_phase = time.perf_counter()
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        extra = ["i_print = 10", "i_save = 30", "i_test = 15"]
+        cfgs = {name: train_cfg(tmp, name, 29, extra) for name in ("plain", "nccl")}
+        views = 2 * (128 * 128 // 4096)        # the in-train eval's and the render's chunks
+        want = {"train": {"field_forward": 60, "field_backward": 60,
+                          "render_field_sigma": views, "render_field_all": views},
+                "test": {"render_field_sigma": views, "render_field_all": views}}
+        torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                    "--nproc_per_node", "1", os.path.join(REPO, "chip_smoke.py"), "--rank", "cli"]
+
+        def start_torchrun(what, argv):
+            return Children([(torchrun + [os.path.join(tmp, f"nccl_{what}"), what, "--config",
+                                          cfgs["nccl"], *argv, "--device", "cuda"],
+                              child_env())], f"torchrun cli.{what}", tmp)
+
+        def check_torchrun(what, children):
+            (log,) = children.wait()
+            got = json.load(open(os.path.join(tmp, f"nccl_{what}.rank0.json")))
+            print(f"(a) torchrun cli.{what}: {time.perf_counter() - children.t0:.1f} s; rank 0 "
+                  f"launches {got}")
+            if "rank 0 of 1 on cuda:0 (nccl)" not in log:
+                raise AssertionError(f"torchrun cli.{what} joined no NCCL mesh:\n{log[-2000:]}")
+            if got != want[what]:
+                raise AssertionError(f"torchrun cli.{what}: launches {got}, expected "
+                                     f"{want[what]}")
+            add_launches(total, got)
+
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        gloo = Children([([sys.executable, os.path.join(REPO, "chip_smoke.py"), "--rank", "mesh",
+                           tmp], child_env(WORLD_SIZE=2, RANK=r, LOCAL_RANK=r,
+                                           MASTER_ADDR="127.0.0.1", MASTER_PORT=port))
+                         for r in range(2)], "gloo rank", tmp)
+        nccl_train = start_torchrun("train", [])
+        counted("(a) cli.train in this process", want["train"],
+                lambda: cli_train.main(["--config", cfgs["plain"], "--device", "cuda"]))
+        counted("(a) cli.test --render in this process", want["test"],
+                lambda: cli_test.main(["--config", cfgs["plain"], "--render", "--device", "cuda"]))
+        check_torchrun("train", nccl_train)
+        nccl_test = start_torchrun("test", ["--render"])
+        reset_all_launches()
+        t0 = time.perf_counter()
+        ref = mesh_work(None, dev)
+        print(f"(b) one rank in this process: {time.perf_counter() - t0:.1f} s")
+        check_torchrun("test", nccl_test)
+        gloo.wait()
+        print(f"(b) two gloo ranks: {time.perf_counter() - gloo.t0:.1f} s")
+        got = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+               for r in range(2)]
+
+        dirs = {n: os.path.join(tmp, n, "run") for n in cfgs}
+        tars = [load_tar(os.path.join(d, "000030.tar"), with_optimizer=True)
+                for d in dirs.values()]
+        metrics = [[{k: v for k, v in json.loads(l).items() if k != "rays_per_sec"}
+                    for l in open(os.path.join(d, "metrics.jsonl"))] for d in dirs.values()]
+        outputs = {}
+        for sub in ("testset_000015", "render_test_000030"):
+            names = [sorted(os.listdir(os.path.join(d, sub))) for d in dirs.values()]
+            outputs[sub] = names[0] == names[1] and all(
+                open(os.path.join(dirs["plain"], sub, f), "rb").read()
+                == open(os.path.join(dirs["nccl"], sub, f), "rb").read() for f in names[0])
+        print(f"(a) NCCL world size 1 against one process: weights and Adam state "
+              f"bit-identical {same_tensors(tars[0], tars[1])}, metrics.jsonl equal "
+              f"{metrics[0] == metrics[1]}, the eval's and the render's files (pngs, "
+              f"test_results.txt, matching_log.json) byte-identical {outputs}")
+        print("render_test_000030/test_results.txt:\n"
+              + open(os.path.join(dirs["nccl"], "render_test_000030", "test_results.txt")).read())
+        if not (same_tensors(tars[0], tars[1]) and metrics[0] == metrics[1]
+                and all(outputs.values())):
+            raise AssertionError("torchrun at world size 1 differs from one process")
+
+    per_rank_want = {
+        "train step 1": {"field_forward": 2, "field_backward": 2},
+        f"train steps 2-{RANK_STEPS}": {"field_forward": 2 * (RANK_STEPS - 1),
+                                        "field_backward": 2 * (RANK_STEPS - 1)},
+        "render 128x128": {"render_field_sigma": 4, "render_field_all": 4},
+        "edit 128x128, 1 object": {"field_forward": 16, "render_field_ins": 8}}
+    for r, g in enumerate(got):
+        print(f"(b) rank {r} launches: {g['launches']}")
+        if g["launches"] != per_rank_want:
+            raise AssertionError(f"rank {r}: launches {g['launches']}, expected {per_rank_want}")
+        for part in g["launches"].values():
+            add_launches(total, part)
+    n = ref["raws"][0].shape[0] // 2
+    raw_same = [all(torch.equal(g["raws"][i], ref["raws"][i][r * n:(r + 1) * n])
+                    for i in range(2)) for r, g in enumerate(got)]
+    raw_err = max(float((g["raws"][i] - ref["raws"][i][r * n:(r + 1) * n]).abs().max())
+                  for r, g in enumerate(got) for i in range(2))
+    grad_err = max(float((a - b).norm() / b.norm().clamp_min(1e-30))
+                   for a, b in zip(got[0]["grads"], ref["grads"]))
+    param_err = max(float((a - b).abs().max()) for a, b in zip(got[0]["params"], ref["params"]))
+    ranks_same = (same_tensors(got[0]["params"], got[1]["params"])
+                  and same_tensors(got[0]["grads"], got[1]["grads"])
+                  and got[0]["metrics"] == got[1]["metrics"])
+    render_same = [all(np.array_equal(a, b) for a, b in zip(g["render"], ref["render"]))
+                   for g in got]
+    edit_same = [all(np.array_equal(a, b) for a, b in zip(g["edit"], ref["edit"]))
+                 for g in got]
+    err = np.abs(got[0]["edit"][0] - ref["edit"][0])
+    moved = (err.max(-1) > EDIT_RGB_STEP) | (got[0]["edit"][1] != ref["edit"][1])
+    edit_mean, edit_frac = float(err.mean()), float(moved.mean())
+    print(f"(b) the first step's raws equal to one rank's rows bit for bit {raw_same} (max "
+          f"|diff| {raw_err:.3e}); its gradients max relative L2 {grad_err:.3e} (bar "
+          f"{GRAD_TOL:.0e}); the ranks' parameters, gradients and metrics bit-identical "
+          f"{ranks_same}; parameters after {RANK_STEPS} steps max |two ranks - one rank| "
+          f"{param_err:.3e}; metrics {got[0]['metrics']} against one rank's {ref['metrics']}")
+    print(f"(b) render equal to one rank's bit for bit {render_same}; edit bit for bit "
+          f"{edit_same}, mean abs rgb err {edit_mean:.3e} (bar {EDIT_MEAN_TOL:.0e}), moved or "
+          f"relabelled {edit_frac:.4f} of pixels (bar {EDIT_FRAC_TOL:.0%})")
+    if not (all(raw_same) and grad_err <= GRAD_TOL and ranks_same and all(render_same)
+            and edit_mean <= EDIT_MEAN_TOL and edit_frac <= EDIT_FRAC_TOL
+            and all(np.isfinite(v) for v in got[0]["metrics"].values())):
+        raise AssertionError("two gloo ranks disagree with one rank")
+    print(f"phase 17: launches of the sharded runs {total}; "
+          f"{time.perf_counter() - t_phase:.1f} s ({card})")
+    return total
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(sys.argv[2:]))
     try:
         sys.exit(main())
     finally:

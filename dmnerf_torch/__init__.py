@@ -9,7 +9,10 @@ The layout mirrors dmnerf_tpu/ so each module's counterpart is found by path:
             ctypes bindings and their plain PyTorch versions.
 - eval:     the chunked image renderer, PSNR/SSIM, LPIPS (VGG16 on cuDNN),
             instance AP and the render_test harness.
-- cli:      `python -m dmnerf_torch.cli.train` and `dmnerf_torch.cli.test`.
+- parallel: the ray mesh on torch.distributed: one process per card, rays
+            split over them, loss statistics and gradients summed.
+- cli:      `python -m dmnerf_torch.cli.train` and `dmnerf_torch.cli.test`,
+            under torchrun on several cards.
 - config, data, edit/transforms, edit/deform, utils/viz: copies of the JAX
             package's host modules (numpy only), each naming its source on
             its first line; the DM-SR, Replica and ScanNet readers and the

@@ -12,6 +12,12 @@ checkpoint becomes such a file through tools/export_torch_ckpt.py.
 --mani_demo the DM-SR objs_info files (data/dmsr.py). --mesh writes mesh_NNNNNN/{expname}.ply and
 color_{expname}.ply (mesh/extract.py), in the bounds of
 {datadir}/{expname}.ply where that file exists, else of --mesh_extents.
+
+Under torchrun (`python -m torch.distributed.run --nproc_per_node R -m
+dmnerf_torch.cli.test ...`; see cli/train.py for --device and
+--data_devices) --render, --mani_eval and --mani_demo split each view's
+rays over the R ranks and rank 0 writes the outputs; --mesh is not sharded:
+rank 0 extracts it and the other ranks wait for it, then exit.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import os
 import re
 
 import torch
+import torch.distributed as dist
 
 from dmnerf_torch.config import initial, log_dir
 from dmnerf_torch.data.base import dataset_name_from_dir, load_dataset
@@ -28,6 +35,8 @@ from dmnerf_torch.eval.renderer import make_image_renderer
 from dmnerf_torch.eval.tester import render_test
 from dmnerf_torch.models.convert import load_tar
 from dmnerf_torch.models.fields import DMNeRFField, FieldConfig
+from dmnerf_torch.parallel.mesh import (barrier, broadcast_object, close_mesh, is_main,
+                                        launched, make_mesh)
 
 def _resolve_test_model(ldir: str, test_model: str):
     """--test_model ('200000.tar' or '200000') -> the .tar path, or None when
@@ -70,6 +79,17 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+def launch_mesh(args, device):
+    """Under torchrun: the ray mesh of the launched ranks (--data_devices 0
+    or the world size) with rank 0's log_time on every rank; else None."""
+    if not launched():
+        return None
+    mesh = make_mesh(args.data_devices, device)
+    args.log_time = broadcast_object(args.log_time, mesh)
+    print(f"rank {mesh.rank} of {mesh.size} on {mesh.device} ({dist.get_backend()})")
+    return mesh
+
+
 def _color_dict(args):
     """GT-label -> palette-index map for this scene from data/color_dict.json,
     or None for scenes it does not list (e.g. the synthetic fixture)."""
@@ -95,7 +115,17 @@ def main(argv=None):
     args = initial(rest)
     args.is_train = False
     args.perturb = 0.0
+    data_mesh = launch_mesh(args, device)
+    if data_mesh is not None:
+        device = data_mesh.device
+    savedir = run(args, device, data_mesh)
+    close_mesh(data_mesh)
+    return savedir
 
+
+def run(args, device, data_mesh):
+    """The test CLI's work on parsed flags: one mode's outputs (under a ray
+    mesh, rendered over its ranks)."""
     if args.mani_eval:
         from dmnerf_torch.data.dmsr_mani import load_data as load_mani
         scene = load_mani(args)
@@ -115,7 +145,7 @@ def main(argv=None):
         os.makedirs(savedir, exist_ok=True)
         i_test = scene.i_test
         render_im = make_image_renderer(cfg, args, scene.H, scene.W, device=device,
-                                        use_pallas=args.use_pallas)
+                                        use_pallas=args.use_pallas, mesh=data_mesh)
         render_test(render_im, params, scene.poses[i_test], scene.hwk, args,
                     gt_imgs=scene.images[i_test], gt_labels=scene.gt_labels[i_test],
                     ins_rgbs=scene.ins_rgbs, savedir=savedir,
@@ -129,14 +159,14 @@ def main(argv=None):
         if args.resolve_target_label:
             plain = load_dataset(args)      # the unedited scene: GT labels per view
             args.target_label = resolve_target_channel(cfg, params, args, plain,
-                                                       device=device)
+                                                       device=device, mesh=data_mesh)
         generate_poses_eval(args)
         savedir = os.path.join(ldir, f"mani_eval_{iteration:06d}")
         os.makedirs(savedir, exist_ok=True)
         manipulator_eval(cfg, params, scene.poses, scene.hwk, load_mani_poses(args), savedir,
                          scene.ins_rgbs, args, gt_rgbs=scene.images,
                          gt_labels=scene.gt_labels, color_dict=_color_dict(args),
-                         device=device)
+                         device=device, mesh=data_mesh)
         print("Manipulating Done", savedir)
         return savedir
 
@@ -147,7 +177,8 @@ def main(argv=None):
             # objs_info tar_ids are GT labels here: resolve all of them to
             # channels in one Hungarian-matching pass
             ch_map = resolve_target_channel(cfg, params, args, scene, device=device,
-                                            targets=[int(o["tar_id"]) for o in scene.objs])
+                                            targets=[int(o["tar_id"]) for o in scene.objs],
+                                            mesh=data_mesh)
             for o in scene.objs:
                 o["tar_id"] = ch_map[int(o["tar_id"])]
         generate_poses_demo(scene.objs, args)
@@ -155,19 +186,21 @@ def main(argv=None):
         os.makedirs(savedir, exist_ok=True)
         manipulator_demo(cfg, params, scene.hwk, load_mani_demo_poses(args), savedir,
                          scene.ins_rgbs, scene.objs, scene.view_poses, scene.ins_map, args,
-                         color_dict=_color_dict(args), device=device)
+                         color_dict=_color_dict(args), device=device, mesh=data_mesh)
         print("Manipulating Demo Done", savedir)
         return savedir
 
     if args.mesh:
         from dmnerf_torch.mesh.extract import extract_mesh
         savedir = os.path.join(ldir, f"mesh_{iteration:06d}")
-        os.makedirs(savedir, exist_ok=True)
-        ply_path = os.path.join(args.datadir, args.expname + ".ply")
-        extract_mesh(params, cfg, args, ply_path if os.path.exists(ply_path) else None,
-                     savedir, ins_rgbs=scene.ins_rgbs, color_dict=_color_dict(args),
-                     ins_map=scene.ins_map, device=device)
-        print("Meshing Done", savedir)
+        if is_main(data_mesh):
+            os.makedirs(savedir, exist_ok=True)
+            ply_path = os.path.join(args.datadir, args.expname + ".ply")
+            extract_mesh(params, cfg, args, ply_path if os.path.exists(ply_path) else None,
+                         savedir, ins_rgbs=scene.ins_rgbs, color_dict=_color_dict(args),
+                         ins_map=scene.ins_map, device=device)
+            print("Meshing Done", savedir)
+        barrier(data_mesh)
         return savedir
     return None
 

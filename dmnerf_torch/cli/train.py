@@ -4,9 +4,19 @@ Mirrors dmnerf_tpu/cli/train.py: flags and config files are the JAX
 package's (copied into dmnerf_torch.config), the dataset follows --datadir and the pixel
 sampler (full vs 30%-labeled crop) follows the dataset. Adds --device
 (default cuda; a CUDA device that is not there is an error, never a silent
-move to the CPU). One device: multi-GPU is not ported yet (ROADMAP.md queue
-1, item 3). --pallas_train (default True) runs the field through the CUDA
-kernels K1/K2; --pallas_train False is the plain autograd path.
+move to the CPU). --pallas_train (default True) runs the field through the
+CUDA kernels K1/K2; --pallas_train False is the plain autograd path.
+
+Several cards: launch under torchrun, one process per card,
+
+    python -m torch.distributed.run --nproc_per_node R -m dmnerf_torch.cli.train --config ...
+
+and each step's rays split over the R ranks (parallel/mesh.py; NCCL, or
+gloo with --device cpu). --device cuda is cuda:{LOCAL_RANK}; --data_devices
+0 (the default) means all launched ranks, and any other value must equal
+R. Rank 0 prints and writes metrics.jsonl, the checkpoints, the in-train
+evals and the --profile_steps trace. Without torchrun the run is one
+process on one device, as before.
 """
 
 from __future__ import annotations
@@ -15,9 +25,10 @@ import argparse
 
 import torch
 
-from dmnerf_torch.cli.test import resolve_device
+from dmnerf_torch.cli.test import launch_mesh, resolve_device
 from dmnerf_torch.config import initial
 from dmnerf_torch.data.base import load_dataset
+from dmnerf_torch.parallel.mesh import close_mesh
 
 
 def load(argv=None):
@@ -40,7 +51,10 @@ def load(argv=None):
 def main(argv=None):
     args, scene, device = load(argv)
     from dmnerf_torch.train.loop import train
-    return train(args, scene, device=device)
+    mesh = launch_mesh(args, device)
+    state = train(args, scene, device=mesh.device if mesh else device, mesh=mesh)
+    close_mesh(mesh)
+    return state
 
 
 if __name__ == "__main__":

@@ -15,7 +15,7 @@ fused kernels in dmnerf_torch/kernels/render_field.py are held against.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -78,15 +78,20 @@ def render_rays(coarse_fn: FieldFn, fine_fn: FieldFn,
                 rays_o: torch.Tensor, rays_d: torch.Tensor,
                 z_vals_coarse: torch.Tensor, n_importance: int,
                 generator: Optional[torch.Generator] = None,
-                perturb: bool = True) -> Dict[str, torch.Tensor]:
+                perturb: bool = True,
+                noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> Dict[str, torch.Tensor]:
     """The coarse->fine pipeline on a ray batch; returns the reference's
     all_info dict. generator=None or perturb=False is the deterministic eval
-    path (det inverse-CDF, no jitter)."""
+    path (det inverse-CDF, no jitter). noise: the jitter [R, S] and the
+    inverse-CDF uniforms [R, n_importance] drawn beforehand, in place of
+    drawing them from generator (which then may be None)."""
     viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
 
-    stochastic = perturb and generator is not None
+    stochastic = perturb and (generator is not None or noise is not None)
+    t_rand, u = noise if noise is not None else (None, None)
     if stochastic:
-        z_vals_coarse = perturb_z_vals(generator, z_vals_coarse)
+        z_vals_coarse = perturb_z_vals(generator, z_vals_coarse, t_rand)
 
     raw_coarse = eval_field(coarse_fn, rays_o, rays_d, viewdirs, z_vals_coarse)
     rgb_c, w_c, depth_c, ins_c, ins_lg_c = composite(raw_coarse, z_vals_coarse, rays_d)
@@ -94,7 +99,7 @@ def render_rays(coarse_fn: FieldFn, fine_fn: FieldFn,
     z_mid = 0.5 * (z_vals_coarse[..., 1:] + z_vals_coarse[..., :-1])
     z_samples = sample_pdf(z_mid, w_c[..., 1:-1], n_importance,
                            generator=generator if stochastic else None,
-                           det=not stochastic).detach()
+                           det=not stochastic, u=u).detach()
 
     z_vals_fine, _ = torch.sort(torch.cat([z_vals_coarse, z_samples], dim=-1), dim=-1)
     raw_fine = eval_field(fine_fn, rays_o, rays_d, viewdirs, z_vals_fine)

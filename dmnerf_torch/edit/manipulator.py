@@ -20,6 +20,12 @@ The edit chunk is args.N_test (the JAX package's v5e cap, EDIT_CHUNK, is not
 ported); ray generation and the deform offsets run on the device, the offsets
 in f32 (the JAX package's documented deviation). params is
 {"coarse": DMNeRFField, "fine": DMNeRFField} on the device.
+
+Under a ray mesh (mesh=DataMesh, parallel/mesh.py) the original and every
+object's target rays are split the same way over the ranks (N_test must
+split over them): each rank edits its rows (K1 on raws and K5) and the rows
+are gathered, so every rank holds the whole result. An edited ray's work
+does not depend on the other rays.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from dmnerf_torch.core.sampling import sample_pdf, z_val_sample
 from dmnerf_torch.kernels.field import make_pallas_field
 from dmnerf_torch.kernels.render_field import make_render_field, pack_params
 from dmnerf_torch.edit.deform import deform_curve
+from dmnerf_torch.parallel.mesh import gather, rank_share
 
 
 def _field_raw(field_fn, rays_o, rays_d, z_vals):
@@ -180,41 +187,53 @@ def _edit_params(params, use_pallas: bool):
 
 
 def make_manipulator(cfg, params, args, n_obj: int, move_labels: List[int],
-                     use_pallas: bool = False):
+                     use_pallas: bool = False, mesh=None):
     """run(ori_o [N,3], ori_d [N,3], tar_os [n_obj,N,3], tar_ds [n_obj,N,3])
-    -> manipulate_chunk's outputs for one chunk."""
+    -> manipulate_chunk's outputs for one chunk (under a mesh, each rank's
+    N/R rows, gathered)."""
     params = _edit_params(params, use_pallas)
     coarse_fn, fine_fn = _field_fns(cfg, params, use_pallas)
     accum_fn = _fine_accum_fn(cfg, params, use_pallas)
 
     @torch.no_grad()
     def run(ori_o, ori_d, tar_os, tar_ds):
+        if mesh is not None:
+            rows = mesh.rows(ori_o.shape[0], "N_test")
+            ori_o, ori_d, tar_os, tar_ds = (ori_o[rows], ori_d[rows],
+                                            tar_os[:, rows], tar_ds[:, rows])
         tar_rays = [(tar_os[i], tar_ds[i]) for i in range(n_obj)]
-        return manipulate_chunk(coarse_fn, fine_fn, (ori_o, ori_d), tar_rays,
-                                move_labels, args.N_samples, args.N_importance,
-                                args.near, args.far, fine_accum_fn=accum_fn)
+        return gather(manipulate_chunk(coarse_fn, fine_fn, (ori_o, ori_d), tar_rays,
+                                       move_labels, args.N_samples, args.N_importance,
+                                       args.near, args.far, fine_accum_fn=accum_fn), mesh)
 
     return run
 
 
 def make_image_manipulator(cfg, params, args, n_obj: int, move_labels: List[int],
-                           n_rays: int, use_pallas: bool = False):
+                           n_rays: int, use_pallas: bool = False, mesh=None):
     """run_image(ori_o [n,3], ori_d [n,3], tar_os [n_obj,n,3], tar_ds
     [n_obj,n,3]) -> (rgb [n,3], label_full [n] i32, label_noair [n] i32,
     conf_noair [n] f32): the whole-image edit, one N_test chunk at a time,
     with the instance map reduced on the device (the runners use only the
     argmax over all K+1 channels, for visualisation, and the argmax/max over
     the air-dropped channels, for AP). n_rays must be a multiple of
-    args.N_test (callers pad)."""
+    args.N_test (callers pad). Under a mesh each rank edits its contiguous
+    n_rays/R rows in chunks of N_test/R, and the outputs are gathered."""
     chunk = int(args.N_test)
     if n_rays % chunk:
         raise ValueError(f"n_rays {n_rays} is not a multiple of the chunk {chunk}")
+    if mesh is not None:
+        chunk, rows = rank_share(chunk, mesh, "N_test"), mesh.rows(n_rays)
+        n_rays = rows.stop - rows.start
     params = _edit_params(params, use_pallas)
     coarse_fn, fine_fn = _field_fns(cfg, params, use_pallas)
     accum_fn = _fine_accum_fn(cfg, params, use_pallas)
 
     @torch.no_grad()
     def run_image(ori_o, ori_d, tar_os, tar_ds):
+        if mesh is not None:
+            ori_o, ori_d, tar_os, tar_ds = (ori_o[rows], ori_d[rows],
+                                            tar_os[:, rows], tar_ds[:, rows])
         outs = []
         for s in range(0, n_rays, chunk):
             sl = slice(s, s + chunk)
@@ -226,14 +245,14 @@ def make_image_manipulator(cfg, params, args, n_obj: int, move_labels: List[int]
             outs.append((rgb, torch.argmax(ins, -1).to(torch.int32),
                          torch.argmax(ins[..., :-1], -1).to(torch.int32),
                          torch.amax(ins[..., :-1], -1)))
-        return tuple(torch.cat(x, dim=0) for x in zip(*outs))
+        return gather(tuple(torch.cat(x, dim=0) for x in zip(*outs)), mesh)
 
     return run_image
 
 
 def make_pose_image_manipulator(cfg, params, args, objs, move_labels: List[int],
                                 H: int, W: int, K, *, device,
-                                use_pallas: bool = False):
+                                use_pallas: bool = False, mesh=None):
     """Whole-image edit from poses: rays, padding and deform offsets are made
     on the device.
 
@@ -252,7 +271,7 @@ def make_pose_image_manipulator(cfg, params, args, objs, move_labels: List[int],
     n = H * W
     n_pad = (-n) % int(args.N_test)
     core = make_image_manipulator(cfg, params, args, n_obj, move_labels, n + n_pad,
-                                  use_pallas=use_pallas)
+                                  use_pallas=use_pallas, mesh=mesh)
     K_dev = torch.as_tensor(np.asarray(K), dtype=torch.float32, device=device)
     x_axis = torch.tensor([1.0, 0.0, 0.0], device=device)
     curves = [torch.as_tensor(deform_curve(o["deform_func"], H, W), dtype=torch.float32,

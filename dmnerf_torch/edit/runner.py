@@ -14,6 +14,11 @@ Views are launched one ahead: view i+1's edit runs on the device while the
 host copies view i and computes its metrics and pngs. LPIPS
 (eval/lpips.py) runs on the edit's device with --lpips_weights; without
 weights its column and mean are NaN, as in the JAX package.
+
+Under a ray mesh (mesh=DataMesh, parallel/mesh.py) every rank edits its
+share of each view (edit/manipulator.py) and rank 0 alone computes the
+metrics and writes the artifacts; resolve_target_channel renders sharded
+and every rank resolves the same channels.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from dmnerf_torch.eval.instance_ap import ins_eval_from_labels
 from dmnerf_torch.eval.lpips import load_lpips
 from dmnerf_torch.eval.metrics import psnr as psnr_fn, ssim as ssim_fn
 from dmnerf_torch.eval.renderer import _copy_to_host, _wait
+from dmnerf_torch.parallel.mesh import is_main
 from dmnerf_torch.utils.png import write_png
 from dmnerf_torch.edit.deform import deform_scale
 from dmnerf_torch.utils.viz import render_gt_label2img, render_label2img, to8b
@@ -50,7 +56,8 @@ def _prefetch_map(dispatch, items, n: int, device):
         yield _wait(pending)
 
 
-def resolve_target_channel(cfg, params, args, scene, *, device, n_views=3, targets=None):
+def resolve_target_channel(cfg, params, args, scene, *, device, n_views=3, targets=None,
+                           mesh=None):
     """Map GT instance label(s) to the trained model's instance channel(s).
 
     The Hungarian instance loss binds prediction channels to objects by an
@@ -60,7 +67,8 @@ def resolve_target_channel(cfg, params, args, scene, *, device, n_views=3, targe
     targets: GT labels to resolve in one pass, returning {gt_label: channel};
     None resolves args.target_label and returns its channel."""
     render_im = renderer.make_image_renderer(cfg, args, scene.H, scene.W, device=device,
-                                             use_pallas=getattr(args, "use_pallas", False))
+                                             use_pallas=getattr(args, "use_pallas", False),
+                                             mesh=mesh)
     _, _, K = scene.hwk
     wanted = ([int(args.target_label)] if targets is None else [int(t) for t in targets])
     votes = {t: Counter() for t in wanted}
@@ -78,35 +86,42 @@ def resolve_target_channel(cfg, params, args, scene, *, device, n_views=3, targe
             raise ValueError(f"--resolve_target_label: GT label {t} was not matched to "
                              f"any prediction channel in {n_views} test views")
         ch, n = votes[t].most_common(1)[0]
-        print(f"[MANI] resolved GT label {t} -> instance channel {ch} "
-              f"({n}/{sum(votes[t].values())} view votes)")
+        if is_main(mesh):
+            print(f"[MANI] resolved GT label {t} -> instance channel {ch} "
+                  f"({n}/{sum(votes[t].values())} view votes)")
         resolved[t] = ch
     return resolved if targets is not None else resolved[wanted[0]]
 
 
 def manipulator_eval(cfg, params, ori_poses, hwk, trans_dicts, save_dir, ins_rgbs, args,
-                     gt_rgbs=None, gt_labels=None, color_dict=None, *, device):
-    """Returns (mean PSNR, mean AP[6]) with ground truth, else None."""
+                     gt_rgbs=None, gt_labels=None, color_dict=None, *, device, mesh=None):
+    """Returns (mean PSNR, mean AP[6]) with ground truth, else None (and None
+    on the ranks other than 0)."""
     H, W, K = hwk
     trans_dict = trans_dicts["transformations"][0]
     trans = np.array(trans_dict["transformation"], np.float64)
     save_dir = os.path.join(save_dir, trans_dict["mode"])
-    os.makedirs(save_dir, exist_ok=True)
 
     run_pose = make_pose_image_manipulator(
         cfg, params, args, objs=[{"mode": "rigid"}], move_labels=[int(args.target_label)],
-        H=H, W=W, K=K, device=device, use_pallas=getattr(args, "use_pallas", False))
-    if color_dict is None:
-        color_dict = {str(i): i for i in range(len(ins_rgbs))}
-    lpips_fn = load_lpips(getattr(args, "lpips_weights", None), device=device)
-
-    psnrs, ssims, lpipses, aps, full_map = [], [], [], [], {}
+        H=H, W=W, K=K, device=device, use_pallas=getattr(args, "use_pallas", False),
+        mesh=mesh)
 
     def _dispatch(_i, ori_pose):
         return run_pose(ori_pose, (trans @ ori_pose)[None], np.zeros(1))
 
     poses_np = np.asarray(ori_poses)
     stream = _prefetch_map(_dispatch, poses_np, H * W, torch.device(device))
+    if not is_main(mesh):
+        for _ in stream:
+            pass
+        return None
+    os.makedirs(save_dir, exist_ok=True)
+    if color_dict is None:
+        color_dict = {str(i): i for i in range(len(ins_rgbs))}
+    lpips_fn = load_lpips(getattr(args, "lpips_weights", None), device=device)
+
+    psnrs, ssims, lpipses, aps, full_map = [], [], [], [], {}
     for i in range(len(poses_np)):
         t0 = time.time()
         rgb, label_full, label, conf = next(stream)
@@ -158,10 +173,11 @@ def manipulator_eval(cfg, params, ori_poses, hwk, trans_dicts, save_dir, ins_rgb
 
 
 def manipulator_demo(cfg, params, hwk, objs_trans, save_dir, ins_rgbs, objs, view_poses,
-                     ins_map, args, color_dict=None, *, device):
+                     ins_map, args, color_dict=None, *, device, mesh=None):
     H, W, K = hwk
     save_dir = os.path.join(save_dir, args.mani_type)
-    os.makedirs(save_dir, exist_ok=True)
+    if is_main(mesh):
+        os.makedirs(save_dir, exist_ok=True)
     if color_dict is None:
         color_dict = {str(i): i for i in range(len(ins_rgbs))}
 
@@ -169,7 +185,8 @@ def manipulator_demo(cfg, params, hwk, objs_trans, save_dir, ins_rgbs, objs, vie
                  if o["mani_mode"] == "deform" else {"mode": "rigid"} for o in objs]
     run_pose = make_pose_image_manipulator(
         cfg, params, args, objs=pose_objs, move_labels=[int(o["tar_id"]) for o in objs],
-        H=H, W=W, K=K, device=device, use_pallas=getattr(args, "use_pallas", False))
+        H=H, W=W, K=K, device=device, use_pallas=getattr(args, "use_pallas", False),
+        mesh=mesh)
 
     def _dispatch(i, ori_pose):
         # poses and per-view deform scales only; rays are made on the device
@@ -187,6 +204,10 @@ def manipulator_demo(cfg, params, hwk, objs_trans, save_dir, ins_rgbs, objs, vie
 
     poses_np = np.asarray(view_poses)
     stream = _prefetch_map(_dispatch, poses_np, H * W, torch.device(device))
+    if not is_main(mesh):
+        for _ in stream:
+            pass
+        return
     for i in range(len(poses_np)):
         t0 = time.time()
         rgb, label_full, _, _ = next(stream)

@@ -10,6 +10,12 @@ core/rendering.render_rays, with the field through kernel K1
 otherwise. The chunk is N_test rays.
 
 params is {"coarse": DMNeRFField, "fine": DMNeRFField} on `device`.
+
+Under a ray mesh (mesh=DataMesh, parallel/mesh.py) each rank renders 1/R of
+the rays in chunks of N_test/R (N_test must split over the ranks): its
+contiguous rows of the whole image in make_batch_renderer, of each chunk in
+make_chunk_renderer; the rows are gathered, so every rank holds the whole
+result. Each ray's work does not depend on the rest of its chunk.
 """
 
 from __future__ import annotations
@@ -23,19 +29,23 @@ from dmnerf_torch.core.sampling import z_val_sample
 from dmnerf_torch.kernels.field import make_pallas_field
 from dmnerf_torch.kernels.render_field import make_fused_chunk_renderer, pack_params
 from dmnerf_torch.models.fields import FieldConfig
+from dmnerf_torch.parallel.mesh import gather, rank_share, shard_batch
 
 
 def make_chunk_renderer(cfg: FieldConfig, n_samples: int, n_importance: int,
                         near: float, far: float, chunk: int, *, device,
-                        use_pallas: bool = False):
+                        use_pallas: bool = False, mesh=None):
     """render_chunk(params, rays_o [chunk,3], rays_d [chunk,3])
     -> (rgb [chunk,3], ins [chunk,K], depth [chunk]) on the unfused path:
-    the field through K1 when use_pallas, else the field modules."""
+    the field through K1 when use_pallas, else the field modules (under a
+    mesh, each rank renders its chunk/R rows and the rows are gathered)."""
     device = torch.device(device)
     field = make_pallas_field(cfg) if use_pallas else None
+    chunk = rank_share(chunk, mesh, "N_test")
 
     @torch.no_grad()
     def render_chunk(params, rays_o, rays_d):
+        rays_o, rays_d = shard_batch((rays_o, rays_d), mesh)
         if use_pallas:
             params = pack_params(params)
             coarse_fn = lambda pts, vd: field(params["coarse"], pts, vd)
@@ -45,22 +55,25 @@ def make_chunk_renderer(cfg: FieldConfig, n_samples: int, n_importance: int,
         z = z_val_sample(chunk, near, far, n_samples, device=device)
         out = render_rays(coarse_fn, fine_fn, rays_o, rays_d, z,
                           n_importance, generator=None, perturb=False)
-        return out["rgb_fine"], out["ins_fine"], out["depth_fine"]
+        return gather((out["rgb_fine"], out["ins_fine"], out["depth_fine"]), mesh)
 
     return render_chunk
 
 
 def make_batch_renderer(cfg: FieldConfig, n_samples: int, n_importance: int,
                         near: float, far: float, chunk: int, n_rays: int, *,
-                        device, use_pallas: bool = False, fused=None):
+                        device, use_pallas: bool = False, fused=None, mesh=None):
     """render_all(params, rays_o [n_rays,3], rays_d [n_rays,3]) -> (rgb, ins,
-    depth) over the whole ray set, one fixed-size chunk at a time. n_rays must
+    depth) over the whole ray set, one fixed-size chunk at a time (under a
+    mesh, this rank's rows in chunks of chunk/R, then gathered). n_rays must
     be a multiple of chunk (callers pad). fused defaults to use_pallas."""
     if n_rays % chunk:
         raise ValueError(f"n_rays {n_rays} is not a multiple of chunk {chunk}")
     if fused is None:
         fused = use_pallas
     device = torch.device(device)
+    if mesh is not None:
+        n_rays, chunk = n_rays // mesh.size, rank_share(chunk, mesh, "N_test")
 
     if fused:
         render_chunk_fused = make_fused_chunk_renderer(cfg, n_importance)
@@ -70,6 +83,7 @@ def make_batch_renderer(cfg: FieldConfig, n_samples: int, n_importance: int,
 
     @torch.no_grad()
     def render_all(params, rays_o, rays_d):
+        rays_o, rays_d = shard_batch((rays_o, rays_d), mesh)
         if fused or use_pallas:
             params = pack_params(params)          # once per image
         if fused:
@@ -80,7 +94,7 @@ def make_batch_renderer(cfg: FieldConfig, n_samples: int, n_importance: int,
             outs.append(render_chunk_fused(params, ro, rd, z) if fused
                         else render_chunk(params, ro, rd))
         rgb, ins, depth = (torch.cat(x, dim=0) for x in zip(*outs))
-        return rgb, ins, depth
+        return gather((rgb, ins, depth), mesh)
 
     return render_all
 
@@ -117,7 +131,7 @@ def render_image(render_chunk, params, H: int, W: int, K: np.ndarray,
 
 
 def make_image_renderer(cfg: FieldConfig, args, H: int, W: int, *, device,
-                        use_pallas: bool = False, fused=None):
+                        use_pallas: bool = False, fused=None, mesh=None):
     """render_im(params, K, c2w) -> numpy (rgb [H,W,3] f32, label [H,W] i32,
     conf [H,W] f32, depth [H,W] f32). Rays are made on the device, and the
     instance map is reduced to its argmax label and max-prob confidence there,
@@ -126,14 +140,15 @@ def make_image_renderer(cfg: FieldConfig, args, H: int, W: int, *, device,
     render_im.many(params, K, c2ws) yields one such tuple per pose, launching
     view i+1 before it waits for view i's copy, so host work on view i
     (metrics, pngs) overlaps the device's work on view i+1; render_im.device
-    is `device`."""
+    is `device`, render_im.mesh is `mesh`."""
     chunk = int(args.N_test)
     device = torch.device(device)
     n = H * W
     n_pad = (-n) % chunk
     render_all = make_batch_renderer(cfg, args.N_samples, args.N_importance,
                                      args.near, args.far, chunk, n + n_pad,
-                                     device=device, use_pallas=use_pallas, fused=fused)
+                                     device=device, use_pallas=use_pallas, fused=fused,
+                                     mesh=mesh)
 
     @torch.no_grad()
     def render_im_dev(params, K, c2w):
@@ -167,6 +182,7 @@ def make_image_renderer(cfg: FieldConfig, args, H: int, W: int, *, device,
 
     render_im.many = render_many
     render_im.device = device
+    render_im.mesh = mesh
     return render_im
 
 

@@ -10,6 +10,10 @@ out-of-crop prediction. Writes {i:03d}.png, instance_{i:03d}.png,
 LPIPS (eval/lpips.py) runs on the renderer's device with --lpips_weights; on
 ScanNet it is taken on the centre crop. Without weights its column is NaN,
 as in the JAX package.
+
+Under a ray mesh (render_im.mesh) every rank renders its share of each view;
+rank 0 alone computes the metrics and writes the artifacts, and returns the
+means (the other ranks return None).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import numpy as np
 from dmnerf_torch.eval.instance_ap import ins_eval_from_labels
 from dmnerf_torch.eval.lpips import load_lpips
 from dmnerf_torch.eval.metrics import psnr as psnr_fn, ssim as ssim_fn
+from dmnerf_torch.parallel.mesh import is_main
 from dmnerf_torch.utils.png import write_png
 from dmnerf_torch.utils.viz import render_gt_label2img, render_label2img, to8b
 
@@ -35,6 +40,10 @@ def render_test(render_im, params, render_poses, hwk, args,
     """Returns (mean_psnr, mean_ssim, mean_lpips, mean_ap[6]) and writes the
     artifacts. render_im comes from eval.renderer.make_image_renderer."""
     H, W, K = hwk
+    if not is_main(render_im.mesh):
+        for _ in render_im.many(params, K, np.asarray(render_poses)):
+            pass
+        return None
     lpips_fn = load_lpips(getattr(args, "lpips_weights", None), device=render_im.device)
     psnrs, ssims, lpipses, aps = [], [], [], []
     full_map = {}

@@ -15,13 +15,19 @@ _BCECore: a torch.autograd.Function whose forward makes one exp(-|x|) pass
 over the full-width raw [R, S, 4+K+1] (the rgb/density channels are masked,
 not sliced) and whose backward rebuilds sigmoid(x) from the stored exp(-|x|)
 with no transcendental.
+
+Under a ray mesh (parallel/mesh.py) both normalisers, sum(mask_before) and
+sum(mask_middle), and the BCE sum are summed across ranks.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
+
+from dmnerf_torch.parallel.mesh import DataMesh, psum
 
 
 def _masks(x: torch.Tensor):
@@ -59,7 +65,7 @@ class _BCECore(torch.autograd.Function):
 
 def emptiness_penalizer(raw: torch.Tensor, z_vals: torch.Tensor, depths: torch.Tensor,
                         rays_d: torch.Tensor, tolerance: float,
-                        deta_w: float) -> torch.Tensor:
+                        deta_w: float, mesh: Optional[DataMesh] = None) -> torch.Tensor:
     """raw [R, S, 4+K+1]; z_vals [R, S]; depths [R, 1] (detached); rays_d [R, 3]."""
     deta_h = 0.4
     norm = torch.linalg.norm(rays_d[..., None, :], dim=-1)   # [R, 1]
@@ -73,12 +79,14 @@ def emptiness_penalizer(raw: torch.Tensor, z_vals: torch.Tensor, depths: torch.T
     mask_after = (p_dists > dists_after).to(raw.dtype)
     mask_middle = 1.0 - (mask_after + mask_before)
     n_ch = raw.shape[-1] - 4                                   # K+1 instance channels
-    wb = (1.0 - gauss) * mask_before / (n_ch * torch.clamp(mask_before.sum(), min=1e-8))
-    wm = gauss * mask_middle / torch.clamp(mask_middle.sum(), min=1e-8)
-    return _BCECore.apply(raw, wb.detach(), wm.detach())
+    wb = (1.0 - gauss) * mask_before / (
+        n_ch * torch.clamp(psum(mask_before.sum(), mesh), min=1e-8))
+    wm = gauss * mask_middle / torch.clamp(psum(mask_middle.sum(), mesh), min=1e-8)
+    return psum(_BCECore.apply(raw, wb.detach(), wm.detach()), mesh)
 
 
 def ins_penalizer(raw: torch.Tensor, z_vals: torch.Tensor, depth: torch.Tensor,
-                  rays_d: torch.Tensor, tolerance: float, deta_w: float) -> torch.Tensor:
+                  rays_d: torch.Tensor, tolerance: float, deta_w: float,
+                  mesh: Optional[DataMesh] = None) -> torch.Tensor:
     return emptiness_penalizer(raw, z_vals, depth.detach()[..., None], rays_d,
-                               tolerance, deta_w)
+                               tolerance, deta_w, mesh)

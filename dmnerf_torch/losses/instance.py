@@ -9,6 +9,15 @@ dmnerf_tpu/losses/instance.py; reference networks/evaluator.py:19-74).
 - matching on cost_ce + cost_siou over the valid rows (ops/lap.py, on the
   host); loss = mean matched CE + mean over unmatched pred columns + mean
   matched (1 - sIoU).
+
+Under a ray mesh (parallel/mesh.py) each rank holds some of the rays. The
+presence of each label (the bincount), and the per-rank partials gt.T @ logp,
+(1-gt).T @ log1mp, tp = gt.T @ pred, the column sums of pred and gt and the
+column means of pred (weighted by the rank's share of the n_rays rays) are
+summed across ranks (psum) before cost_ce (over the global n_rays), sIoU
+and the matching; every rank then solves the same [2, K, K] on the host, and
+ins_loss_from_stats makes the loss from the summed statistics. A rank with
+none of the rays contributes zeros.
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from dmnerf_torch.ops.lap import lap_square
+from dmnerf_torch.parallel.mesh import DataMesh, psum
 
 
 class InsLoss(NamedTuple):
@@ -30,11 +40,12 @@ class InsLoss(NamedTuple):
     valid_siou: torch.Tensor
 
 
-def build_gt_onehot(gt_labels: torch.Tensor, ins_num: int):
+def build_gt_onehot(gt_labels: torch.Tensor, ins_num: int, mesh: Optional[DataMesh] = None):
     """gt_labels [N] int in [0, ins_num) -> (gt [N, K] one-hot into slots
-    ordered by ascending present label id, row_valid [K] bool, valid_num)."""
+    ordered by ascending label id present on any rank, row_valid [K] bool,
+    valid_num)."""
     labels = gt_labels.long()
-    presence = torch.bincount(labels, minlength=ins_num)[:ins_num] > 0
+    presence = psum(torch.bincount(labels, minlength=ins_num)[:ins_num], mesh) > 0
     valid_num = presence.sum()
     rank = torch.cumsum(presence.long(), 0) - 1                 # label id -> slot
     gt = F.one_hot(rank[labels], ins_num).float()
@@ -43,46 +54,66 @@ def build_gt_onehot(gt_labels: torch.Tensor, ins_num: int):
 
 
 def cost_matrices(pred: torch.Tensor, gt: torch.Tensor,
-                  logits: Optional[torch.Tensor] = None):
+                  logits: Optional[torch.Tensor] = None,
+                  mesh: Optional[DataMesh] = None, n_rays: Optional[int] = None):
     """(cost_ce, cost_siou) [K_gt_slots, K_pred_cols] as matmuls. pred [N, K]
     in (0, 1), gt [N, K] one-hot, logits the optional pre-sigmoid map (exact
-    BCE: -log sigmoid(x) = softplus(-x))."""
-    n = pred.shape[0]
+    BCE: -log sigmoid(x) = softplus(-x)). Under a mesh, n_rays is the count
+    of rays over all ranks."""
+    n = pred.shape[0] if mesh is None else n_rays
     gt = gt.to(pred.dtype)
     if logits is not None:
         logp, log1mp = -F.softplus(-logits), -F.softplus(logits)
     else:
         logp, log1mp = torch.log(pred + 1e-8), torch.log(1.0 - pred + 1e-8)
-    cost_ce = (-(gt.T @ logp) - ((1.0 - gt).T @ log1mp)) / n
-    tp = gt.T @ pred
-    fp = pred.sum(0)[None, :] - tp
-    fn = gt.sum(0)[:, None] - tp
+    cost_ce = (-psum(gt.T @ logp, mesh) - psum((1.0 - gt).T @ log1mp, mesh)) / n
+    tp = psum(gt.T @ pred, mesh)
+    fp = psum(pred.sum(0), mesh)[None, :] - tp
+    fn = psum(gt.sum(0), mesh)[:, None] - tp
     return cost_ce, 1.0 - tp / (tp + fp + fn + 1e-6)
+
+
+def column_mean(pred: torch.Tensor, mesh: Optional[DataMesh] = None,
+                n_rays: Optional[int] = None) -> torch.Tensor:
+    """pred's mean over the rays of every rank [K]: this rank's mean weighted
+    by its share of the n_rays, summed (an empty share adds zeros)."""
+    if mesh is None:
+        return pred.mean(0)
+    n = pred.shape[0]
+    return psum(pred.mean(0) * (n / n_rays) if n else pred.sum(0), mesh)
 
 
 def ins_criterion_pair(pred_coarse: torch.Tensor, pred_fine: torch.Tensor,
                        gt_labels: torch.Tensor, ins_num: int,
                        logits_coarse: Optional[torch.Tensor] = None,
-                       logits_fine: Optional[torch.Tensor] = None):
-    """Coarse and fine instance losses; both assignments come from one copy of
-    the two [K, K] costs to the host and one solver call each there."""
-    gt, row_valid, valid_num = build_gt_onehot(gt_labels, ins_num)
-    ce_c, siou_c = cost_matrices(pred_coarse, gt, logits_coarse)
-    ce_f, siou_f = cost_matrices(pred_fine, gt, logits_fine)
-    cost = torch.stack([ce_c + siou_c, ce_f + siou_f]).detach()
+                       logits_fine: Optional[torch.Tensor] = None,
+                       mesh: Optional[DataMesh] = None, n_rays: Optional[int] = None):
+    """Coarse and fine instance losses. Under a mesh, the rays are this
+    rank's share of n_rays."""
+    gt, row_valid, valid_num = build_gt_onehot(gt_labels, ins_num, mesh)
+    stats = [(*cost_matrices(pred, gt, logits, mesh, n_rays), column_mean(pred, mesh, n_rays))
+             for pred, logits in ((pred_coarse, logits_coarse), (pred_fine, logits_fine))]
+    return ins_loss_from_stats(stats, row_valid, valid_num, ins_num)
+
+
+def ins_loss_from_stats(stats, row_valid, valid_num, ins_num: int):
+    """The matched losses from (summed) statistics: stats holds one
+    (cost_ce, cost_siou, column mean of pred) per field. All assignments come
+    from one copy of the [len(stats), K, K] costs to the host and one solver
+    call each there; returns one InsLoss per field."""
+    cost = torch.stack([ce + siou for ce, siou, _ in stats]).detach()
     cost = torch.where(row_valid[None, :, None], cost, 0.0)
     # the spans name the copy (it waits for the queued forward) and the solve
     # in a torch.profiler trace (tools/trace_step.py)
     with record_function("lap.copy_to_host"):
         host = torch.cat([cost.reshape(-1).double(), valid_num.double()[None]]).cpu().numpy()
     nv = int(host[-1])
-    costs = host[:-1].reshape(2, ins_num, ins_num)
+    costs = host[:-1].reshape(len(stats), ins_num, ins_num)
     with record_function("lap.solve"):
         col4rows = np.stack([lap_square(c, nv) for c in costs])
-    col4rows = torch.from_numpy(col4rows).to(gt.device)
-    return tuple(_matched_loss(ce, siou, pred.mean(0), row_valid, valid_num, ins_num, c4r)
-                 for ce, siou, pred, c4r in ((ce_c, siou_c, pred_coarse, col4rows[0]),
-                                             (ce_f, siou_f, pred_fine, col4rows[1])))
+    col4rows = torch.from_numpy(col4rows).to(cost.device)
+    return tuple(_matched_loss(ce, siou, col_mean, row_valid, valid_num, ins_num, c4r)
+                 for (ce, siou, col_mean), c4r in zip(stats, col4rows))
 
 
 def _matched_loss(cost_ce, cost_siou, col_mean_pred, row_valid, valid_num,

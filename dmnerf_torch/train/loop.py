@@ -14,6 +14,13 @@ train_dmsr.py:17-107).
 - --profile_steps N: a torch.profiler trace of N dispatches after the first
   (which holds the kernels' builds and the cuBLAS/cuDNN set-up) into
   {log_dir}/profile (utils/profiling.trace).
+
+Under a ray mesh (parallel/mesh.py) every rank takes every step (its rows of
+each step's rays), starting from rank 0's initial parameters; rank 0 alone
+prints, writes metrics.jsonl, the checkpoints and the --profile_steps trace
+(of its own process), and every rank waits after each checkpoint write, so
+a killed run is resumable. In-training evals render sharded and rank 0
+writes them; --resume loads the same checkpoint on every rank.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import numpy as np
 import torch
 
 from dmnerf_torch.models.fields import FieldConfig
+from dmnerf_torch.parallel.mesh import barrier, is_main, replicate
 from dmnerf_torch.train.checkpoint import (latest_checkpoint, restore_checkpoint,
                                            save_checkpoint)
 from dmnerf_torch.train.step import (create_train_state, make_train_scan_step,
@@ -45,10 +53,12 @@ def _scan_stride(args, eval_every: int) -> int:
     return next(d for d in range(min(g, 100), 0, -1) if g % d == 0)
 
 
-def train(args, scene, device, n_iters=None):
+def train(args, scene, device, n_iters=None, mesh=None):
     """Run training on `device` for n_iters steps (default: the reference's
-    args.n_iters + 1). Returns the final TrainState."""
+    args.n_iters + 1), over the ranks of `mesh` (a parallel.mesh.DataMesh)
+    when given. Returns the final TrainState."""
     device = torch.device(device)
+    main = is_main(mesh)
     args.ins_num = scene.ins_num
     cfg = FieldConfig.from_args(args)
     sampler = "crop" if scene.ins_indices is not None else "full"
@@ -62,15 +72,16 @@ def train(args, scene, device, n_iters=None):
         if ckpt:
             restore_checkpoint(ckpt, state, args.lrate, args.lrate_decay)
             print(f"resumed from {ckpt} @ step {state.step}")
+    replicate([p.data for m in state.params.values() for p in m.parameters()], mesh)
 
     n_iters = n_iters if n_iters is not None else int(getattr(args, "n_iters", 500000)) + 1
     eval_every = args.i_test
     k = int(getattr(args, "scan_steps", 0) or 0) or _scan_stride(args, eval_every)
-    step_k = make_train_scan_step(args, cfg, sampler=sampler)
+    step_k = make_train_scan_step(args, cfg, sampler=sampler, mesh=mesh)
     arrs = scene_arrays(scene, device)
     i_train = np.asarray(scene.i_train)
     base_seed = args.seed + 1
-    profile_steps = int(getattr(args, "profile_steps", 0) or 0)
+    profile_steps = int(getattr(args, "profile_steps", 0) or 0) if main else 0
     profile_dir = os.path.join(ldir, "profile")
     dispatch_i = 0
 
@@ -98,7 +109,7 @@ def train(args, scene, device, n_iters=None):
         def crossed(every):
             return every and (done // every) > (prev // every)
 
-        if crossed(args.i_print) or done == n_iters:
+        if main and (crossed(args.i_print) or done == n_iters):
             # one device->host copy for all the scalars
             m = dict(zip(metrics, torch.stack(list(metrics.values())).tolist()))
             dt = time.time() - t_window
@@ -115,13 +126,16 @@ def train(args, scene, device, n_iters=None):
 
         # the final state is saved too when n_iters is not a multiple of i_save
         if crossed(args.i_save) or done == n_iters:
-            save_checkpoint(ldir, state, done)
+            if main:
+                save_checkpoint(ldir, state, done)
+            barrier(mesh)
 
         if crossed(eval_every) and done < n_iters:
             if render_im is None:
                 from dmnerf_torch.eval.renderer import make_image_renderer
                 render_im = make_image_renderer(cfg, args, scene.H, scene.W, device=device,
-                                                use_pallas=getattr(args, "use_pallas", True))
+                                                use_pallas=getattr(args, "use_pallas", True),
+                                                mesh=mesh)
             _in_train_eval(args, render_im, state, scene, ldir, done)
             t_window = time.time()
             rays_done = 0
@@ -142,7 +156,8 @@ def _in_train_eval(args, render_im, state, scene, ldir, step):
         rng = np.random.default_rng([args.seed, step])
         sel = scene.i_test[rng.choice(len(scene.i_test), size=n_views, replace=False)]
     savedir = os.path.join(ldir, f"testset_{step:06d}")
-    os.makedirs(savedir, exist_ok=True)
+    if is_main(render_im.mesh):
+        os.makedirs(savedir, exist_ok=True)
     render_test(render_im, state.params, scene.poses[sel], scene.hwk, args,
                 gt_imgs=scene.images[sel], gt_labels=scene.gt_labels[sel],
                 ins_rgbs=scene.ins_rgbs, savedir=savedir, crop_mask=scene.crop_mask)

@@ -22,6 +22,16 @@ Pixel samplers:
 Randomness: each step draws from a torch.Generator on the device seeded from
 (seed, step) (step_randomness), as make_train_scan_step's fold_in(base_key,
 step) does, so a killed and resumed run replays bit for bit.
+
+Under a ray mesh (parallel/mesh.py, mesh=DataMesh) every rank draws the
+step's global randomness (the pixels, the jitter [N, S] and the inverse-CDF
+uniforms [N, N_importance], in the order one rank draws them) and takes its
+contiguous N/R rows of the rays and the noise; target_i stays whole and each
+rank takes its rows of the instance-loss rays (the crop sampler's labeled
+rays are the batch's last n_ins, so they sit on the last rank or ranks; a
+rank with none contributes zeros). The losses are global (losses/*: psum),
+the gradients are summed over the ranks after backward in one flat buffer,
+and every rank takes the same Adam step. N_train must split over the ranks.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ from dmnerf_torch.losses.emptiness import ins_penalizer
 from dmnerf_torch.losses.instance import ins_criterion_pair
 from dmnerf_torch.losses.photometric import img2mse, mse2psnr
 from dmnerf_torch.models.fields import DMNeRFField, FieldConfig, init_field_params
+from dmnerf_torch.parallel.mesh import DataMesh, all_reduce_grads, rank_share, shard_batch
 from dmnerf_torch.train.schedule import make_optimizer
 
 
@@ -136,10 +147,12 @@ def _select_pixels_crop(gen: torch.Generator, scene: SceneArrays, img_i: int,
     return torch.cat([scene.crop_idx[pos], lab_pix]), lab_pix
 
 
-def make_train_step(args, cfg: FieldConfig, sampler: str = "full"):
+def make_train_step(args, cfg: FieldConfig, sampler: str = "full",
+                    mesh: Optional[DataMesh] = None):
     """step_fn(state, scene, gen, img_i) -> metrics (detached 0-d tensors);
     updates `state` in place. step_fn.loss_fn(params, rays_o, rays_d,
-    target_c, target_i, gen) -> (total, metrics) is the differentiable part.
+    target_c, target_i, gen, noise=None) -> (total, metrics) is the
+    differentiable part (under a mesh, on this rank's rows).
 
     args needs: N_train, N_samples, N_importance, near, far, perturb,
     penalize, tolerance, deta_w, ins_num, pallas_train, remat."""
@@ -149,7 +162,15 @@ def make_train_step(args, cfg: FieldConfig, sampler: str = "full"):
     penalize = bool(args.penalize)
     perturb = float(args.perturb) > 0.0
     ins_num = int(args.ins_num)
-    n_ins = int(n_train * 0.3) if sampler == "crop" else None
+    n_ins = int(n_train * 0.3) if sampler == "crop" else n_train
+    rank_share(n_train, mesh, "N_train")
+    # the instance loss takes the batch's last n_ins rays: of this rank's
+    # rows, those at or after ins_start, and their rows of target_i
+    rows = mesh.rows(n_train) if mesh is not None else slice(0, n_train)
+    ins_start = n_train - n_ins
+    lo, hi = max(rows.start, ins_start), max(rows.stop, ins_start)
+    ins_rows = slice(lo - rows.start, hi - rows.start)
+    target_rows = slice(lo - ins_start, hi - ins_start)
 
     if getattr(args, "pallas_train", True):
         field = make_trainable_pallas_field(cfg)
@@ -158,20 +179,19 @@ def make_train_step(args, cfg: FieldConfig, sampler: str = "full"):
     else:
         field = lambda m, pts, vd: m(pts, vd)
 
-    def loss_fn(params, rays_o, rays_d, target_c, target_i, gen):
+    def loss_fn(params, rays_o, rays_d, target_c, target_i, gen, noise=None):
         coarse_fn = lambda pts, vd: field(params["coarse"], pts, vd)
         fine_fn = lambda pts, vd: field(params["fine"], pts, vd)
-        z_coarse = z_val_sample(n_train, near, far, n_samples, device=rays_o.device)
+        z_coarse = z_val_sample(rays_o.shape[0], near, far, n_samples, device=rays_o.device)
         out = render_rays(coarse_fn, fine_fn, rays_o, rays_d, z_coarse, n_importance,
-                          generator=gen, perturb=perturb)
+                          generator=gen, perturb=perturb, noise=noise)
 
-        rgb_loss_c = img2mse(out["rgb_coarse"], target_c)
-        rgb_loss_f = img2mse(out["rgb_fine"], target_c)
-        tail = (lambda x: x[-n_ins:]) if n_ins else (lambda x: x)
+        rgb_loss_c = img2mse(out["rgb_coarse"], target_c, mesh)
+        rgb_loss_f = img2mse(out["rgb_fine"], target_c, mesh)
         loss_c, loss_f = ins_criterion_pair(
-            tail(out["ins_coarse"]), tail(out["ins_fine"]), target_i, ins_num,
-            logits_coarse=tail(out["ins_logits_coarse"]),
-            logits_fine=tail(out["ins_logits_fine"]))
+            out["ins_coarse"][ins_rows], out["ins_fine"][ins_rows], target_i, ins_num,
+            logits_coarse=out["ins_logits_coarse"][ins_rows],
+            logits_fine=out["ins_logits_fine"][ins_rows], mesh=mesh, n_rays=n_ins)
         rgb_loss = rgb_loss_f + rgb_loss_c
         ins_loss = loss_f.total + loss_c.total
         total = rgb_loss + ins_loss
@@ -179,7 +199,7 @@ def make_train_step(args, cfg: FieldConfig, sampler: str = "full"):
             for sfx in ("coarse", "fine"):
                 total = total + ins_penalizer(out[f"raw_{sfx}"], out[f"z_vals_{sfx}"],
                                               out[f"depth_{sfx}"], rays_d,
-                                              args.tolerance, args.deta_w)
+                                              args.tolerance, args.deta_w, mesh)
         metrics = {"psnr_fine": mse2psnr(rgb_loss_f), "psnr_coarse": mse2psnr(rgb_loss_c),
                    "rgb_loss": rgb_loss, "ins_loss": ins_loss, "total_loss": total}
         return total, metrics
@@ -194,10 +214,21 @@ def make_train_step(args, cfg: FieldConfig, sampler: str = "full"):
             target_i = scene.labels[img_i].reshape(-1)[pix]
         rays_o, rays_d = rays_at_pixels(pix, W, scene.K, scene.poses[img_i])
         target_c = scene.images[img_i].reshape(-1, 3)[pix]
+        noise = None
+        if mesh is not None:
+            if perturb:
+                dev = rays_o.device
+                noise = (torch.rand((n_train, n_samples), generator=gen, device=dev),
+                         torch.rand((n_train, n_importance), generator=gen, device=dev))
+            rays_o, rays_d, target_c, noise = shard_batch((rays_o, rays_d, target_c, noise),
+                                                         mesh)
+            target_i = target_i[target_rows]
 
-        total, metrics = loss_fn(state.params, rays_o, rays_d, target_c, target_i, gen)
+        total, metrics = loss_fn(state.params, rays_o, rays_d, target_c, target_i, gen, noise)
         state.opt.zero_grad(set_to_none=True)
         total.backward()
+        if mesh is not None:
+            all_reduce_grads([p for g in state.opt.param_groups for p in g["params"]], mesh)
         state.opt.step()
         state.sched.step()
         state.step += 1
@@ -207,12 +238,13 @@ def make_train_step(args, cfg: FieldConfig, sampler: str = "full"):
     return step_fn
 
 
-def make_train_scan_step(args, cfg: FieldConfig, sampler: str = "full"):
+def make_train_scan_step(args, cfg: FieldConfig, sampler: str = "full",
+                         mesh: Optional[DataMesh] = None):
     """scan_fn(state, scene, base_seed, i_train, n_steps) -> metrics of the
     last of n_steps steps. Step s draws its image (uniform over i_train) and
     all its randomness from step_randomness(base_seed, s): training is a pure
     function of (init, base_seed, step)."""
-    step_fn = make_train_step(args, cfg, sampler=sampler)
+    step_fn = make_train_step(args, cfg, sampler=sampler, mesh=mesh)
 
     def scan_fn(state: TrainState, scene: SceneArrays, base_seed: int,
                 i_train: np.ndarray, n_steps: int):

@@ -6,8 +6,9 @@ rays, the f32 builds of K1-K5 against the plain f32 path, the edit
 path's launches of K1 and K5, the mesh path's density query (K1) and
 vertex labels (K4 + K3), the stress scenes' ground truth march
 (data/procedural.py) on the card against the CPU, the JPEG codec
-(native/jpeg.cpp, built by this machine's g++) on its golden fixtures, and
-LPIPS (eval/lpips.py) on the card against the CPU.
+(native/jpeg.cpp, built by this machine's g++) on its golden fixtures,
+LPIPS (eval/lpips.py) on the card against the CPU, and a train step split
+over two ranks on the one card (gloo) against one rank.
 
 Imports no jax, so the machine with the card runs it without the JAX package's
 conftest:  python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -468,3 +469,28 @@ def test_lpips_on_the_card_equals_the_cpu(normalize):
     finally:
         torch.backends.cudnn.allow_tf32 = prev
     assert cpu > 0 and abs(card - cpu) <= 1e-4 * max(1.0, abs(cpu))
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_one_card_match_one_rank(tmp_path):
+    """One train step at width 64 (K1 and K2 on 128 of the 256 rays per
+    rank) over two ranks on cuda:0, their collectives over gloo, against
+    one rank: each rank launched K1 and K2 twice, both hold the same
+    parameters bit for bit, the losses agree within 1e-5 relative (the
+    order of f32 sums over the ranks) and the gradients within 3e-2
+    relative L2 (chip_smoke's GRAD_TOL: K2 rounds its incoming gradient to
+    bf16, and a last-bit change of it cascades)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import torch_parallel_ranks as ranks
+
+    got = ranks.run_ranks("card_step", 2, tmp_path, {}, "cuda:0", "gloo")
+    want = ranks.card_step(None, {})
+    for r in got:
+        assert r["launches"] == {"field_forward": 2, "field_backward": 2,
+                                 "field_forward_f32": 0, "field_backward_f32": 0}
+        assert all(torch.equal(a, b) for a, b in zip(r["params"], got[0]["params"]))
+    for k, v in want["metrics"].items():
+        np.testing.assert_allclose(got[0]["metrics"][k], v, rtol=1e-5, err_msg=k)
+    for g, w in zip(got[0]["grads"], want["grads"]):
+        assert float((g - w).norm() / w.norm().clamp_min(1e-30)) <= 3e-2

@@ -383,7 +383,8 @@ def test_resolve_target_channel(monkeypatch):
     perm = {int(l): int((l * 3 + 2) % scene.ins_num) for l in np.unique(scene.gt_labels)}
     poses = np.asarray(scene.poses)
 
-    def fake_make_image_renderer(cfg_, args_, H, W, *, device, use_pallas=False, fused=None):
+    def fake_make_image_renderer(cfg_, args_, H, W, *, device, use_pallas=False, fused=None,
+                                 mesh=None):
         def render_im(params, K, c2w):
             (vi,) = [i for i in range(len(poses)) if np.allclose(poses[i], c2w)]
             label = np.vectorize(perm.get)(np.asarray(scene.gt_labels[vi])).astype(np.int32)
