@@ -4,8 +4,9 @@ path (kernels K3/K4), the training step (kernels K1/K2), the edit path
 through the kernels' f32 builds, in f32; then the reference-format stress
 scenes written, read and run through the CLIs, ScanNet (JPEG frames, the
 .sens preprocessing, the flagship config) through them, LPIPS and the
-profiler trace of the train step, and the ray mesh (torchrun over NCCL;
-two ranks on the card over gloo).
+profiler trace of the train step, the ray mesh (torchrun over NCCL;
+two ranks on the card over gloo) and the 2-D (data, model) mesh (four gloo
+ranks on the card running dmnerf_torch.graft_entry.dryrun_multichip).
 
     python3 chip_smoke.py
 
@@ -181,13 +182,29 @@ Phases (each fails the run by raising; nothing is caught):
    bit-identical, the render bit for bit and the edit within phase 10b's
    bars; exact launches per rank (2 K1 and 2 K2 per step, 4 K4 and 4 K3 per
    render, 16 K1 and 8 K5 per edit), and the phase's seconds.
+18. the 2-D (data, model) mesh (parallel/mesh.py::make_mesh_2d,
+   parallel/model_parallel.py): bench.py's train workload is made once here
+   and handed to the ranks; (a) `torch.distributed.run --nproc_per_node 1`
+   of this file (`--rank grid1`) at make_mesh_2d(1, 1) over NCCL: one bf16
+   step on each pallas_train path, gradients, parameters and metrics equal
+   to the same step in this process bit for bit; (b) four ranks of this
+   file (`--rank grid4`) under torchrun on cuda:0, their collectives over
+   gloo, run dmnerf_torch.graft_entry.dryrun_multichip(4) on a (2, 2) mesh
+   (the flagship model in f32: 8 scanned steps on K1/K2, a render on K4/K3
+   and a two-object edit on K1/K5 equal to one rank, 1e-5, labels exact),
+   then (c) one bf16 step of the bench workload on each pallas_train path:
+   the gradients, gathered whole, within GRAD_TOL relative L2 of this
+   process's one-rank step, every rank's gathered gradients bit-identical,
+   each rank's parameter and Adam bytes (the split leaves at 1/2, the heads
+   whole), exact launches per rank; and graft_entry.entry() in this process
+   (the flagship forward of 1024 rays on K1). Prints the phase's seconds.
 Phases 3, 6, 9 and 12 also print each kernel's bound (the larger of its
 operations over the peak of its type, bf16 tensor cores or fp32 CUDA cores,
 and its bytes over the memory rate), its TFLOP/s and its share of the bound.
 The line before the last is a JSON object with one entry per kernel and
 build (its K=64 reading under "k64", its phase-14 and phase-15 errors per
 config under "stress_max_abs_err"; launches summed over the main paths,
-phases 14, 15, 16 and 17's sharded runs included); the line before it is the smoke's total time; the
+phases 14, 15, 16, 17 and 18's sharded runs included); the line before it is the smoke's total time; the
 last line is {"ok": true, "device": {...}}. The run fails if it loaded jax,
 the JAX package, imageio, h5py, cv2 or PIL.
 """
@@ -730,9 +747,11 @@ def main():
         scannet_launches, scannet_errs = scannet_slice(card)
         lpips_launches = lpips_and_trace(card, scenes_tmp, scene_secs)
     ray_mesh_launches = ray_mesh(dev, card)
+    grid_launches = model_mesh(dev, card)
     for k in kernels:                   # the f32 entries hold phase 12's mesh launches
         k["launches"] += sum(p.get(k["name"], 0) for p in (
-            mesh_launches, scene_launches, scannet_launches, lpips_launches, ray_mesh_launches))
+            mesh_launches, scene_launches, scannet_launches, lpips_launches, ray_mesh_launches,
+            grid_launches))
         for errs in (scene_errs, scannet_errs):   # {config: max abs err} at the stress shapes
             if k["name"] in errs:
                 k.setdefault("stress_max_abs_err", {}).update(errs[k["name"]])
@@ -2608,10 +2627,11 @@ def mesh_work(mesh, dev):
 
 
 def rank_main(argv):
-    """A rank of phase 17, started by it: `cli OUT train|test CLI-ARGS` (under
-    torchrun) runs that CLI and writes its launches to OUT.rank{r}.json;
-    `mesh OUT` joins the two-rank group on cuda:0 over gloo and writes
-    mesh_work's result to OUT/rank{r}.pt."""
+    """A rank of phase 17 or 18, started by it: `cli OUT train|test CLI-ARGS`
+    (under torchrun) runs that CLI and writes its launches to
+    OUT.rank{r}.json; `mesh OUT` joins the two-rank group on cuda:0 over gloo
+    and writes mesh_work's result to OUT/rank{r}.pt; `grid1 OUT` and `grid4
+    OUT` (under torchrun) write grid_rank's result to OUT/grid{1,4}.rank{r}.pt."""
     from dmnerf_torch.parallel.mesh import close_mesh, make_mesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2626,10 +2646,12 @@ def rank_main(argv):
         torch.cuda.synchronize()
         with open(f"{out}.rank{rank}.json", "w") as f:
             json.dump(launches_now(), f)
-    else:
+    elif what == "mesh":
         mesh = make_mesh(0, "cuda:0", backend="gloo")
         torch.save(mesh_work(mesh, mesh.device), os.path.join(out, f"rank{rank}.pt"))
         close_mesh(mesh)
+    else:
+        torch.save(grid_rank(what, out), os.path.join(out, f"{what}.rank{rank}.pt"))
     return 0
 
 
@@ -2817,6 +2839,185 @@ def ray_mesh(dev, card):
     print(f"phase 17: launches of the sharded runs {total}; "
           f"{time.perf_counter() - t_phase:.1f} s ({card})")
     return total
+
+def grid_step(mesh, dev, workload):
+    """Phase 18(a, c): one step of bench.py's train workload (bf16, seed 0,
+    step seed 1) on each pallas_train path under `mesh` (a Mesh2D, or None
+    for one rank): the metrics, the gradients and parameters gathered
+    whole, this rank's parameter and Adam bytes, and the launches."""
+    from dmnerf_torch.parallel.model_parallel import gather_rows, model_sharded
+    from dmnerf_torch.train import step as step_mod
+
+    args, scene, cfg = workload
+    arrs = step_mod.scene_arrays(scene, dev)
+    out = {}
+    for pallas in (True, False):
+        args.pallas_train = pallas
+        state = step_mod.create_train_state(0, cfg, args.lrate, args.lrate_decay, device=dev,
+                                            mesh=mesh)
+        scan = step_mod.make_train_scan_step(args, cfg, mesh=mesh)
+        reset_all_launches()
+        m = scan(state, arrs, 1, np.arange(4), 1)
+        torch.cuda.synchronize()
+        launches = launches_now()
+        fields = [state.params[k] for k in ("coarse", "fine")]
+        splits = ([s for f in fields for s in f.splits()] if model_sharded(state.params)
+                  else [False] * sum(1 for f in fields for _ in f.parameters()))
+        params = [p for f in fields for p in f.parameters()]
+        whole = (lambda t, s: gather_rows(t, s, mesh)) if mesh is not None else (lambda t, s: t)
+        moments = [state.opt.state[p] for p in params]
+        out[pallas] = {
+            "launches": launches, "metrics": {k: float(v) for k, v in m.items()},
+            "grads": [whole(p.grad, s).cpu() for p, s in zip(params, splits)],
+            "params": [whole(p.detach(), s).cpu() for p, s in zip(params, splits)],
+            "param_bytes": sum(p.numel() * p.element_size() for p in params),
+            "adam_bytes": sum(st[k].numel() * st[k].element_size() for st in moments
+                              for k in ("exp_avg", "exp_avg_sq")),
+            "split_bytes": sum(p.numel() * p.element_size() for p, s in zip(params, splits)
+                               if s)}
+        del state, scan
+        torch.cuda.empty_cache()
+    return out
+
+
+def grid_rank(what, out):
+    """A rank of phase 18 under torchrun: `grid1` is make_mesh_2d(1, 1) over
+    NCCL and runs grid_step; `grid4` is one of four gloo ranks on cuda:0 and
+    runs dryrun_multichip(4), then grid_step on its (2, 2) mesh. Both take
+    bench.py's train workload from OUT/bench.pt, waiting until it is there."""
+    from dmnerf_torch.graft_entry import dryrun_multichip
+    from dmnerf_torch.models.fields import FieldConfig
+    from dmnerf_torch.parallel.mesh import close_mesh, make_mesh_2d
+
+    res = {}
+    if what == "grid1":
+        mesh = make_mesh_2d(1, 1, "cuda", "nccl")
+    else:
+        t0 = time.perf_counter()
+        mesh, res["dryrun_loss"] = dryrun_multichip(4, "cuda:0", "gloo")
+        torch.cuda.synchronize()
+        res["dryrun_launches"], res["dryrun_s"] = launches_now(), time.perf_counter() - t0
+    bench = os.path.join(out, "bench.pt")
+    while not os.path.exists(bench):      # the smoke's process writes it meanwhile
+        time.sleep(0.2)
+    args, scene = torch.load(bench, weights_only=False)
+    workload = (args, scene, FieldConfig.from_args(args))
+    t0 = time.perf_counter()
+    res["steps"] = grid_step(mesh, mesh.device, workload)
+    res["steps_s"] = time.perf_counter() - t0
+    res["backend"] = torch.distributed.get_backend()
+    close_mesh(mesh)
+    return res
+
+
+def model_mesh(dev, card):
+    """Phase 18: the 2-D (data, model) mesh on the one card. The NCCL rank,
+    the four gloo ranks and this process's one-rank steps overlap; their
+    checks follow. Returns the launches of the sharded runs, summed over the
+    ranks."""
+    from dmnerf_torch.graft_entry import entry
+
+    phase("18 the 2-D (data, model) mesh: (a) make_mesh_2d(1, 1) over NCCL under torchrun, "
+          "one bf16 step of bench.py's train workload on each pallas_train path, against this "
+          "process; (b) dryrun_multichip(4) on four gloo ranks sharing cuda:0 as (2, 2); (c) "
+          "the same ranks' bf16 step on each path against one rank; graft_entry.entry()")
+    t_phase = time.perf_counter()
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                    "--nproc_per_node"]
+
+        def start(n, what):
+            return Children([(torchrun + [n, os.path.join(REPO, "chip_smoke.py"), "--rank",
+                                          what, tmp], child_env())], f"torchrun {what}", tmp)
+
+        # the gloo ranks' dry run overlaps this process's one-rank steps; the
+        # NCCL rank starts after them (the plain steps' activations take
+        # ~15 GB a rank at full batch)
+        grid4 = start("4", "grid4")
+        t0 = time.perf_counter()
+        args, scene, cfg = bench_train_workload()
+        torch.save((args, scene), os.path.join(tmp, "bench.tmp"))
+        os.replace(os.path.join(tmp, "bench.tmp"), os.path.join(tmp, "bench.pt"))
+        ref = grid_step(None, dev, (args, scene, cfg))
+        print(f"one rank in this process (the workload's scene included): "
+              f"{time.perf_counter() - t0:.1f} s; launches "
+              f"{ {p: r['launches'] for p, r in ref.items()} }")
+        grid1 = start("1", "grid1")
+        reset_all_launches()
+        forward, (params, ro, rd) = entry(dev)
+        rgb, ins, depth = forward(params, ro, rd)
+        torch.cuda.synchronize()
+        got = launches_now()
+        print(f"graft_entry.entry(): rgb {tuple(rgb.shape)}, ins {tuple(ins.shape)}, depth "
+              f"{tuple(depth.shape)}; launches {got}")
+        if got != {"field_forward": 2} or not all(bool(torch.isfinite(t).all())
+                                                  for t in (rgb, ins, depth)):
+            raise AssertionError("entry(): not 2 launches of K1 or a non-finite output")
+        del params, forward
+        torch.cuda.empty_cache()
+        (log1,) = grid1.wait()
+        print(f"(a) torchrun grid1: {time.perf_counter() - grid1.t0:.1f} s")
+        logs4 = grid4.wait()
+        print(f"(b, c) torchrun grid4: {time.perf_counter() - grid4.t0:.1f} s")
+        print("\n".join(l for l in logs4[0].splitlines() if l.startswith("dryrun_multichip")))
+        one = torch.load(os.path.join(tmp, "grid1.rank0.pt"), weights_only=False)
+        four = [torch.load(os.path.join(tmp, f"grid4.rank{r}.pt"), weights_only=False)
+                for r in range(4)]
+
+    same = {p: one["backend"] == "nccl" and same_tensors(
+        (one["steps"][p]["grads"], one["steps"][p]["params"], one["steps"][p]["metrics"]),
+        (r["grads"], r["params"], r["metrics"])) for p, r in ref.items()}
+    print(f"(a) make_mesh_2d(1, 1) over {one['backend']} against one process: gradients, "
+          f"parameters and metrics bit for bit {same} (pallas_train True, False); "
+          f"{one['steps_s']:.1f} s")
+    add_launches(total, one["steps"][True]["launches"])
+    if not all(same.values()) or one["steps"][True]["launches"] != ref[True]["launches"]:
+        raise AssertionError("make_mesh_2d(1, 1) over NCCL differs from one process")
+
+    dry_want = {"field_forward_f32": 40, "field_backward_f32": 16,
+                "render_field_sigma_f32": 4, "render_field_all_f32": 4,
+                "render_field_ins_f32": 12}
+    step_want = {True: {"field_forward": 2, "field_backward": 2}, False: {}}
+    full_bytes = ref[True]["param_bytes"]
+    for r, g in enumerate(four):
+        print(f"(b) rank {r}: dryrun_multichip(4) {g['dryrun_s']:.1f} s, loss "
+              f"{g['dryrun_loss']:.4f}, launches {g['dryrun_launches']}; (c) steps "
+              f"{g['steps_s']:.1f} s, launches "
+              f"{ {p: s['launches'] for p, s in g['steps'].items()} }")
+        st = g["steps"][True]
+        print(f"(c) rank {r}: parameters {st['param_bytes']:,} B (one rank {full_bytes:,} B, "
+              f"{st['param_bytes'] / full_bytes:.4f}), Adam moments {st['adam_bytes']:,} B "
+              f"(one rank {ref[True]['adam_bytes']:,} B), split leaves {st['split_bytes']:,} B "
+              f"(one rank's split leaves {2 * st['split_bytes']:,} B)")
+        if (g["dryrun_launches"] != dry_want
+                or {p: s["launches"] for p, s in g["steps"].items()} != step_want):
+            raise AssertionError(f"rank {r}: launches {g['dryrun_launches']}, "
+                                 f"{ {p: s['launches'] for p, s in g['steps'].items()} }; "
+                                 f"expected {dry_want}, {step_want}")
+        if (st["param_bytes"] != full_bytes - st["split_bytes"]
+                or st["adam_bytes"] != 2 * st["param_bytes"]):
+            raise AssertionError(f"rank {r}: its shards are not half of the split leaves")
+        add_launches(total, g["dryrun_launches"])
+        for s in g["steps"].values():
+            add_launches(total, s["launches"])
+    for pallas, r in ref.items():
+        errs = [float((a - b).norm() / b.norm().clamp_min(1e-30))
+                for a, b in zip(four[0]["steps"][pallas]["grads"], r["grads"])]
+        ranks_same = all(same_tensors(g["steps"][pallas]["grads"], four[0]["steps"][pallas]["grads"])
+                         for g in four[1:])
+        loss_err = abs(four[0]["steps"][pallas]["metrics"]["total_loss"]
+                       / r["metrics"]["total_loss"] - 1)
+        print(f"(c) pallas_train {pallas}: first-step gradients at (2, 2) against one rank, "
+              f"max relative L2 {max(errs):.3e} (median {np.median(errs):.3e}; bar "
+              f"{GRAD_TOL:.0e}); the four ranks' gathered gradients bit-identical "
+              f"{ranks_same}; total loss {loss_err:.3e} relative")
+        if not (max(errs) <= GRAD_TOL and ranks_same and loss_err <= 1e-3):
+            raise AssertionError(f"(2, 2) pallas_train {pallas} disagrees with one rank")
+    print(f"phase 18: launches of the sharded runs {total}; "
+          f"{time.perf_counter() - t_phase:.1f} s ({card})")
+    return total
+
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:

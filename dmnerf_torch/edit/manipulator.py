@@ -25,7 +25,9 @@ Under a ray mesh (mesh=DataMesh, parallel/mesh.py) the original and every
 object's target rays are split the same way over the ranks (N_test must
 split over them): each rank edits its rows (K1 on raws and K5) and the rows
 are gathered, so every rank holds the whole result. An edited ray's work
-does not depend on the other rays.
+does not depend on the other rays. Under the 2-D mesh (Mesh2D) the rays
+split over its data axis, and every model rank edits its data row's rays
+with the whole fields (ModelShardedFields gathered once, at construction).
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ from dmnerf_torch.core.sampling import sample_pdf, z_val_sample
 from dmnerf_torch.kernels.field import make_pallas_field
 from dmnerf_torch.kernels.render_field import make_render_field, pack_params
 from dmnerf_torch.edit.deform import deform_curve
-from dmnerf_torch.parallel.mesh import gather, rank_share
+from dmnerf_torch.parallel.mesh import data_axis, gather, rank_share
+from dmnerf_torch.parallel.model_parallel import gather_params_model
 
 
 def _field_raw(field_fn, rays_o, rays_d, z_vals):
@@ -182,7 +185,10 @@ def _fine_accum_fn(cfg, params, use_pallas: bool):
 
 
 def _edit_params(params, use_pallas: bool):
-    """Packed once for the kernels' wrappers (the CPU plain versions unpack)."""
+    """Whole fields (ModelShardedFields gathered over their model group),
+    packed once for the kernels' wrappers (the CPU plain versions unpack)."""
+    if params is not None:
+        params = gather_params_model(params)
     return pack_params(params) if use_pallas else params
 
 
@@ -190,7 +196,8 @@ def make_manipulator(cfg, params, args, n_obj: int, move_labels: List[int],
                      use_pallas: bool = False, mesh=None):
     """run(ori_o [N,3], ori_d [N,3], tar_os [n_obj,N,3], tar_ds [n_obj,N,3])
     -> manipulate_chunk's outputs for one chunk (under a mesh, each rank's
-    N/R rows, gathered)."""
+    N/R rows, gathered; a Mesh2D splits them over its data axis)."""
+    mesh = data_axis(mesh)
     params = _edit_params(params, use_pallas)
     coarse_fn, fine_fn = _field_fns(cfg, params, use_pallas)
     accum_fn = _fine_accum_fn(cfg, params, use_pallas)
@@ -222,6 +229,7 @@ def make_image_manipulator(cfg, params, args, n_obj: int, move_labels: List[int]
     chunk = int(args.N_test)
     if n_rays % chunk:
         raise ValueError(f"n_rays {n_rays} is not a multiple of the chunk {chunk}")
+    mesh = data_axis(mesh)
     if mesh is not None:
         chunk, rows = rank_share(chunk, mesh, "N_test"), mesh.rows(n_rays)
         n_rays = rows.stop - rows.start

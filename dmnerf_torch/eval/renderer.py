@@ -16,6 +16,12 @@ the rays in chunks of N_test/R (N_test must split over the ranks): its
 contiguous rows of the whole image in make_batch_renderer, of each chunk in
 make_chunk_renderer; the rows are gathered, so every rank holds the whole
 result. Each ray's work does not depend on the rest of its chunk.
+
+Under the 2-D mesh (mesh=Mesh2D) the rays split over its data axis in the
+same way, and every model rank of a data row renders the same rows with the
+whole fields: ModelShardedFields are gathered over the model group once per
+image (once per chunk in make_chunk_renderer), as the JAX package's
+shard_map over 'data' takes the weights whole.
 """
 
 from __future__ import annotations
@@ -29,7 +35,8 @@ from dmnerf_torch.core.sampling import z_val_sample
 from dmnerf_torch.kernels.field import make_pallas_field
 from dmnerf_torch.kernels.render_field import make_fused_chunk_renderer, pack_params
 from dmnerf_torch.models.fields import FieldConfig
-from dmnerf_torch.parallel.mesh import gather, rank_share, shard_batch
+from dmnerf_torch.parallel.mesh import data_axis, gather, rank_share, shard_batch
+from dmnerf_torch.parallel.model_parallel import gather_params_model
 
 
 def make_chunk_renderer(cfg: FieldConfig, n_samples: int, n_importance: int,
@@ -41,10 +48,12 @@ def make_chunk_renderer(cfg: FieldConfig, n_samples: int, n_importance: int,
     mesh, each rank renders its chunk/R rows and the rows are gathered)."""
     device = torch.device(device)
     field = make_pallas_field(cfg) if use_pallas else None
+    mesh = data_axis(mesh)
     chunk = rank_share(chunk, mesh, "N_test")
 
     @torch.no_grad()
     def render_chunk(params, rays_o, rays_d):
+        params = gather_params_model(params)
         rays_o, rays_d = shard_batch((rays_o, rays_d), mesh)
         if use_pallas:
             params = pack_params(params)
@@ -72,6 +81,7 @@ def make_batch_renderer(cfg: FieldConfig, n_samples: int, n_importance: int,
     if fused is None:
         fused = use_pallas
     device = torch.device(device)
+    mesh = data_axis(mesh)
     if mesh is not None:
         n_rays, chunk = n_rays // mesh.size, rank_share(chunk, mesh, "N_test")
 
@@ -83,6 +93,7 @@ def make_batch_renderer(cfg: FieldConfig, n_samples: int, n_importance: int,
 
     @torch.no_grad()
     def render_all(params, rays_o, rays_d):
+        params = gather_params_model(params)
         rays_o, rays_d = shard_batch((rays_o, rays_d), mesh)
         if fused or use_pallas:
             params = pack_params(params)          # once per image
@@ -171,6 +182,7 @@ def make_image_renderer(cfg: FieldConfig, args, H: int, W: int, *, device,
         return _wait(render_im_dev(params, K, c2w))
 
     def render_many(params, K, c2ws):
+        params = gather_params_model(params)
         pending = None
         for c2w in c2ws:
             cur = render_im_dev(params, K, c2w)

@@ -39,7 +39,7 @@ import torch.nn.functional as F
 from dmnerf_torch.core.encoding import encoding_dim, positional_encoding
 from dmnerf_torch.kernels.render_field import (PackedField, Params, _as_field, _device_kind,
                                                build_of, check_kernel_shape, pack_field)
-from dmnerf_torch.models.fields import FieldConfig
+from dmnerf_torch.models.fields import FieldConfig, field_tensors, param_names
 
 # launches of each kernel since the last reset (the CPU plain path adds none)
 LAUNCHES: Dict[str, int] = {"field_forward": 0, "field_backward": 0,
@@ -231,8 +231,8 @@ def field_backward_ref(packed: PackedField, pts: torch.Tensor, dirs: torch.Tenso
 
 
 def unpack_grads(packed: PackedField, dw: torch.Tensor, db: torch.Tensor):
-    """Gradients in the packed layouts -> one per parameter of packed.field,
-    in named_parameters order: padding rows are dropped and the output block
+    """Gradients in the packed layouts -> one per weight of packed.field,
+    in param_names order: padding rows are dropped and the output block
     splits back into rgb_linear, ins_linear and density_linear."""
     L = layout(packed)
     D, W, HW, XP, DP, CP, C = L.D, L.W, L.W // 2, L.XP, L.DP, L.CP, L.C
@@ -269,7 +269,7 @@ def unpack_grads(packed: PackedField, dw: torch.Tensor, db: torch.Tensor):
     g["ins_linear.bias"] = bo[4:C]
     g["density_linear.weight"] = out[W:, 3:4].T
     g["density_linear.bias"] = bo[3:4]
-    return tuple(g[name].contiguous() for name, _ in packed.field.named_parameters())
+    return tuple(g[name].contiguous() for name in param_names(packed.field.cfg))
 
 
 # ---- kernel wrappers ----------------------------------------------------------
@@ -380,8 +380,9 @@ class FusedField(torch.autograd.Function):
     """raw = field(pts, viewdirs) through K1, differentiated through K2.
 
     apply(packed, pts, viewdirs, *params): params are packed.field's
-    parameters in named_parameters order, so autograd hands their gradients
-    to the module. The encoding cotangents are computed only when pts or
+    weights in param_names order (models/fields.field_tensors: its
+    parameters, or tensors gathered from a model-sharded field), so autograd
+    hands their gradients back through them. The encoding cotangents are computed only when pts or
     viewdirs require a gradient (a null pointer in the kernel skips them);
     they are rounded to the compute dtype, as the TPU kernel stores them, and
     carried through the positional encoding."""
@@ -422,7 +423,7 @@ def _field_fn(cfg: FieldConfig, trainable: bool):
         if not trainable:
             return field_forward(params, pts, viewdirs)
         packed = params if isinstance(params, PackedField) else pack_field(params)
-        return FusedField.apply(packed, pts, viewdirs, *module.parameters())
+        return FusedField.apply(packed, pts, viewdirs, *field_tensors(module))
     return field
 
 

@@ -13,6 +13,11 @@ optimizer_state_dict}. The port's trainer keeps its torch.optim.Adam
 state_dict there (over the coarse, then the fine parameters), so a run
 resumes from the file. train_state_from_jax carries a JAX TrainState (params
 and optax Adam mu/nu/count) across into that form.
+
+A train state under the 2-D mesh (parallel/model_parallel.py) holds each
+rank's rows: train_state_dicts gathers the fields and Adam's moments over
+the model group first, so it writes the file one rank would write, and
+load_train_state_dicts takes this rank's rows of a whole file again.
 """
 
 from __future__ import annotations
@@ -107,3 +112,55 @@ def train_state_from_jax(params_np: Mapping, mu_np: Mapping, nu_np: Mapping, cou
     sd = opt.state_dict()
     sd["state"] = state
     return fields, sd
+
+
+def _shards(state):
+    """(the state's ModelShardedFields in Adam's order, each parameter's
+    split), or (None, None) for whole fields."""
+    from dmnerf_torch.parallel.model_parallel import model_sharded
+
+    if not model_sharded(state.params):
+        return None, None
+    fields = [state.params[k] for k in ("coarse", "fine")]
+    return fields, [s for f in fields for s in f.splits()]
+
+
+def train_state_dicts(state):
+    """(coarse state_dict, fine state_dict, Adam state_dict) of a train
+    state, whole: under the 2-D mesh the fields and Adam's moments are
+    gathered over the model group (collective: every rank calls it)."""
+    from dmnerf_torch.parallel.model_parallel import gather_params_model, gather_rows
+
+    fields, splits = _shards(state)
+    opt_sd = state.opt.state_dict()
+    if fields is None:
+        return state.params["coarse"].state_dict(), state.params["fine"].state_dict(), opt_sd
+    whole = gather_params_model(state.params)
+    mesh = fields[0].mesh
+    opt_sd["state"] = {i: {k: gather_rows(v, splits[i], mesh) if k.startswith("exp_avg") else v
+                           for k, v in st.items()} for i, st in opt_sd["state"].items()}
+    return whole["coarse"].state_dict(), whole["fine"].state_dict(), opt_sd
+
+
+def load_train_state_dicts(state, coarse_sd, fine_sd, opt_sd) -> None:
+    """Whole state_dicts (as train_state_dicts gives them) into `state` in
+    place; under the 2-D mesh each rank takes its rows of every split leaf
+    and of its Adam moments. An empty opt_sd leaves Adam as it is."""
+    from dmnerf_torch.parallel.model_parallel import take_rows
+
+    fields, splits = _shards(state)
+    sds = {"coarse": coarse_sd, "fine": fine_sd}
+    if fields is None:
+        for k, sd in sds.items():
+            state.params[k].load_state_dict(sd)
+    else:
+        mesh = fields[0].mesh
+        for k, f in zip(("coarse", "fine"), fields):
+            f.load_state_dict({n: take_rows(sds[k][n], s, mesh) for (n, _), s in
+                               zip(f.named_parameters(), f.splits())})
+        if opt_sd:
+            opt_sd = dict(opt_sd, state={
+                i: {k: take_rows(v, splits[i], mesh) if k.startswith("exp_avg") else v
+                    for k, v in st.items()} for i, st in opt_sd["state"].items()})
+    if opt_sd:
+        state.opt.load_state_dict(opt_sd)

@@ -26,7 +26,8 @@ return fp32.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+import functools
+from typing import Any, Dict, List
 
 import torch
 from torch import nn
@@ -63,11 +64,18 @@ class FieldConfig:
         )
 
 
-def _dot(x: torch.Tensor, layer: nn.Linear, dtype, out_dtype=None) -> torch.Tensor:
+def _dot(x: torch.Tensor, layer: nn.Linear, dtype, out_dtype=None,
+         operand=None) -> torch.Tensor:
     """Linear layer: operands rounded to `dtype`, accumulated in fp32 (or
-    wider), bias added after the product, result stored in `out_dtype`."""
+    wider), bias added after the product, result stored in `out_dtype`.
+    operand, if given, maps the rounded and widened input before the product
+    (parallel/model_parallel.py puts its copy-in there, so that the partial
+    input gradients are summed before they are rounded to `dtype`)."""
     acc = torch.promote_types(torch.float32, dtype)
-    y = (x.to(dtype).to(acc) @ layer.weight.to(dtype).to(acc).T
+    x = x.to(dtype).to(acc)
+    if operand is not None:
+        x = operand(x)
+    y = (x @ layer.weight.to(dtype).to(acc).T
          + layer.bias.to(acc))
     return y.to(out_dtype) if out_dtype is not None else y
 
@@ -174,3 +182,31 @@ def init_field_params(generator: torch.Generator, cfg: FieldConfig,
                 m.weight.uniform_(-wb, wb, generator=generator)
                 m.bias.uniform_(-bb, bb, generator=generator)
     return field.to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def param_names(cfg: FieldConfig) -> tuple:
+    """DMNeRFField(cfg)'s parameter names in named_parameters order."""
+    with torch.device("meta"):
+        return tuple(name for name, _ in DMNeRFField(cfg).named_parameters())
+
+
+def field_tensors(field: DMNeRFField) -> List[torch.Tensor]:
+    """A field's weights and biases in param_names order: its parameters, or
+    the tensors of a field built by field_of."""
+    return [getattr(field.get_submodule(mod), attr)
+            for mod, attr in (n.rsplit(".", 1) for n in param_names(field.cfg))]
+
+
+def field_of(cfg: FieldConfig, tensors: Dict[str, torch.Tensor]) -> DMNeRFField:
+    """A DMNeRFField that computes with `tensors` (one per param_names entry)
+    as they are, autograd history included: they replace its parameters
+    (as plain attributes, unless a tensor is itself a Parameter)."""
+    with torch.device("meta"):
+        field = DMNeRFField(cfg)
+    for name in param_names(cfg):
+        mod, attr = name.rsplit(".", 1)
+        layer = field.get_submodule(mod)
+        del layer._parameters[attr]
+        setattr(layer, attr, tensors[name])
+    return field

@@ -1,4 +1,4 @@
-# Ported from dmnerf_tpu/parallel/mesh.py (the 1-D ray mesh on torch.distributed; make_mesh_2d and shard_params_model are not ported).
+# Ported from dmnerf_tpu/parallel/mesh.py (the 1-D ray mesh and the 2-D (data, model) mesh on torch.distributed; shard_params_model is in parallel/model_parallel.py).
 """The ray mesh: one process per card, the ray batch split over the processes.
 
 The JAX package shards rays over a 1-D ('data',) device mesh and keeps
@@ -25,8 +25,15 @@ tensors when the caller asks (several ranks on one card). gloo stages CUDA
 tensors through the host for all_reduce and broadcast and has no CUDA
 all_gather, so gather is an all_reduce of a zero-filled buffer in which each
 rank fills its own rows (x + 0 == x). Nothing falls back to another device
-or backend. The 2-D (data, model) mesh and its tensor-parallel parameter
-shardings are not ported: at ~1.4 M parameters they are no gain.
+or backend.
+
+make_mesh_2d builds the JAX package's 2-D (data, model) mesh over the same
+ranks, laid out row-major as its reshape(data, model): rank r is data index
+r // model and model index r % model. Its data_axis is a DataMesh over the
+ranks that share a model index, so every helper here takes it for the ray
+split; the model axis carries the tensor-parallel fields of
+parallel/model_parallel.py. As in the JAX package it is a capability, not a
+speed-up, at the fields' ~1.2 M parameters.
 """
 
 from __future__ import annotations
@@ -113,13 +120,63 @@ def make_mesh(n_devices: int = 0, device="cuda", backend: Optional[str] = None) 
     return DataMesh(rank, world, device)
 
 
-def close_mesh(mesh: Optional[DataMesh]) -> None:
+@dataclasses.dataclass(frozen=True)
+class Mesh2D:
+    """This rank of a (data, model) grid of `data * model` ranks, its device,
+    and the groups of its data column (the ranks with its model index) and
+    of its model row (the ranks with its data index)."""
+    rank: int
+    data: int
+    model: int
+    device: torch.device
+    data_group: dist.ProcessGroup
+    model_group: dist.ProcessGroup
+    group: Optional[dist.ProcessGroup] = None     # every rank: the default group
+
+    @property
+    def data_axis(self) -> DataMesh:
+        """The ray mesh over the data group: rank = data index, size = data."""
+        return DataMesh(self.rank // self.model, self.data, self.device, self.data_group)
+
+    @property
+    def model_axis(self) -> DataMesh:
+        """The model group as a DataMesh: rank = model index, size = model."""
+        return DataMesh(self.rank % self.model, self.model, self.device, self.model_group)
+
+
+def make_mesh_2d(data: int, model: int, device="cuda", backend: Optional[str] = None) -> Mesh2D:
+    """The 2-D (data, model) mesh over the ranks torchrun launched; data *
+    model must be the world size. Every rank creates every group, in the
+    same order (new_group is collective): the data groups by model index,
+    then the model groups by data index. backend as for make_mesh."""
+    world = int(os.environ["WORLD_SIZE"])
+    if data < 1 or model < 1 or data * model != world:
+        raise ValueError(f"make_mesh_2d: data {data} x model {model} does not match the "
+                         f"world size {world} that torchrun launched")
+    base = make_mesh(0, device, backend)
+    data_groups = [dist.new_group([i * model + j for i in range(data)]) for j in range(model)]
+    model_groups = [dist.new_group([i * model + j for j in range(model)]) for i in range(data)]
+    return Mesh2D(base.rank, data, model, base.device, data_groups[base.rank % model],
+                  model_groups[base.rank // model])
+
+
+def data_axis(mesh):
+    """The ray mesh of `mesh`: a Mesh2D's data axis, a DataMesh or None as given."""
+    return mesh.data_axis if isinstance(mesh, Mesh2D) else mesh
+
+
+def _root(mesh) -> int:
+    """The global rank of the group's first rank."""
+    return 0 if mesh.group is None else dist.get_global_rank(mesh.group, 0)
+
+
+def close_mesh(mesh) -> None:
     if mesh is not None and dist.is_initialized():
         barrier(mesh)
         dist.destroy_process_group()
 
 
-def is_main(mesh: Optional[DataMesh]) -> bool:
+def is_main(mesh) -> bool:
     """Rank 0 (or no mesh): the rank that prints and writes."""
     return mesh is None or mesh.rank == 0
 
@@ -144,14 +201,15 @@ def put_sharded(x, mesh: DataMesh):
 
 
 def replicate(x, mesh: Optional[DataMesh]):
-    """Rank 0's values into every rank's tensors of x, in place (broadcast)."""
+    """The group's first rank's values into every rank's tensors of x, in
+    place (broadcast)."""
     if mesh is not None:
-        _tree(lambda t: dist.broadcast(t, src=0, group=mesh.group), x)
+        _tree(lambda t: dist.broadcast(t, src=_root(mesh), group=mesh.group), x)
     return x
 
 
 def put_replicated(x, mesh: DataMesh):
-    """Host arrays -> rank 0's values on every rank's device."""
+    """Host arrays -> the group's first rank's values on every rank's device."""
     return replicate(_tree(lambda t: torch.as_tensor(t).to(mesh.device).contiguous(), x), mesh)
 
 
@@ -203,15 +261,15 @@ def all_reduce_grads(params, mesh: DataMesh) -> None:
 
 
 def broadcast_object(obj, mesh: Optional[DataMesh]):
-    """Rank 0's picklable obj on every rank."""
+    """The group's first rank's picklable obj on every rank."""
     if mesh is None:
         return obj
     box = [obj]
-    dist.broadcast_object_list(box, src=0, group=mesh.group, device=mesh.device)
+    dist.broadcast_object_list(box, src=_root(mesh), group=mesh.group, device=mesh.device)
     return box[0]
 
 
-def barrier(mesh: Optional[DataMesh]) -> None:
+def barrier(mesh) -> None:
     """Wait on the host until every rank got here (an all_reduce, which both
     backends run on the mesh's device)."""
     if mesh is not None:

@@ -32,6 +32,16 @@ rays are the batch's last n_ins, so they sit on the last rank or ranks; a
 rank with none contributes zeros). The losses are global (losses/*: psum),
 the gradients are summed over the ranks after backward in one flat buffer,
 and every rank takes the same Adam step. N_train must split over the ranks.
+
+Under the 2-D mesh (mesh=Mesh2D, parallel/mesh.py::make_mesh_2d) the rays
+split over its data axis as above, and the fields are tensor-parallel over
+its model axis (parallel/model_parallel.py): create_train_state builds the
+whole fields from the seed on every rank and keeps this rank's rows, so Adam
+and its moments hold shards too. The loss statistics and the gradients are
+summed over the data group only: the model ranks of a data row compute the
+same loss, and each holds the whole gradient of its own rows. The plain path
+runs ModelShardedField (column-parallel products); pallas_train runs K1/K2
+on the weights gathered over the model group.
 """
 
 from __future__ import annotations
@@ -51,14 +61,16 @@ from dmnerf_torch.losses.emptiness import ins_penalizer
 from dmnerf_torch.losses.instance import ins_criterion_pair
 from dmnerf_torch.losses.photometric import img2mse, mse2psnr
 from dmnerf_torch.models.fields import DMNeRFField, FieldConfig, init_field_params
-from dmnerf_torch.parallel.mesh import DataMesh, all_reduce_grads, rank_share, shard_batch
+from dmnerf_torch.parallel.mesh import (Mesh2D, all_reduce_grads, data_axis, rank_share,
+                                        shard_batch)
+from dmnerf_torch.parallel.model_parallel import shard_params_model
 from dmnerf_torch.train.schedule import make_optimizer
 
 
 @dataclasses.dataclass
 class TrainState:
     """Updated in place by the step."""
-    params: Dict[str, DMNeRFField]          # {"coarse", "fine"}
+    params: Dict[str, DMNeRFField]          # {"coarse", "fine"} (or ModelShardedFields)
     opt: torch.optim.Adam
     sched: torch.optim.lr_scheduler.LambdaLR
     step: int                               # completed steps
@@ -98,12 +110,17 @@ def scene_arrays(scene, device) -> SceneArrays:
 
 def create_train_state(seed: int, cfg: FieldConfig, lrate: float = 5e-4,
                        lrate_decay_k: int = 500, init_scheme: str = "he",
-                       device="cpu") -> TrainState:
+                       device="cpu", mesh: Optional[Mesh2D] = None) -> TrainState:
     """Two fields initialised from one CPU generator seeded with `seed`
-    (coarse, then fine; init_scheme he or torch), and their Adam."""
+    (coarse, then fine; init_scheme he or torch), and their Adam. Under a
+    Mesh2D every rank builds the whole fields and keeps its rows
+    (shard_params_model), so the shards hold the one-rank weights bit for
+    bit."""
     gen = torch.Generator().manual_seed(seed)
     params = {"coarse": init_field_params(gen, cfg, init_scheme, device),
               "fine": init_field_params(gen, cfg, init_scheme, device)}
+    if isinstance(mesh, Mesh2D):
+        params = shard_params_model(params, mesh)
     opt, sched = make_optimizer(params, lrate, lrate_decay_k)
     return TrainState(params, opt, sched, 0)
 
@@ -147,12 +164,13 @@ def _select_pixels_crop(gen: torch.Generator, scene: SceneArrays, img_i: int,
     return torch.cat([scene.crop_idx[pos], lab_pix]), lab_pix
 
 
-def make_train_step(args, cfg: FieldConfig, sampler: str = "full",
-                    mesh: Optional[DataMesh] = None):
+def make_train_step(args, cfg: FieldConfig, sampler: str = "full", mesh=None):
     """step_fn(state, scene, gen, img_i) -> metrics (detached 0-d tensors);
     updates `state` in place. step_fn.loss_fn(params, rays_o, rays_d,
     target_c, target_i, gen, noise=None) -> (total, metrics) is the
-    differentiable part (under a mesh, on this rank's rows).
+    differentiable part (under a mesh, on this rank's rows). mesh: a
+    DataMesh, a Mesh2D (the state from create_train_state(..., mesh=mesh))
+    or None.
 
     args needs: N_train, N_samples, N_importance, near, far, perturb,
     penalize, tolerance, deta_w, ins_num, pallas_train, remat."""
@@ -163,6 +181,8 @@ def make_train_step(args, cfg: FieldConfig, sampler: str = "full",
     perturb = float(args.perturb) > 0.0
     ins_num = int(args.ins_num)
     n_ins = int(n_train * 0.3) if sampler == "crop" else n_train
+    model_parallel = isinstance(mesh, Mesh2D)
+    mesh = data_axis(mesh)
     rank_share(n_train, mesh, "N_train")
     # the instance loss takes the batch's last n_ins rays: of this rank's
     # rows, those at or after ins_start, and their rows of target_i
@@ -173,7 +193,9 @@ def make_train_step(args, cfg: FieldConfig, sampler: str = "full",
     target_rows = slice(lo - ins_start, hi - ins_start)
 
     if getattr(args, "pallas_train", True):
-        field = make_trainable_pallas_field(cfg)
+        kernel_field = make_trainable_pallas_field(cfg)
+        field = ((lambda m, pts, vd: kernel_field(m.gathered(), pts, vd)) if model_parallel
+                 else kernel_field)
     elif getattr(args, "remat", False):
         field = lambda m, pts, vd: checkpoint(m, pts, vd, use_reentrant=False)
     else:
@@ -238,8 +260,7 @@ def make_train_step(args, cfg: FieldConfig, sampler: str = "full",
     return step_fn
 
 
-def make_train_scan_step(args, cfg: FieldConfig, sampler: str = "full",
-                         mesh: Optional[DataMesh] = None):
+def make_train_scan_step(args, cfg: FieldConfig, sampler: str = "full", mesh=None):
     """scan_fn(state, scene, base_seed, i_train, n_steps) -> metrics of the
     last of n_steps steps. Step s draws its image (uniform over i_train) and
     all its randomness from step_randomness(base_seed, s): training is a pure

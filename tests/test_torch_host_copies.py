@@ -268,7 +268,8 @@ def test_the_port_imports_no_reader_library(path):
 PORTED = ["dmnerf_torch/data/dmsr.py", "dmnerf_torch/data/dmsr_mani.py",
           "dmnerf_torch/data/replica.py", "dmnerf_torch/data/scannet.py",
           "dmnerf_torch/data/procedural.py", "dmnerf_torch/eval/lpips.py",
-          "dmnerf_torch/utils/profiling.py", "dmnerf_torch/parallel/mesh.py"] + [
+          "dmnerf_torch/utils/profiling.py", "dmnerf_torch/parallel/mesh.py",
+          "dmnerf_torch/parallel/model_parallel.py", "dmnerf_torch/graft_entry.py"] + [
     f"dmnerf_torch/data/scannet_preprocess/{m}.py"
     for m in ("__init__", "sensordata", "preprocess", "split", "run")]
 
@@ -280,4 +281,6 @@ def test_copies_and_ports_name_a_source_that_exists(path):
     kind, source = first[2:].split(" from ", 1)
     source = source.split()[0].rstrip(".")
     assert kind == ("Ported" if path in PORTED else "Copied"), first
-    assert source.startswith("dmnerf_tpu/") and os.path.exists(os.path.join(REPO, source)), first
+    # the JAX package, or its entry points file at the root of the repo
+    assert (source.startswith("dmnerf_tpu/") or source == "__graft_entry__.py") and \
+        os.path.exists(os.path.join(REPO, source)), first

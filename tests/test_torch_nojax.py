@@ -234,3 +234,55 @@ def test_lpips_in_render_test_runs_with_jax_blocked(tmp_path):
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["metric"] and len(out["lpips"]) == 2
     assert all(0 < v < float("inf") for v in out["lpips"] + [out["mean"]])
+
+
+def test_2d_mesh_runs_with_jax_blocked(tmp_path):
+    """parallel/model_parallel.py, make_mesh_2d (a one-rank gloo group on the
+    CPU), a train step on sharded fields, the .tar of that state and
+    graft_entry.entry, with jax and dmnerf_tpu blocked."""
+    script = BLOCK + textwrap.dedent(f"""
+        import json, os
+        import numpy as np
+        os.environ.update(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
+                          MASTER_ADDR="127.0.0.1", MASTER_PORT=sys.argv[1])
+        from dmnerf_torch.config import default_config
+        from dmnerf_torch.data.synthetic import make_scene
+        from dmnerf_torch.graft_entry import entry
+        from dmnerf_torch.models.fields import FieldConfig
+        from dmnerf_torch.parallel.mesh import close_mesh, make_mesh_2d
+        from dmnerf_torch.parallel.model_parallel import ModelShardedField
+        from dmnerf_torch.train.checkpoint import save_checkpoint
+        from dmnerf_torch.train.step import (create_train_state, make_train_scan_step,
+                                             scene_arrays)
+
+        mesh = make_mesh_2d(1, 1, "cpu")
+        scene = make_scene(H=8, W=8, n_train=1, n_test=1)
+        args = default_config(N_train=16, N_samples=4, N_importance=4, near=1.0, far=12.0,
+                              netdepth=2, netwidth=32, multires=2, multires_views=2,
+                              ins_num=scene.ins_num)
+        cfg = FieldConfig.from_args(args)
+        state = create_train_state(0, cfg, mesh=mesh)
+        m = make_train_scan_step(args, cfg, mesh=mesh)(state, scene_arrays(scene, "cpu"), 0,
+                                                       np.asarray(scene.i_train), 1)
+        tar = save_checkpoint({str(tmp_path)!r}, state, 1)
+        forward, (params, ro, rd) = entry(device="cpu", n_rays=4)
+        rgb = forward(params, ro, rd)[0]
+        close_mesh(mesh)
+        print(json.dumps({{"sharded": isinstance(state.params["fine"], ModelShardedField),
+                          "loss": float(m["total_loss"]), "tar": os.path.exists(tar),
+                          "rgb": list(rgb.shape)}}))
+    """)
+    proc = subprocess.run([sys.executable, "-c", script, str(_free_port())], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["sharded"] and out["tar"] and out["rgb"] == [4, 3]
+    assert out["loss"] == out["loss"] and abs(out["loss"]) < float("inf")
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]

@@ -7,9 +7,10 @@ start this file once per rank through run_ranks,
 
 with torchrun's variables (WORLD_SIZE, RANK, LOCAL_RANK, MASTER_ADDR,
 MASTER_PORT) set; each rank builds its DataMesh (default: the CPU over
-gloo), runs JOB on DIR/inputs.pt and writes DIR/rank{r}.pt. The tests call
-the same job functions with mesh=None for the one-rank reference. Imports
-no jax.
+gloo), or the Mesh2D of make_mesh_2d(*inputs["mesh2d"]) when the inputs
+name one, runs JOB on DIR/inputs.pt and writes DIR/rank{r}.pt. The tests
+call the same job functions with mesh=None for the one-rank reference.
+Imports no jax.
 """
 
 import os
@@ -27,8 +28,8 @@ import torch  # noqa: E402
 from dmnerf_torch.config import default_config  # noqa: E402
 from dmnerf_torch.data.synthetic import make_scene, make_scene_crop  # noqa: E402
 from dmnerf_torch.models.fields import DMNeRFField, FieldConfig  # noqa: E402
-from dmnerf_torch.parallel.mesh import (broadcast_object, close_mesh, make_mesh,  # noqa: E402
-                                        put_replicated, put_sharded)
+from dmnerf_torch.parallel.mesh import (barrier, broadcast_object, close_mesh,  # noqa: E402
+                                        make_mesh, make_mesh_2d, put_replicated, put_sharded)
 from dmnerf_torch.train.schedule import make_optimizer  # noqa: E402
 from dmnerf_torch.train.step import (TrainState, create_train_state,  # noqa: E402
                                      make_train_scan_step, make_train_step, scene_arrays,
@@ -241,14 +242,114 @@ def card_step(mesh, inputs):
             "params": [p.cpu() for p in _params(state)]}
 
 
+def _whole(module, mesh, grads=False):
+    """A field's parameters (or gradients) whole, in parameter order:
+    gathered over the model group under a Mesh2D."""
+    from dmnerf_torch.parallel.model_parallel import gather_rows
+
+    ts = [p.grad if grads else p.detach() for p in module.parameters()]
+    if mesh is None:
+        return [t.clone() for t in ts]
+    return [gather_rows(t, s, mesh) for t, s in zip(ts, module.splits())]
+
+
+def model_parallel_work(mesh, inputs):
+    """The 2-D mesh's checks on one rank of a Mesh2D (or, mesh None, one
+    process with whole fields), from the fields in inputs: (b) the field's
+    raw and gradients of sum(raw * w), plain and through the kernels'
+    wrappers on gathered weights, at ins_num 4 and 5; (c) two steps, perturb
+    off, on all 64 pixels of an 8x8 view, for pallas_train False and True:
+    metrics, whole gradients of each step, whole parameters after, and this
+    rank's leaf shapes; (f) the .tar of the plain run's state (rank 0
+    writes it) and a fresh 2-D state restored from it; (d) a render, fused
+    and plain, and a two-object edit; and create_train_state's whole
+    weights."""
+    from dmnerf_torch.edit.manipulator import make_pose_image_manipulator
+    from dmnerf_torch.eval.renderer import make_image_renderer
+    from dmnerf_torch.kernels.field import make_trainable_pallas_field
+    from dmnerf_torch.parallel.model_parallel import shard_params_model
+    from dmnerf_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+
+    def sharded(fields):
+        return fields if mesh is None else shard_params_model(fields, mesh)
+
+    out = {}
+    scene = make_scene(H=8, W=8, n_train=1, n_test=1)
+    for ins_num, sds in inputs["field_cases"].items():
+        cfg = FieldConfig.from_args(tiny_args(ins_num=ins_num))
+        for path in ("plain", "kernel"):
+            field = sharded(_fields(cfg, sds))["coarse"]
+            if path == "plain":
+                raw = field(inputs["pts"], inputs["vd"])
+            else:
+                raw = make_trainable_pallas_field(cfg)(
+                    field if mesh is None else field.gathered(), inputs["pts"], inputs["vd"])
+            (raw * inputs["w"][..., :raw.shape[-1]]).sum().backward()
+            out[f"field_{ins_num}_{path}"] = (raw.detach(), _whole(field, mesh, grads=True))
+
+    args = tiny_args(perturb=0.0)
+    args.ins_num = scene.ins_num
+    cfg = FieldConfig.from_args(args)
+    arrs = scene_arrays(scene, "cpu")
+    for pallas in (False, True):
+        args.pallas_train = pallas
+        fields = sharded(_fields(cfg, inputs["fields"]))
+        opt, sched = make_optimizer(fields, args.lrate, args.lrate_decay)
+        state = TrainState(fields, opt, sched, 0)
+        step = make_train_step(args, cfg, mesh=mesh)
+        steps = []
+        for i in range(2):
+            _, gen = step_randomness(0, i, 1, "cpu")
+            m = step(state, arrs, gen, 0)
+            steps.append({"metrics": {k: float(v) for k, v in m.items()},
+                          "grads": [g for k in ("coarse", "fine")
+                                    for g in _whole(fields[k], mesh, grads=True)]})
+        out[f"steps_{pallas}"] = {
+            "steps": steps, "params": [t for k in ("coarse", "fine")
+                                       for t in _whole(fields[k], mesh)],
+            "local_params": _params(state), "local_moments": _moments(state),
+            "shapes": [tuple(p.shape) for k in ("coarse", "fine")
+                       for p in fields[k].parameters()]}
+        if not pallas:
+            tar_dir = os.path.join(inputs["dir"], "one" if mesh is None else "grid")
+            os.makedirs(tar_dir, exist_ok=True)
+            path = save_checkpoint(tar_dir, state, 2)
+            barrier(mesh)
+            fresh = create_train_state(9, cfg, args.lrate, args.lrate_decay, mesh=mesh)
+            restore_checkpoint(path, fresh, args.lrate, args.lrate_decay)
+            out["tar"] = path
+            out["reloaded"] = {"params": _params(fresh), "moments": _moments(fresh),
+                               "step": fresh.step}
+
+    st = create_train_state(3, cfg, args.lrate, args.lrate_decay, mesh=mesh)
+    out["created"] = [t for k in ("coarse", "fine") for t in _whole(st.params[k], mesh)]
+
+    fields = sharded(_fields(cfg, inputs["fields"]))
+    K, pose = scene.K, scene.poses[0]
+    r_args = tiny_args(N_test=32)
+    for name, pallas in (("render_fused", True), ("render_plain", False)):
+        out[name] = make_image_renderer(cfg, r_args, 8, 8, device="cpu", use_pallas=pallas,
+                                        mesh=mesh)(fields, K, pose)
+    objs = [{"mode": "rigid"}, {"mode": "deform", "deform_func": "sin"}]
+    tar_pose = np.asarray(pose, np.float64).copy()
+    tar_pose[0, 3] += 0.2
+    run = make_pose_image_manipulator(cfg, fields, r_args, objs, move_labels=[1, 2], H=8,
+                                      W=8, K=K, device="cpu", use_pallas=True, mesh=mesh)
+    out["edit"] = run(pose, np.stack([tar_pose, np.eye(4)]), np.asarray([0.0, 0.15]))
+    return out
+
+
 JOBS = {"train_render_edit": train_render_edit, "crop_step": crop_step,
-        "card_step": card_step}
+        "card_step": card_step, "model_parallel_work": model_parallel_work}
 
 
 def main(job: str, out_dir: str, device: str = "cpu", backend: str = None) -> int:
     torch.set_num_threads(1)
-    mesh = make_mesh(0, device, backend)
     inputs = torch.load(os.path.join(out_dir, "inputs.pt"), weights_only=False)
+    if isinstance(inputs, dict) and "mesh2d" in inputs:
+        mesh = make_mesh_2d(*inputs["mesh2d"], device, backend)
+    else:
+        mesh = make_mesh(0, device, backend)
     result = JOBS[job](mesh, inputs)
     torch.save(result, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
     close_mesh(mesh)
