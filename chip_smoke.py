@@ -79,12 +79,17 @@ Phases (each fails the run by raising; nothing is caught):
    composites and the rest (CUDA events); torch.profiler over 2 views; and
    the chunk over {1024, 2048, 4096, 8192} at 128x128 with its peak device
    memory.
-12. the f32 builds (precision f32) at the flagship field, K=32: K4, K3 and K5
-   on phase 3's rays and K1/K2 on 3072 rays x 64 points against their plain
-   f32 versions (F32_TOL; K2 bit-identical across launches) with their
-   median times; at the train step's fine shape, 3072 rays x 192 (589,824
-   points), K1 and K2 against their plain f32 versions the same way and the
-   peak device memory of K2's f32 build; then through the entry points: dmnerf_torch.cli.train for
+12. the f32 builds (precision f32; their products three TF32 passes on the
+   tensor cores) at the flagship field, K=32: K4, K3 and K5 on phase 3's
+   rays against their plain f32 versions (F32_TOL) with their median times;
+   K1/K2 at the train step's coarse and fine shapes, 3072 rays x 64 and x
+   192 (589,824 points), against their plain f32 versions (F32_TOL; K2
+   bit-identical across launches), the peak device memory of K2's f32
+   build, and their median times at both shapes, each also through the
+   ABLATIONS build with one TF32 pass in place of three (timing only); the
+   f32 train step at bench.py's train workload on the kernels against
+   --pallas_train False, in turns in this process; then through the entry
+   points: dmnerf_torch.cli.train for
    3 steps, dmnerf_torch.cli.test --render of its .tar and a
    manipulator_eval, each launching only f32 builds, as many as the bf16
    runs launch bf16 ones; and dmnerf_torch.cli.test --mesh of phase 7b's
@@ -199,8 +204,11 @@ Phases (each fails the run by raising; nothing is caught):
    whole), exact launches per rank; and graft_entry.entry() in this process
    (the flagship forward of 1024 rays on K1). Prints the phase's seconds.
 Phases 3, 6, 9 and 12 also print each kernel's bound (the larger of its
-operations over the peak of its type, bf16 tensor cores or fp32 CUDA cores,
-and its bytes over the memory rate), its TFLOP/s and its share of the bound.
+operations over the peak of its type and its bytes over the memory rate:
+bf16 tensor cores; for the f32 builds three TF32 passes at the TF32 rate,
+with the fp32 CUDA-core bound beside it), its TFLOP/s and its share of the
+bound. `python3 chip_smoke.py --ab DIR ...` times this tree's kernels
+against another tree's sources in one process instead (ab_main).
 The line before the last is a JSON object with one entry per kernel and
 build (its K=64 reading under "k64", its phase-14 and phase-15 errors per
 config under "stress_max_abs_err"; launches summed over the main paths,
@@ -281,19 +289,29 @@ EDIT_FRAC_TOL = 1e-1
 # with f64 in place of f32 accumulation differs from itself by 1.1e-2 at the
 # flagship width (CPU, 3700 points); an NVIDIA H100 (700 W) measured 1.2e-2-1.7e-2.
 GRAD_TOL = 3e-2
-# The f32 builds vs their plain f32 versions: nothing is rounded below f32 on
-# either side, so only the order of the fp32 sums differs. Raw and render
-# outputs within F32_TOL of max(1, the largest magnitude of the plain
-# output), gradients within F32_TOL relative L2; rays whose plain last-sample
-# |sigma| < F32_STEP sit on the last-sample step and are exempt.
+# The f32 builds vs their plain f32 versions: activations, gradients and sums
+# stay fp32 on both sides, but the kernels' products are three TF32 passes
+# (hi_a hi_b + hi_a lo_b + lo_a hi_b of operands split in two 11-bit
+# halves), which the plain path computes in full fp32. The split and the
+# order of the fp32 sums differ: on the CPU the emulated split moves the
+# flagship raw by 8.9e-7 of scale and its gradients by 1.6e-6 relative L2,
+# one TF32 pass by 1.1e-3 and 6.2e-2 (tests/test_torch_f32_split.py). K2's
+# forward recompute sums in order of k on the CUDA cores, as the plain GEMM
+# does, so that the gradients see the plain path's ReLU masks. Raw
+# and render outputs within F32_TOL of max(1, the largest magnitude of the
+# plain output), gradients within F32_TOL relative L2; rays whose plain
+# last-sample |sigma| < F32_STEP sit on the last-sample step and are exempt.
 F32_TOL = 1e-4
 F32_STEP = 1e-3
 # Published dense peaks of an H100 SXM at 700 W (NVIDIA's data sheet): the
 # least time a kernel could take is the larger of its operations over the
-# rate of their type (bf16 on the tensor cores; fp32 on the CUDA cores for
-# the f32 builds) and its bytes (each input read once, each output written
-# once) over the memory rate.
+# rate of their type and its bytes (each input read once, each output
+# written once) over the memory rate. bf16 builds: the bf16 tensor-core
+# rate. f32 builds: fp32-accurate products on this card are three TF32
+# passes on the tensor cores (3 x operations at the TF32 rate), a tighter
+# bound than the fp32 CUDA-core rate, which is printed beside it.
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # steps of phase 7b's training: enough for boxroom128x8's walls and boxes to
@@ -301,6 +319,8 @@ PEAK_BYTES = 3.35e12
 # N_importance 128 and near/far 1/12. On an NVIDIA H100 (700 W) the 400-step
 # field gave 1,819,582 faces at 256^3 (sigma up to ~10).
 MESH_STEPS = 400
+# phase 12: timed steps of each turn of the f32 train step
+STEP_RUNS = 10
 # the render kernels' f32 launch counts, in a run that launches only bf16 ones
 F32_NONE = {"render_field_sigma_f32": 0, "render_field_all_f32": 0, "render_field_ins_f32": 0}
 
@@ -360,6 +380,27 @@ def roofline(entry, macs, nbytes, peak=PEAK_BF16_FLOPS):
           f"{2.0 * macs / 1e12:.4f} TFLOP, {nbytes / 1e6:.1f} MB), {entry['tflops']:.1f} "
           f"TFLOP/s, {100 * entry['bound_ms'] / entry['ms']:.1f}% of the bound; no single "
           "PyTorch call computes it")
+    return entry
+
+
+def roofline_f32(entry, macs, nbytes):
+    """roofline for an f32 build: its bound is that of three TF32 passes
+    (bound_ms: 3 x its operations at the TF32 rate, or its bytes); the fp32
+    CUDA-core bound of the FFMA design (ffma_bound_ms) stands beside it, so
+    that a share above 100% of it reads as the tensor cores' work."""
+    flop = 2.0 * macs
+    t_ops, t_bytes = 3 * flop / PEAK_TF32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_ffma = max(flop / PEAK_FP32_FLOPS * 1e3, t_bytes)
+    entry.update(bound_ms=max(t_ops, t_bytes),
+                 bound_by="operations" if t_ops >= t_bytes else "bytes",
+                 ffma_bound_ms=t_ffma, tflops=flop / (entry["ms"] * 1e-3) / 1e12,
+                 library_ms=None)
+    print(f"{entry['name']}: {entry['tflops']:.1f} TFLOP/s of fp32-accurate products "
+          f"({flop / 1e12:.4f} TFLOP, {nbytes / 1e6:.1f} MB); 3xTF32 bound "
+          f"{entry['bound_ms']:.3f} ms ({entry['bound_by']}; 3 x the operations at "
+          f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s), {100 * entry['bound_ms'] / entry['ms']:.1f}% "
+          f"of it; fp32 FFMA bound {t_ffma:.3f} ms ({PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s), "
+          f"{100 * t_ffma / entry['ms']:.1f}% of it; no single PyTorch call computes it")
     return entry
 
 
@@ -445,7 +486,12 @@ _SLAB_LOADS = ("            if (!s.trans) {            // rows r0+k0 .. +ks, eve
                "            if (t > STAGES) {} else if (!s.trans) {            // rows r0+k0 .. +ks, every column")
 _SLAB_BARRIER = ("        cp_async_wait<STAGES - 2>();\n        __syncthreads();",
                  "        cp_async_wait<STAGES - 2>();")
+# The f32 builds' products in one TF32 pass (hi_a hi_b) in place of three:
+# whether the tensor pipe or the operand loads and splits bound them.
+F32_ONE_PASS = "f32: one TF32 pass"
 ABLATIONS = {
+    F32_ONE_PASS: ("field", "field_core.cuh", [(
+        "    mma1688(t, al, bh);\n    mma1688(t, ah, bl);\n", "")]),
     "weight slab loads out": ("field", "field_core.cuh", [_SLAB_LOADS]),
     "per-slab barrier out": ("field", "field_core.cuh", [_SLAB_BARRIER]),
     "loads and barrier out": ("field", "field_core.cuh", [_SLAB_LOADS, _SLAB_BARRIER]),
@@ -485,16 +531,16 @@ def start_ablation_builds():
     return out
 
 
-def ablation_libs(builds, lib):
-    """{name: the bound library} of the ABLATIONS builds of library lib,
-    waiting for each build."""
+def ablation_libs(builds, lib, names=None):
+    """{name: the bound library} of the ABLATIONS builds of library lib (of
+    those in names, if given), waiting for each build."""
     from dmnerf_torch.kernels import build
     entries, error = {"field": (build.FIELD_ENTRIES, "field_error_string"),
                       "render_field": (build.RENDER_FIELD_ENTRIES,
                                        "render_field_error_string")}[lib]
     out = {}
     for name, (which, so, proc) in builds.items():
-        if which != lib:
+        if which != lib or (names is not None and name not in names):
             continue
         log, _ = proc.communicate()
         if proc.returncode != 0:
@@ -740,7 +786,7 @@ def main():
         kernels[-1]["k64"] = k64["render_field_ins"]
         kernels[-1]["launches"] = edit_slice(dev)["render_field_ins"]
         edit_throughput(dev, card, cfg, {"coarse": coarse, "fine": fine})
-        kernels += f32_builds(dev, card, ro, rd, vd, z_c, z_f, mesh_cfg)
+        kernels += f32_builds(dev, card, ro, rd, vd, z_c, z_f, mesh_cfg, ablation_builds)
         mesh_launches = mesh_slice(dev, card, mesh_cfg)
     with tempfile.TemporaryDirectory() as scenes_tmp:
         scene_launches, scene_errs, scene_secs = reference_scenes(card, scenes_tmp)
@@ -983,7 +1029,8 @@ def ablation_times(builds, fwd_k, bwd_k, card):
     real = build.load_field
     rows = [("real kernels", cuda_ms(fwd_k), cuda_ms(bwd_k, 5))]
     try:
-        for name, lib in ablation_libs(builds, "field").items():
+        for name, lib in ablation_libs(builds, "field",
+                                       [n for n in ABLATIONS if n != F32_ONE_PASS]).items():
             build.load_field = lambda lib=lib: lib
             rows.append((name, cuda_ms(fwd_k), cuda_ms(bwd_k, 5)))
     finally:
@@ -1055,7 +1102,7 @@ def train_slice(dev):
     return launches
 
 
-def bench_train_workload():
+def bench_train_workload(precision="bf16"):
     """bench.py's train workload (bench.py:56-82): (args, scene, cfg) of
     train_cfg's flags (perturb 1 and lrate_decay 500 are the defaults) and
     scene through the train CLI's loader, with K=32 on the subdivided labels.
@@ -1066,7 +1113,8 @@ def bench_train_workload():
 
     ins_num = 32
     with tempfile.TemporaryDirectory() as tmp:
-        args, scene, _ = cli_train.load(["--config", train_cfg(tmp, "bench", 1),
+        args, scene, _ = cli_train.load(["--config", train_cfg(tmp, "bench", 1,
+                                                               precision=precision),
                                          "--device", "cuda"])
     per = ins_num // 4                        # bench.py:76-81: labels subdivided
     yy, xx = np.meshgrid(np.arange(scene.H), np.arange(scene.W), indexing="ij")
@@ -1245,21 +1293,64 @@ def held_f32(name, got, want, sigma_last=None):
     return worst
 
 
-def f32_builds(dev, card, ro, rd, vd, z_c, z_f, mesh_cfg):
+def f32_train_step(dev, card):
+    """Phase 12: bench.py's train workload in f32 through the port's train
+    step on K1/K2's f32 builds (pallas_train, the default) against the same
+    step on the plain f32 path (--pallas_train False), in turns plain,
+    kernels, kernels, plain in this process (the host side moves between
+    calls); each turn 2 steps of warm-up, then STEP_RUNS timed."""
+    import copy
+    from dmnerf_torch.kernels import field as kf
+    from dmnerf_torch.train.step import create_train_state, make_train_scan_step, scene_arrays
+
+    args, scene, cfg = bench_train_workload("f32")
+    arrs, i_train = scene_arrays(scene, dev), np.arange(4)
+    state = create_train_state(0, cfg, args.lrate, args.lrate_decay, device=dev)
+    steps = {}
+    for kernels in (True, False):
+        a = copy.copy(args)
+        a.pallas_train = kernels
+        steps[kernels] = make_train_scan_step(a, cfg)
+    times = {True: [], False: []}
+    for kernels in (False, True, True, False):
+        steps[kernels](state, arrs, 1, i_train, 2)
+        torch.cuda.synchronize()
+        kf.reset_launches()
+        t0 = time.perf_counter()
+        m = steps[kernels](state, arrs, 1, i_train, STEP_RUNS)
+        torch.cuda.synchronize()
+        times[kernels].append((time.perf_counter() - t0) / STEP_RUNS * 1e3)
+        want = 2 * STEP_RUNS if kernels else 0
+        if (kf.LAUNCHES["field_forward_f32"], kf.LAUNCHES["field_backward_f32"]) != (want, want):
+            raise AssertionError(f"f32 train step: launches {kf.LAUNCHES}, expected {want} of "
+                                 "each f32 build")
+        if not all(np.isfinite(float(v)) for v in m.values()):
+            raise AssertionError(f"f32 train step: non-finite metrics {m}")
+    ms, plain = min(times[True]), min(times[False])
+    print(f"f32 train step (bench.py's workload, 3072 rays, 64+128, K=32): kernels "
+          f"{' / '.join(f'{t:.2f}' for t in times[True])} ms/step, plain (--pallas_train False) "
+          f"{' / '.join(f'{t:.2f}' for t in times[False])} ms/step; kernels/plain "
+          f"{ms / plain:.3f} ({STEP_RUNS} steps a turn; {card})")
+    return {"ms": ms, "plain_ms": plain}
+
+
+def f32_builds(dev, card, ro, rd, vd, z_c, z_f, mesh_cfg, ablation_builds):
     """Phase 12: the f32 builds of K1-K5 against their plain f32 versions,
-    then the train, render, edit and mesh paths in f32 through their entry
-    points (the mesh of phase 7b's field, mesh_cfg). Returns the kernels-line
-    entries of the f32 builds."""
+    K1/K2 also through the one-TF32-pass build of ABLATIONS (timing only),
+    the f32 train step against its plain path, then the train, render, edit
+    and mesh paths in f32 through their entry points (the mesh of phase 7b's
+    field, mesh_cfg). Returns the kernels-line entries of the f32 builds."""
     from dmnerf_torch.cli import test as cli_test
     from dmnerf_torch.cli import train as cli_train
     from dmnerf_torch.edit import runner
+    from dmnerf_torch.kernels import build
     from dmnerf_torch.kernels import field as kf
     from dmnerf_torch.kernels import render_field as krf
     from dmnerf_torch.models.fields import FieldConfig, init_field_params
 
     phase("12 the f32 builds vs their plain f32 versions (flagship 8x256, K=32, 4096 rays; "
-          "3072 rays x 64 / x 192), then cli.train, cli.test --render, an edit and "
-          "cli.test --mesh in f32")
+          "3072 rays x 64 / x 192; one TF32 pass; the f32 train step), then cli.train, "
+          "cli.test --render, an edit and cli.test --mesh in f32")
     cfg = FieldConfig(**FLAGSHIP, ins_num=32, compute_dtype=torch.float32)
     gen = torch.Generator().manual_seed(12)
     coarse, fine = (init_field_params(gen, cfg, device=dev).eval() for _ in range(2))
@@ -1275,8 +1366,8 @@ def f32_builds(dev, card, ro, rd, vd, z_c, z_f, mesh_cfg):
                           cuda_ms(p_fn, reps, 1))
         entry.update(route="cuda", launches=0, ms=min(k1, k2), plain_ms=min(p1, p2))
         print(f"{entry['name']}: kernel {entry['ms']:.3f} ms, plain {entry['plain_ms']:.3f} ms "
-              f"(median of {reps}; {card})")
-        entries.append(roofline(entry, *work, peak=PEAK_FP32_FLOPS))
+              f"(kernel/plain {entry['ms'] / entry['plain_ms']:.3f}; median of {reps}; {card})")
+        return roofline_f32(entry, *work)
 
     with torch.no_grad():
         sig_c = coarse.density(pts_c[:, -1])[..., 0]
@@ -1296,9 +1387,10 @@ def f32_builds(dev, card, ro, rd, vd, z_c, z_f, mesh_cfg):
             got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
             worst = max(held_f32(f"{name}_f32 {o}", a, b, sig) for o, a, b in zip(outs, got, want))
             heads = name.split("_")[-1]
-            timed({"name": f"{name}_f32", "source": SRC, "replaces": REPLACES, "heads": heads,
-                   "max_abs_err": worst}, k_fn, p_fn,
-                  (field_macs(cfg, heads) * R * S, render_bytes(name, R, S, pf, cfg.ins_num)))
+            entries.append(timed(
+                {"name": f"{name}_f32", "source": SRC, "replaces": REPLACES, "heads": heads,
+                 "max_abs_err": worst}, k_fn, p_fn,
+                (field_macs(cfg, heads) * R * S, render_bytes(name, R, S, pf, cfg.ins_num))))
 
     def check_k1_k2(case):
         """K1's raw and K2's gradients against their plain f32 versions on a
@@ -1333,22 +1425,45 @@ def f32_builds(dev, card, ro, rd, vd, z_c, z_f, mesh_cfg):
             raise AssertionError(f"K2's f32 build: two launches on the same inputs differ (P={P})")
         return e_raw, e_grad
 
-    # the train step's coarse (3072 x 64) and fine (3072 x 192) shapes; the
-    # times at the coarse one
+    # the train step's coarse (3072 x 64) and fine (3072 x 192) shapes, each
+    # held and timed (the entry: the coarse one, the fine under "fine"), then
+    # K1 and K2 through the one-pass build between two timings of the real
+    # one
     cases = list(field_cases(dev, 32, 2, 3072, (64, 192), torch.float32))
     errs = [check_k1_k2(c) for c in cases]
     e_raw, e_grad = (max(e[i] for e in errs) for i in range(2))
-    case = cases[0]
-    field, packed, pts, cvd, pts_flat, dirs, ppd, g = case
+    one_pass = ablation_libs(ablation_builds, "field", [F32_ONE_PASS])[F32_ONE_PASS]
+    k1, k2 = ({"name": "field_forward_f32", "source": FIELD_SRC, "replaces": K1_REPLACES,
+               "max_abs_err": e_raw},
+              {"name": "field_backward_f32", "source": FIELD_SRC, "replaces": K2_REPLACES,
+               "max_abs_err": e_grad})
+    real = build.load_field
+    for case in cases:
+        field, packed, pts, cvd, pts_flat, dirs, ppd, g = case
+        P = pts_flat.shape[0]
+        for entry, k_fn, p_fn, part in (
+                (k1, lambda: kf.field_forward(packed, pts, cvd),
+                 lambda: kf.field_forward_ref(field, pts, cvd), "forward"),
+                (k2, lambda: kf.field_backward(packed, pts_flat, dirs, ppd, g),
+                 lambda: kf.field_backward_ref(packed, pts_flat, dirs, ppd, g), "backward")):
+            with torch.no_grad():
+                got = timed(entry if case is cases[0] else {"name": f"{entry['name']} P={P}"},
+                            k_fn, p_fn, field_work(case, part))
+                t = [cuda_ms(k_fn, 3, 1)]
+                try:
+                    build.load_field = lambda: one_pass
+                    t += [cuda_ms(k_fn, 3, 1), cuda_ms(k_fn, 3, 1)]
+                finally:
+                    build.load_field = real
+                t.append(cuda_ms(k_fn, 3, 1))
+            got["one_pass_ms"] = min(t[1:3])
+            print(f"{got['name']}: one TF32 pass {got['one_pass_ms']:.3f} ms against three "
+                  f"{min(t[0], t[3]):.3f} ms (timing only; {card})")
+            if case is not cases[0]:
+                entry["fine"] = got
+    entries += [k1, k2]
     del cases
-    with torch.no_grad():
-        timed({"name": "field_forward_f32", "source": FIELD_SRC, "replaces": K1_REPLACES,
-               "max_abs_err": e_raw}, lambda: kf.field_forward(packed, pts, cvd),
-              lambda: kf.field_forward_ref(field, pts, cvd), field_work(case, "forward"))
-        timed({"name": "field_backward_f32", "source": FIELD_SRC, "replaces": K2_REPLACES,
-               "max_abs_err": e_grad}, lambda: kf.field_backward(packed, pts_flat, dirs, ppd, g),
-              lambda: kf.field_backward_ref(packed, pts_flat, dirs, ppd, g),
-              field_work(case, "backward"))
+    entries[-1]["train_step"] = f32_train_step(dev, card)
 
     def counted(what, fn, want):
         kf.reset_launches()
@@ -3019,9 +3134,160 @@ def model_mesh(dev, card):
     return total
 
 
+def ab_main(dirs):
+    """`python3 chip_smoke.py --ab DIR [DIR ...]`: this tree's kernels
+    against those built from each DIR (another tree's
+    dmnerf_torch/kernels/csrc, such as a parent commit's unpacked by git
+    archive), in one process on one card: K1 and K2 at 3072 rays x 64 and x
+    192 points, K4 at 4096 x 64, K3 and K5 at 4096 x 192, on the flagship
+    field at K=32, in bf16 and in f32, timed in turns other, this, this,
+    other (CUDA events, median of 10; 5 for K2). The bf16 outputs must equal
+    this tree's bit for bit; the f32 ones are printed with their largest
+    difference, then each f32 build's accuracy (f32_accuracy). All
+    libraries build at once."""
+    from dmnerf_torch.kernels import build
+    from dmnerf_torch.kernels import field as kf
+    from dmnerf_torch.kernels import render_field as krf
+    from dmnerf_torch.models.fields import FieldConfig, init_field_params
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --ab: CUDA is not available", file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    procs = []
+    for i, d in enumerate(dirs):
+        out = os.path.join(REPO, "build", "ab", str(i))
+        os.makedirs(out, exist_ok=True)
+        for lib in ("field", "render_field"):
+            so = os.path.join(out, f"lib{lib}.so")
+            procs.append((d, lib, so, subprocess.Popen(
+                [build._nvcc(), *build.NVCC_FLAGS, "-o", so, os.path.join(d, f"{lib}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+            CHILDREN.append(procs[-1][3])
+    t0 = time.perf_counter()
+    for name, (so, _) in build.build_all(["render_field", "field"]).items():
+        print(f"this tree's {name}:\n" + "\n".join(
+            l for l in so.with_suffix(".log").read_text().splitlines()
+            if "registers" in l or "spill" in l))
+    libs = {"this": (build.load_field(), build.load_render_field())}
+    other = {}
+    for d, lib, so, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise AssertionError(f"nvcc failed on {d}/{lib}.cu:\n{log}")
+        entries, error = ((build.FIELD_ENTRIES, "field_error_string") if lib == "field" else
+                          (build.RENDER_FIELD_ENTRIES, "render_field_error_string"))
+        other.setdefault(d, {})[lib] = build.bind(so, entries, error)
+    for d in dirs:
+        libs[d] = (other[d]["field"], other[d]["render_field"])
+    print(f"built {len(procs) + 2} libraries in {time.perf_counter() - t0:.1f} s")
+    real = build.load_field, build.load_render_field
+
+    def run(which, fn, reps):
+        build.load_field, build.load_render_field = (lambda: libs[which][0]), (lambda: libs[which][1])
+        try:
+            out = fn()
+            return (out if isinstance(out, tuple) else (out,)), cuda_ms(fn, reps)
+        finally:
+            build.load_field, build.load_render_field = real
+
+    g = torch.Generator().manual_seed(0)
+    rd = torch.nn.functional.normalize(torch.randn(4096, 3, generator=g), dim=-1).cuda()
+    z = (torch.sort(torch.rand(4096, 192, generator=g), -1)[0] * 11 + 1).cuda()
+    pts = (torch.randn(4096, 1, 3, generator=g).cuda() * 0.3 + rd[:, None] * z[..., None])
+    vd, zc, pc = rd[:, None].contiguous(), z[:, ::3].contiguous(), pts[:, ::3].contiguous()
+    for dtype in (torch.bfloat16, torch.float32):
+        prec = "bf16" if dtype == torch.bfloat16 else "f32"
+        cfg = FieldConfig(**FLAGSHIP, ins_num=32, compute_dtype=dtype)
+        pk = krf.pack_field(init_field_params(torch.Generator().manual_seed(1), cfg, device="cuda"))
+        fns = {}
+        cases = list(field_cases("cuda", 32, 2, 3072, (64, 192), dtype))
+        for _, _, fp, fvd, pf, dirs_, ppd, gk in cases:
+            S = fp.shape[1]
+            fns[f"K1 3072x{S}"] = (10, lambda fp=fp, fvd=fvd: kf.field_forward(pk, fp, fvd))
+            fns[f"K2 3072x{S}"] = (5, lambda pf=pf, d=dirs_, p=ppd, gk=gk: tuple(
+                kf.field_backward(pk, pf, d, p, gk)[:2]))
+        fns["K4 4096x64"] = (10, lambda: krf.render_field_sigma(pk, pc, zc, rd))
+        fns["K3 4096x192"] = (10, lambda: krf.render_field_all(pk, pts, vd, z, rd))
+        fns["K5 4096x192"] = (10, lambda: krf.render_field_ins(pk, pts, z, rd))
+        with torch.no_grad():
+            for name, (reps, fn) in fns.items():
+                for d in dirs:
+                    (o, o1), (t, t1), (_, t2), (_, o2) = (run(w, fn, reps)
+                                                          for w in (d, "this", "this", d))
+                    diff = max(float((a - b).abs().max()) for a, b in zip(t, o))
+                    print(f"{prec} {name} vs {d}: other {o1:.3f} / {o2:.3f} ms, this {t1:.3f} / "
+                          f"{t2:.3f} ms (this/other {min(t1, t2) / min(o1, o2):.3f}), max |this - "
+                          f"other| {diff:.3e} ({card})")
+                    if prec == "bf16" and not all(torch.equal(a, b) for a, b in zip(t, o)):
+                        raise AssertionError(f"bf16 {name}: this tree's output differs from {d}'s")
+    for case in cases:
+        f32_accuracy(case, {w: libs[w][0] for w in ["this", *dirs]}, card)
+    return 0
+
+
+# f32_accuracy: a ReLU input within this of zero may take the other side of
+# the step when the products round differently
+RELU_NEAR = 1e-5
+
+
+def f32_accuracy(case, libs, card):
+    """For each K1/K2 library of libs ({name: library}) on an f32 case of
+    field_cases: K1's raw against an f64 forward (rms of the error over rms
+    of the raw, beside the plain f32 path's), and K2's worst gradient
+    relative L2 against the plain f32 path, with every point's cotangent and
+    with none at the points where a ReLU input of the plain K2 lies within
+    RELU_NEAR of zero (its mask may flip)."""
+    from dmnerf_torch.kernels import build
+    from dmnerf_torch.kernels import field as kf
+    field, packed, pts, vd, pf, dirs, ppd, g = case
+    rec, relu = [], torch.relu
+    torch.relu = lambda x: (rec.append(x.detach().abs().amin(-1)), relu(x))[1]
+    try:
+        with torch.no_grad():
+            gp = kf.field_backward_ref(packed, pf, dirs, ppd, g)
+    finally:
+        torch.relu = relu
+    n = len(rec) // -(-pf.shape[0] // kf.REF_CHUNK)          # ReLUs per chunk of points
+    near = torch.stack([torch.cat(rec[i::n]) for i in range(n)]).amin(0) < RELU_NEAR
+    g_off = g * ~near[:, None]
+    gp_off = kf.field_backward_ref(packed, pf, dirs, ppd, g_off)
+    with torch.no_grad():
+        raw64 = field.double()(pts.double(), vd.double())
+        field.float()
+        rms = lambda raw: float((raw.double() - raw64).norm() / raw64.norm())
+        plain = rms(kf.field_forward_ref(field, pts, vd))
+    real = build.load_field
+    try:
+        for name, lib in libs.items():
+            build.load_field = lambda lib=lib: lib
+            with torch.no_grad():
+                e_raw = rms(kf.field_forward(packed, pts, vd))
+            worst = [max(grad_errors(field, packed, kf.field_backward(packed, pf, dirs, ppd, c),
+                                     want)[0].values()) for c, want in ((g, gp), (g_off, gp_off))]
+            print(f"f32 accuracy P={pf.shape[0]}, {name}: K1 raw {e_raw:.3e} rms of an f64 forward "
+                  f"(plain {plain:.3e}); K2 worst gradient relative L2 {worst[0]:.3e} of the plain "
+                  f"path, {worst[1]:.3e} with no cotangent at the {int(near.sum())} points "
+                  f"({100 * float(near.float().mean()):.2f}%) with a ReLU input within "
+                  f"{RELU_NEAR:.0e} of zero ({card})")
+    finally:
+        build.load_field = real
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
         sys.exit(rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--ab"]:
+        try:
+            sys.exit(ab_main(sys.argv[2:]))
+        finally:
+            for child in CHILDREN:
+                if child.poll() is None:
+                    child.kill()
+                    child.wait()
     try:
         sys.exit(main())
     finally:

@@ -68,11 +68,24 @@
 //
 // - The f32 builds (field_forward_f32, field_backward_f32; the JAX kernels
 //   with compute_dtype float32) run the same code on the core's float build:
-//   64-point tiles, fp32 FFMA on the CUDA cores, fp32 activations and
-//   scratch (act/dys twice the bytes), and slabs half as deep (shared
-//   memory holds f32 H and Bf of 64 rows); the dW GEMM multiplies in fp32.
-//   Nothing is rounded below fp32, so the f32 kernels differ from the plain
-//   f32 path only in the order of their sums.
+//   64-point tiles, fp32 activations and scratch (act/dys twice the bytes),
+//   and slabs half as deep (shared memory holds f32 H and Bf of 64 rows).
+//   Their products are three TF32 passes on the tensor cores (mma.sync
+//   m16n8k8: lo_a hi_b, hi_a lo_b, hi_a hi_b of split operands, fp32
+//   accumulation; field_core.cuh): K1, K2's backward matmuls and the dW
+//   GEMM. Their first design, fp32 FFMA with each thread at its fragment
+//   positions, was bound by shared-memory words per FMA: 4 in the tile
+//   pass, one scalar A and one float2 B load per 16 FMAs in the dW GEMM, at
+//   32-34% of the 67 TFLOP/s fp32 peak and 1.01-1.05x the plain f32 path's
+//   time (PERF.md section 6). K2's forward recompute keeps that in-order
+//   FFMA loop: the gradients are held to 1e-4 relative L2 of the plain f32
+//   path, which only holds where both take the same ReLU masks. Three TF32
+//   passes are as accurate as an fp32 GEMM but rounded elsewhere: on the
+//   card, with them in the recompute too, the trunk's gradients moved by
+//   1.8e-3 relative L2 at 196,608 points, and by 1.1e-5 once the 1.3% of
+//   points with a pre-activation within 1e-5 of zero carried no cotangent
+//   (their masks flip); with the FFMA recompute, 6.8e-6 at every point.
+//   Activations, gradients and sums stay fp32.
 //
 // Plain C interface for ctypes; each entry returns the first CUDA error of
 // its launches (cudaGetLastError after each) so the wrapper can raise.
@@ -95,6 +108,10 @@ template <class T> constexpr int K1_KS = sizeof(T) == 2 ? 64 : 32;
 template <class T> constexpr int K2_KS = sizeof(T) == 2 ? 32 : 16;
 constexpr int MAXJ = MAXD + 5;          // dW jobs: D trunk matrices + 5 head matrices
 constexpr int BM = 128, BN = 256, BK = 32, DW_STAGES = 3;   // dW GEMM tiles
+// the dW slabs' row padding, in elements: 16 bytes in bf16 (ldmatrix rows in
+// distinct bank groups); 8 words in float, so that a warp's scalar fragment
+// loads (rows t and t + 4, columns g) hit 32 distinct banks
+constexpr int DW_PAD = 8;
 constexpr int NJ = BN / 32;             // 8-column tiles per dW warp
 constexpr int DW_THREADS = 256;         // the dW GEMM's block: 8 warps
 
@@ -339,9 +356,11 @@ Jobs make_jobs(const Meta& m, const Layout& L) {
 // K2, dW pass: per (BM x BN tile of one job's dW, range of psplit points) an
 // fp32 partial of act^T @ dys into partial_w[blockIdx.y], and for the first
 // row tile of each job the bias partial into partial_b[blockIdx.y]. 8 warps
-// as 2 (rows of dW) x 4 (columns), 64 x 32 each; in bf16 A = act^T is read
-// from the [points, K] slabs with ldmatrix .trans, in float each thread
-// multiplies the values of its fragment positions point by point (FFMA).
+// as 2 (rows of dW) x 4 (columns), 64 x 64 each; in bf16 A = act^T is read
+// from the [points, K] slabs with ldmatrix .trans, in float (which .trans
+// cannot move) each lane reads its fragments' words and splits them for
+// three TF32 passes, 8 points a step. The summation order is fixed, so two
+// launches give the same bits.
 template <class T>
 __global__ void __launch_bounds__(DW_THREADS, 1)
 dw_partial_kernel(const T* __restrict__ act, int ACT, const T* __restrict__ dys, int DYW,
@@ -350,8 +369,8 @@ dw_partial_kernel(const T* __restrict__ act, int ACT, const T* __restrict__ dys,
                   float* __restrict__ partial_b, int n_b) {
     extern __shared__ __align__(128) unsigned char smem[];
     constexpr int EPC = 16 / sizeof(T);         // elements per 16-byte copy
-    typedef T ATile[BK][BM + core::SPAD<T>];
-    typedef T BTile[BK][BN + core::SPAD<T>];
+    typedef T ATile[BK][BM + DW_PAD];
+    typedef T BTile[BK][BN + DW_PAD];
     ATile* As = reinterpret_cast<ATile*>(smem);
     BTile* Bs = reinterpret_cast<BTile*>(smem + DW_STAGES * sizeof(ATile));
     const int t = blockIdx.x;
@@ -417,28 +436,32 @@ dw_partial_kernel(const T* __restrict__ act, int ACT, const T* __restrict__ dys,
                 }
             }
         } else {
-            // the same positions as the fragments: rows wm + 16 mi + lane / 4
-            // + 8 h, columns wn + 8 nj + 2 (lane % 4) + {0, 1}
-#pragma unroll 4
-            for (int kk = 0; kk < BK; ++kk) {
-                float a[4][2];
+            // 3xTF32 on the same fragments, operands read as words: a0 (row
+            // g, point t) = As[t][g], a1 row g + 8, a2 and a3 point t + 4; b0
+            // (point t, column g) = Bs[t][g], b1 point t + 4
 #pragma unroll
-                for (int mi = 0; mi < 4; ++mi)
+            for (int kk = 0; kk < BK; kk += 8) {
+                const int p = kk + lane % 4, gi = lane / 4;
+                uint32_t ah[4][4], al[4][4];
 #pragma unroll
-                    for (int h = 0; h < 2; ++h)
-                        a[mi][h] = As[s][kk][wm + mi * 16 + lane / 4 + h * 8];
+                for (int mi = 0; mi < 4; ++mi) {
+                    const int m = wm + mi * 16 + gi;
+                    const uint32_t a[4] = {__float_as_uint(As[s][p][m]),
+                                           __float_as_uint(As[s][p][m + 8]),
+                                           __float_as_uint(As[s][p + 4][m]),
+                                           __float_as_uint(As[s][p + 4][m + 8])};
+                    core::split_tf32(a, ah[mi], al[mi]);
+                }
 #pragma unroll
                 for (int nj = 0; nj < NJ; ++nj) {
-                    const float2 b2 = *reinterpret_cast<const float2*>(
-                        &Bs[s][kk][wn + nj * 8 + 2 * (lane % 4)]);
+                    const int n = wn + nj * 8 + gi;
+                    const uint32_t b[2] = {__float_as_uint(Bs[s][p][n]),
+                                           __float_as_uint(Bs[s][p + 4][n])};
+                    uint32_t bh[2], bl[2];
+                    core::split_tf32(b, bh, bl);
 #pragma unroll
                     for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-                        for (int h = 0; h < 2; ++h) {
-                            float* d = acc[mi / 2][(mi % 2) * NJ + nj] + 2 * h;
-                            d[0] = fmaf(a[mi][h], b2.x, d[0]);
-                            d[1] = fmaf(a[mi][h], b2.y, d[1]);
-                        }
+                        core::mma_3xtf32(acc[mi / 2][(mi % 2) * NJ + nj], ah[mi], al[mi], bh, bl);
                 }
             }
         }
@@ -565,7 +588,7 @@ int launch_backward(const float* pts, const float* vdirs, int P, int ppd, const 
                                          gd);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-    const int dw_smem = DW_STAGES * BK * (BM + BN + 2 * core::SPAD<T>) * (int)sizeof(T);
+    const int dw_smem = DW_STAGES * BK * (BM + BN + 2 * DW_PAD) * (int)sizeof(T);
     err = cudaFuncSetAttribute(dw_partial_kernel<T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, dw_smem);
     if (err != cudaSuccess) return (int)err;

@@ -3,12 +3,29 @@
 // chosen by the element type T of the weights and activations:
 // - bf16: 128-point tiles on the tensor cores (mma.sync m16n8k16, operands by
 //   ldmatrix), fp32 accumulation;
-// - float: 64-point tiles on the CUDA cores (fp32 FFMA, products and sums in
-//   fp32: the JAX kernels' compute_dtype float32). Its tile is half as tall
-//   because a tile's activations take twice the bytes, and the shared memory
-//   of a block holds H and Bf of 64 rows at width 256 beside the weight ring
-//   (the JAX package halves its f32 backward tile likewise).
-// Both builds put every value in the same thread and register, so the
+// - float: 64-point tiles on the tensor cores in three TF32 passes (mma.sync
+//   m16n8k8 tf32, fp32 accumulation: the JAX kernels' compute_dtype
+//   float32). Its tile is half as tall because a tile's activations take
+//   twice the bytes, and the shared memory of a block holds H and Bf of 64
+//   rows at width 256 beside the weight ring (the JAX package halves its f32
+//   backward tile likewise). Its first design, fp32 FFMA on the CUDA cores
+//   with each thread computing its fragment positions, sat at the shared
+//   memory's rate: 4 FMAs per B word loaded, against 128 FFMA and 32 words a
+//   clock per SM, 32-37% of the 67 TFLOP/s fp32 peak (PERF.md section 6).
+//   The tensor cores take 8 B words per 64 multiply-adds a lane. Each
+//   operand is split once in registers after its load, x = hi + lo with hi =
+//   tf32(x) and lo = tf32(x - hi) (cvt.rna); per 8-deep step a zeroed
+//   fragment takes lo_a hi_b, then hi_a lo_b, then hi_a hi_b, and one fp32
+//   add takes it into the accumulator (mma_3xtf32). On the card the raw of
+//   the flagship field is then within 9.3e-7 (rms, relative) of an f64
+//   forward, against 7.9e-7 for the plain fp32 path; on the CPU the split
+//   and the order, emulated, move it by 8.9e-7 of max(1, max |raw|) and the
+//   gradients by 1.6e-6 relative L2, one TF32 pass by 1.1e-3 and 6.2e-2
+//   (tests/test_torch_f32_split.py). K2's forward recompute alone sums in
+//   order of k with fp32 FFMA (ffma_slab), so that its ReLU masks are the
+//   plain path's.
+// Both builds put every value in the same thread and register (the m16n8
+// accumulator fragment of k16 bf16 and of k8 tf32 is one layout), so the
 // epilogues, the ReLU mask bits and the tile forward are one code.
 //
 // - A block of THREADS = 512 threads (16 warps, at most 128 registers each)
@@ -22,8 +39,11 @@
 //   bits) run on those registers. Sixteen warps, four per scheduler, hide
 //   the latency of the ldmatrix -> mma chains and of the per-slab barrier.
 // - Activations live in shared memory, rows padded by 16 bytes so that the 8
-//   row addresses of one ldmatrix (or of one float4 load) fall in distinct
-//   16-byte bank groups.
+//   row addresses of one ldmatrix fall in distinct 16-byte bank groups. In
+//   the float build ldmatrix moves 32-bit words: lane l receives the word at
+//   row l/4, column l%4 of each 8 x 4-float matrix, which is the tf32 A
+//   fragment (a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)) and, from a
+//   slab with k contiguous, the B fragment (b0 (k t, n g), b1 (k t+4, n g)).
 // - The weights a block reads form a Plan: the ordered list of segments of
 //   the packed matrices (kernels/render_field.py::pack_field) that its
 //   matmuls consume. A segment is either W[r0:r0+rows, :] read as B (the
@@ -31,7 +51,9 @@
 //   backward: reduction over the columns, one output column per row). Both
 //   come from the one packed layout: the backward's slabs are column blocks
 //   of W and its fragments are ldmatrix without .trans, the forward's are row
-//   blocks read with .trans.
+//   blocks read with .trans (bf16) or, since .trans moves 16-bit elements
+//   only, as two scalar words per lane and tile (float; its rows padded by 8
+//   words so that a warp's rows t and columns g hit 32 distinct banks).
 // - The ring cuts the plan into slabs of KSL reduction steps and keeps
 //   STAGES - 1 of them in flight across matmul and layer boundaries (and,
 //   for a block that walks several tiles, across tiles: the plan is read
@@ -58,10 +80,12 @@ constexpr int NTO = (MAXCP / 8 + WN - 1) / WN;   // its 8-column tiles per warp
 constexpr int MAXSEG = 56;
 
 // per build: rows of a tile, 16-row tiles per warp, the padding of every
-// shared-memory row (16 bytes), mask words per thread at N = MAXW
+// shared-memory row (16 bytes) but a forward slab's (NPAD elements: 16 bytes
+// in bf16, 8 words in float), mask words per thread at N = MAXW
 template <class T> constexpr int TM = sizeof(T) == 2 ? 128 : 64;
 template <class T> constexpr int MT = TM<T> / WM / 16;
 template <class T> constexpr int SPAD = 16 / sizeof(T);
+constexpr int NPAD = 8;
 template <class T> constexpr int MW = NT * MT<T> * 4 / 32;
 
 __device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
@@ -140,12 +164,52 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], 
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d += a (16x8, row) @ b (8x8, col), tf32 in, fp32 accumulate
+__device__ __forceinline__ void mma1688(float (&d)[4], const uint32_t (&a)[4],
+                                        const uint32_t (&b)[2]) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// x (fp32 bits) = hi + lo, each rounded to tf32 (to nearest, ties away from
+// zero); x - hi is exact in fp32
+__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi, uint32_t& lo) {
+    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(__uint_as_float(x)));
+    const float rest = __uint_as_float(x) - __uint_as_float(hi);
+    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
+}
+
+template <int N>
+__device__ __forceinline__ void split_tf32(const uint32_t (&x)[N], uint32_t (&hi)[N],
+                                           uint32_t (&lo)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) split_tf32(x[i], hi[i], lo[i]);
+}
+
+// d += a b in three TF32 passes (a = ah + al, b = bh + bl), the small
+// products first, into a zeroed fragment that one fp32 add (round to
+// nearest) takes into d: the tensor cores' own accumulation truncates, so
+// three passes straight into d would lose ~1 ulp of the running sum per
+// mma, 1.5e-5 of the raw's scale (rms) at the flagship field on the card.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+    float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    mma1688(t, al, bh);
+    mma1688(t, ah, bl);
+    mma1688(t, ah, bh);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) d[c] += t[c];
+}
+
 // ---- the weight ring ------------------------------------------------------------
 
 // elements of one slab of s in a ring of KSL-step slabs
 template <class T>
 __host__ __device__ inline int slab_elems(const Seg& s, int ksl) {
-    return s.trans ? s.rows * (ksl + SPAD<T>) : ksl * (s.ldw + SPAD<T>);
+    return s.trans ? s.rows * (ksl + SPAD<T>) : ksl * (s.ldw + NPAD);
 }
 
 // LAPS: the block consumes the plan once per tile of several (K3/K4/K5), and
@@ -171,8 +235,8 @@ struct Ring {
             const Seg s = plan->s[pseg];
             T* dst = stage(i);
             const int red = seg_red(s), k0 = pslab * KSL, ks = min(KSL, red - k0);
-            if (!s.trans) {            // rows r0+k0 .. +ks, every column -> [ks][ldw+SPAD]
-                const int cpr = s.ldw / EPC, ld = s.ldw + SPAD<T>;
+            if (!s.trans) {            // rows r0+k0 .. +ks, every column -> [ks][ldw+NPAD]
+                const int cpr = s.ldw / EPC, ld = s.ldw + NPAD;
                 const T* src = w + s.w_off + (size_t)(s.r0 + k0) * s.ldw;
                 for (int c = threadIdx.x; c < ks * cpr; c += THREADS) {
                     const int r = c / cpr, col = (c % cpr) * EPC;
@@ -292,12 +356,16 @@ __device__ __forceinline__ void k16(float (&acc)[M][N][4], int nt, const uint32_
     }
 }
 
-// The float build's products of one slab: acc += A[:, kbase:kbase+ks] @ B,
-// B the slab st (trans: [outputs][KSL+SPAD], else [ks][ldw+SPAD]), 4
-// reduction steps at a time, each value summed in order of k. Each thread
-// computes the values of its fragment positions: rows r + 16 mi + 8 h,
-// columns c + 8 WN j + {0, 1}.
-template <bool TRANS, int M, int N>
+// K2's forward recompute in the float build: acc += A[:, kbase:kbase+ks] @
+// B for a forward slab st ([ks][ld]), 4 reduction steps at a time, each
+// value summed in order of k by fp32 FFMA at this thread's fragment
+// positions (rows r + 16 mi + 8 h, columns c + 8 WN j + {0, 1}). Its ReLU
+// masks are then those of an fp32 GEMM that sums in order of k, as the
+// plain path's does; three TF32 passes, as fp32-accurate as that GEMM but
+// rounded elsewhere, flip the masks of points whose pre-activations lie
+// within ~1e-5 of zero, and each flip moves a layer's whole gradient
+// (PERF.md section 6).
+template <int M, int N>
 __device__ __forceinline__ void ffma_slab(float (&acc)[M][N][4], int nt, const float* A,
                                           int lda, int kbase, int ks, const float* st, int ld) {
     const int lane = threadIdx.x % 32;
@@ -315,18 +383,10 @@ __device__ __forceinline__ void ffma_slab(float (&acc)[M][N][4], int nt, const f
             if (j < nt) {
                 const int cj = c + j * 8 * WN;
                 float b[2][4];          // B[kk + q][cj + e] = b[e][q]
-                if (TRANS) {
 #pragma unroll
-                    for (int e = 0; e < 2; ++e) {
-                        const float4 v = *reinterpret_cast<const float4*>(st + (cj + e) * ld + kk);
-                        b[e][0] = v.x; b[e][1] = v.y; b[e][2] = v.z; b[e][3] = v.w;
-                    }
-                } else {
-#pragma unroll
-                    for (int q = 0; q < 4; ++q) {
-                        const float2 v = *reinterpret_cast<const float2*>(st + (kk + q) * ld + cj);
-                        b[0][q] = v.x; b[1][q] = v.y;
-                    }
+                for (int q = 0; q < 4; ++q) {
+                    const float2 v = *reinterpret_cast<const float2*>(st + (kk + q) * ld + cj);
+                    b[0][q] = v.x; b[1][q] = v.y;
                 }
 #pragma unroll
                 for (int mi = 0; mi < M; ++mi)
@@ -344,15 +404,70 @@ __device__ __forceinline__ void ffma_slab(float (&acc)[M][N][4], int nt, const f
     }
 }
 
+// The float build's 8-deep reduction step over exactly X of this warp's
+// tiles, branch-free like k16_exact: the A fragments come split (ah + al),
+// each B fragment is split as it loads. TRANS: by ldmatrix, as k16_exact;
+// else b0 and b1 are words bp[j tstep] and bp[j tstep + kstep] (this lane's
+// rows t and t + 4, column g).
+template <int X, bool TRANS, int M, int N>
+__device__ __forceinline__ void k8_exact(float (&acc)[M][N][4], const uint32_t (&ah)[M][4],
+                                         const uint32_t (&al)[M][4], const float* bp, int tstep,
+                                         int kstep) {
+    const uint32_t* bw = reinterpret_cast<const uint32_t*>(bp);
+#pragma unroll
+    for (int j = 0; j < X; j += 2) {
+        uint32_t b[2][2], bh[2][2], bl[2][2];
+        const int n = j + 1 < X ? 2 : 1;
+        if (TRANS && n == 2) {
+            uint32_t r[4];
+            ldsm_x4(r, bp + j * tstep);
+            b[0][0] = r[0]; b[0][1] = r[1]; b[1][0] = r[2]; b[1][1] = r[3];
+        } else if (TRANS) {
+            ldsm_x2(b[0][0], b[0][1], bp + j * tstep);
+        } else {
+#pragma unroll
+            for (int q = 0; q < n; ++q) {
+                b[q][0] = bw[(j + q) * tstep];
+                b[q][1] = bw[(j + q) * tstep + kstep];
+            }
+        }
+#pragma unroll
+        for (int q = 0; q < n; ++q) {
+            split_tf32(b[q], bh[q], bl[q]);
+#pragma unroll
+            for (int mi = 0; mi < M; ++mi) mma_3xtf32(acc[mi][j + q], ah[mi], al[mi], bh[q], bl[q]);
+        }
+    }
+}
+
+// The same for nt tiles known only at run time.
+template <bool TRANS, int M, int N>
+__device__ __forceinline__ void k8(float (&acc)[M][N][4], int nt, const uint32_t (&ah)[M][4],
+                                   const uint32_t (&al)[M][4], const float* bp, int tstep,
+                                   int kstep) {
+    switch (nt) {
+        case 8: if constexpr (N >= 8) k8_exact<8, TRANS>(acc, ah, al, bp, tstep, kstep); break;
+        case 7: if constexpr (N >= 7) k8_exact<7, TRANS>(acc, ah, al, bp, tstep, kstep); break;
+        case 6: if constexpr (N >= 6) k8_exact<6, TRANS>(acc, ah, al, bp, tstep, kstep); break;
+        case 5: if constexpr (N >= 5) k8_exact<5, TRANS>(acc, ah, al, bp, tstep, kstep); break;
+        case 4: if constexpr (N >= 4) k8_exact<4, TRANS>(acc, ah, al, bp, tstep, kstep); break;
+        case 3: if constexpr (N >= 3) k8_exact<3, TRANS>(acc, ah, al, bp, tstep, kstep); break;
+        case 2: if constexpr (N >= 2) k8_exact<2, TRANS>(acc, ah, al, bp, tstep, kstep); break;
+        case 1: k8_exact<1, TRANS>(acc, ah, al, bp, tstep, kstep); break;
+        default: break;
+    }
+}
+
 // acc += A [TM, red] (shared, ld lda) @ B, B the plan's next segment, over
 // its first min(seg_out, ncols) columns, of which this warp holds tiles(.) <=
-// N tiles.
-template <class T, int STAGES, int KSL, bool LAPS, int M, int N>
+// N tiles. KORDER (K2's forward recompute, forward segments only): the
+// float build sums in order of k on the CUDA cores (ffma_slab).
+template <bool KORDER = false, class T, int STAGES, int KSL, bool LAPS, int M, int N>
 __device__ __forceinline__ void run_seg(Ring<T, STAGES, KSL, LAPS>& R, float (&acc)[M][N][4],
                                         const T* A, int lda, int ncols = MAXW) {
     const Seg s = R.next_seg();
     const int red = seg_red(s), nt = tiles(min(seg_out(s), ncols));
-    const int ldt = KSL + SPAD<T>, ldn = s.ldw + SPAD<T>;
+    const int ldt = KSL + SPAD<T>, ldn = s.ldw + NPAD;
     if constexpr (sizeof(T) == 2) {
         const int lane = threadIdx.x % 32, c0 = warp_n() * 8;
         const bf16* arow = A + (row0(M) + (lane & 15)) * lda + (lane >> 4) * 8;
@@ -371,12 +486,32 @@ __device__ __forceinline__ void run_seg(Ring<T, STAGES, KSL, LAPS>& R, float (&a
                 else k16<false>(acc, nt, a, st + kk * ldn, 8 * WN);
             }
         }
-    } else {
+    } else if constexpr (KORDER) {
         for (int k0 = 0; k0 < red; k0 += KSL) {
             const float* st = R.acquire();
+            ffma_slab(acc, nt, A, lda, k0, min(KSL, red - k0), st, ldn);
+        }
+    } else {
+        // the same lanes and steps in 32-bit words: 8-deep k steps, A and
+        // trans B by ldmatrix (4 words a row), forward B as scalar words
+        const int lane = threadIdx.x % 32, c0 = warp_n() * 8;
+        const float* arow = A + (row0(M) + (lane & 15)) * lda + (lane >> 4) * 4;
+        const int boff = s.trans
+            ? (c0 + (lane & 7) + ((lane >> 4) & 1) * 8 * WN) * ldt + ((lane >> 3) & 1) * 4
+            : (lane % 4) * ldn + c0 + lane / 4;
+        for (int k0 = 0; k0 < red; k0 += KSL) {
+            const float* st = R.acquire() + boff;
             const int ks = min(KSL, red - k0);
-            if (s.trans) ffma_slab<true>(acc, nt, A, lda, k0, ks, st, ldt);
-            else ffma_slab<false>(acc, nt, A, lda, k0, ks, st, ldn);
+            for (int kk = 0; kk < ks; kk += 8) {
+                uint32_t a[M][4], ah[M][4], al[M][4];
+#pragma unroll
+                for (int mi = 0; mi < M; ++mi) {
+                    ldsm_x4(a[mi], arow + mi * 16 * lda + k0 + kk);
+                    split_tf32(a[mi], ah[mi], al[mi]);
+                }
+                if (s.trans) k8<true>(acc, nt, ah, al, st + kk, 8 * WN * ldt, 0);
+                else k8<false>(acc, nt, ah, al, st + kk * ldn, 8 * WN, 4 * ldn);
+            }
         }
     }
 }

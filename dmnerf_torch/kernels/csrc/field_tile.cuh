@@ -3,7 +3,7 @@
 // they run the very same function: the weight plan of a tile, the
 // shared-memory buffers it works in, and forward_tile. Each is a template of
 // the element type T: bf16 (128-point tiles on the tensor cores) or float
-// (64-point tiles on the CUDA cores, the f32 builds).
+// (64-point tiles in three TF32 passes, the f32 builds).
 //
 // - Heads: H_ALL runs the whole field (K1, K2, K3); H_INS the trunk, the
 //   density rows and the instance branch alone (K5: no view encoding, no rgb
@@ -161,7 +161,8 @@ struct Save {
 // H_SIGMA (column 3 the density, the others nothing the caller reads). With
 // SAVE (K2) every activation goes to the scratch rows and every ReLU mask to
 // save.masks (slot i for trunk layer i; slot D word 0 rgb_h and word 1
-// ins_h).
+// ins_h), and the float build's products sum in order of k (run_seg's
+// KORDER), so that the masks are the plain fp32 path's.
 template <Heads HEADS, bool OUT, bool SAVE, class T, int M, int NO, class RingT>
 __device__ __forceinline__ void forward_tile(RingT& R, const Bufs<T>& B,
                                              float (&acc)[M][core::NT][4],
@@ -189,14 +190,14 @@ __device__ __forceinline__ void forward_tile(RingT& R, const Bufs<T>& B,
     // trunk: layer 0 reads the encoding, layer skip+1 reads [h, x]; every
     // layer writes over its input in H
     core::zero(acc);
-    core::run_seg(R, acc, Bf, ldb);
+    core::run_seg<SAVE>(R, acc, Bf, ldb);
     core::sync_write();
     core::store_act(acc, W, b + m.boff_t, true, H, ldh, SAVE ? save.slot(0) : nullptr);
     if (SAVE) save.put(H, ldh, W, L->a_hs[0]);
     for (int i = 1; i < m.D; ++i) {
         core::zero(acc);
-        core::run_seg(R, acc, H, ldh);
-        if (i == m.skip + 1) core::run_seg(R, acc, Bf, ldb);
+        core::run_seg<SAVE>(R, acc, H, ldh);
+        if (i == m.skip + 1) core::run_seg<SAVE>(R, acc, Bf, ldb);
         core::sync_write();
         core::store_act(acc, W, b + m.boff_t + i * W, true, H, ldh,
                         SAVE ? save.slot(i) : nullptr);
@@ -213,13 +214,13 @@ __device__ __forceinline__ void forward_tile(RingT& R, const Bufs<T>& B,
         }
         // rgb_f = h @ Wrgbf + b (no activation) -> Bf[:, 0:W]
         core::zero(acc);
-        core::run_seg(R, acc, H, ldh);
+        core::run_seg<SAVE>(R, acc, H, ldh);
         core::sync_write();
         core::store_act(acc, W, b + m.boff_rgbf, false, Bf, ldb, nullptr);
         if (SAVE) save.put(Bf, ldb, W + DP, L->a_rgbf);            // [rgb_f | enc_d]
         // rgb_h = relu([rgb_f, enc_d] @ Wrh + b) -> Bf[:, 0:W/2]
         core::zero(acc);
-        core::run_seg(R, acc, Bf, ldb);
+        core::run_seg<SAVE>(R, acc, Bf, ldb);
         core::sync_write();
         core::store_act(acc, HW, b + m.boff_rh, true, Bf, ldb, SAVE ? save.slot(m.D) : nullptr);
         if (SAVE) save.put(Bf, ldb, HW, L->a_hh);
@@ -227,18 +228,18 @@ __device__ __forceinline__ void forward_tile(RingT& R, const Bufs<T>& B,
     float sig[M][1][4];
     if (OUT) {   // the density rows of the output layer, while h is in H
         core::zero(sig);
-        core::run_seg(R, sig, H, ldh, 8);
+        core::run_seg<SAVE>(R, sig, H, ldh, 8);
     }
     if (HEADS != H_SIGMA) {
         // ins_f = h @ Winsf + b -> H
         core::zero(acc);
-        core::run_seg(R, acc, H, ldh);
+        core::run_seg<SAVE>(R, acc, H, ldh);
         core::sync_write();
         core::store_act(acc, W, b + m.boff_insf, false, H, ldh, nullptr);
         if (SAVE) save.put(H, ldh, W, L->a_insf);
         // ins_h = relu(ins_f @ Wih + b) -> H[:, 0:W/2]
         core::zero(acc);
-        core::run_seg(R, acc, H, ldh);
+        core::run_seg<SAVE>(R, acc, H, ldh);
         core::sync_write();
         core::store_act(acc, HW, b + m.boff_ih, true, H, ldh,
                         SAVE ? save.slot(m.D) + THREADS : nullptr);
@@ -253,8 +254,8 @@ __device__ __forceinline__ void forward_tile(RingT& R, const Bufs<T>& B,
 #pragma unroll
                 for (int j = 1; j < NO; ++j) acc_out[mi][j][c] = 0.0f;
             }
-        if (HEADS == H_ALL) core::run_seg(R, acc_out, Bf, ldb);
-        if (HEADS != H_SIGMA) core::run_seg(R, acc_out, H, ldh);
+        if (HEADS == H_ALL) core::run_seg<SAVE>(R, acc_out, Bf, ldb);
+        if (HEADS != H_SIGMA) core::run_seg<SAVE>(R, acc_out, H, ldh);
     }
 }
 

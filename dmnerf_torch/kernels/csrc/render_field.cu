@@ -44,8 +44,9 @@
 //   so K3 and K5 take K <= 123 at any width.
 // - The f32 builds (render_field_{sigma,all,ins}_f32; the JAX kernel with
 //   compute_dtype float32) run the same kernel on the core's float build:
-//   64-point tiles, fp32 FFMA on the CUDA cores, fp32 activations, slabs
-//   half as deep.
+//   64-point tiles, products in three TF32 passes on the tensor cores with
+//   fp32 accumulation (field_core.cuh), fp32 activations, slabs half as
+//   deep.
 // - Positional encoding is computed in the kernels from the fp32 points, in
 //   the reference channel order, with precise sinf/cosf (arguments reach
 //   x*2^9, so fast-math intrinsics would be wrong); the packer needs no
