@@ -42,10 +42,10 @@ Phases (each fails the run by raising; nothing is caught):
    at [589,824 x 256] @ [256 x 256] bf16, as a reference for this width (the
    port never calls it). 6b: K1 and K2 timed through builds of their core
    with the weight slab loads, the per-slab barrier, or both taken out, and
-   on a 4 x 4 warp grid (built in parallel since phase 2; timing only, the
-   first three are wrong by design). 6c: K4 on phase 3's rays through builds
-   at 1, 4 and 8 rays per block beside the real build's choice (2), its
-   weights equal at each (timing only).
+   on a 4 x 4 warp grid (built in parallel since phase 2, with phase 6c's
+   and phase 12's; timing only, the first three are wrong by design). 6c:
+   K4 on phase 3's rays through builds at 1, 4 and 8 rays per block beside
+   the real build's choice (2), its weights equal at each (timing only).
 7. the training slice through its entry point: dmnerf_torch.cli.train on
    boxroom128x8 at flagship width (N_train 3072, 64+128 samples, penalizer,
    bf16) for 30 steps with one in-train eval; every printed loss finite, K1
@@ -88,8 +88,15 @@ Phases (each fails the run by raising; nothing is caught):
    build, and their median times at both shapes, each also through the
    ABLATIONS build with one TF32 pass in place of three (timing only); the
    f32 train step at bench.py's train workload on the kernels against
-   --pallas_train False, in turns in this process; then through the entry
-   points: dmnerf_torch.cli.train for
+   --pallas_train False, in turns in this process; K3 and K5 f32 at 4096 x
+   192 through the F32_SPLIT builds (one TF32 pass, the weight slab loads,
+   the layer barriers or the composite taken out; timing only) between
+   timings of the real build; one f32 render view and one f32 edit view
+   (bench.py's render workload at 128x128; one rigid object) on the kernels
+   against use_pallas False, in turns, the kernels' view held to the plain
+   one (VIEW_OFF), every f32 composite launch held to its plain version on
+   its inputs (composites_held); then through the entry points, with the
+   same holding: dmnerf_torch.cli.train for
    3 steps, dmnerf_torch.cli.test --render of its .tar and a
    manipulator_eval, each launching only f32 builds, as many as the bf16
    runs launch bf16 ones; and dmnerf_torch.cli.test --mesh of phase 7b's
@@ -303,6 +310,52 @@ GRAD_TOL = 3e-2
 # last-sample |sigma| < F32_STEP sit on the last-sample step and are exempt.
 F32_TOL = 1e-4
 F32_STEP = 1e-3
+# phase 12's f32 views, kernels against the plain path. Every launch of an
+# f32 composite is held to its plain version on its own inputs
+# (composites_held); the views themselves differ where a ray's importance
+# samples cross a bin of the coarse CDF (a step in the coarse weights) or an
+# edit's decision sits on a tie: on an NVIDIA H100 (700 W) 212 of the 16,384
+# pixels of the bench render view missed F32_TOL, by at most 1.0e-2, and 2
+# changed their label. Held: at most VIEW_OFF of the pixels off F32_TOL or
+# relabelled, and the median error within F32_TOL / 10.
+VIEW_OFF = 0.05
+F32_COMPOSITES = {"render_field_sigma": ("weights",),
+                  "render_field_all": ("rgb", "depth", "ins_logits"),
+                  "render_field_ins": ("ins_logits",)}
+
+
+@contextlib.contextmanager
+def composites_held(worst):
+    """Inside the block every launch of an f32 composite (K4, K3, K5 f32) is
+    held to its plain version on the same inputs (held_f32, quietly: rays on
+    the last-sample step exempt); worst collects each kernel's largest error
+    over max(1, max |plain|)."""
+    from dmnerf_torch.kernels import render_field as krf
+    real = {name: getattr(krf, name) for name in F32_COMPOSITES}
+
+    def held(name):
+        def call(params, pts, *rest):
+            got = real[name](params, pts, *rest)
+            field = krf._as_field(params)
+            if pts.is_cuda and field.cfg.compute_dtype == torch.float32:
+                with torch.no_grad():
+                    want = getattr(krf, f"{name}_ref")(field, pts, *rest)
+                    sig = field.density(pts[:, -1])[..., 0]
+                outs, wants = ((got, want) if isinstance(got, tuple) else ((got,), (want,)))
+                for out, a, b in zip(F32_COMPOSITES[name], outs, wants):
+                    err = held_f32(f"{name}_f32 {out}", a, b, sig, quiet=True)
+                    worst[name] = max(worst.get(name, 0.0),
+                                      err / max(1.0, float(b.abs().max())))
+            return got
+        return call
+
+    for name in F32_COMPOSITES:
+        setattr(krf, name, held(name))
+    try:
+        yield worst
+    finally:
+        for name, fn in real.items():
+            setattr(krf, name, fn)
 # Published dense peaks of an H100 SXM at 700 W (NVIDIA's data sheet): the
 # least time a kernel could take is the larger of its operations over the
 # rate of their type and its bytes (each input read once, each output
@@ -478,56 +531,132 @@ def wide_render_kernels(dev, card, ro, rd, vd, z):
 
 
 # Timing-only builds, each the real sources with one patch: {name: (the
-# library, the file patched, [(old, new)])}. The K1/K2 core with one part
-# taken out (their outputs are wrong by design and are not checked), and with
-# the 4 x 4 warp grid in place of 2 x 8: where the kernels' time goes, and
-# what the grid gives.
-_SLAB_LOADS = ("            if (!s.trans) {            // rows r0+k0 .. +ks, every column",
+# library, [alternative, ...])}, an alternative a list of (file, old, new)
+# patches; the first alternative whose old texts are all in the sources
+# applies. The K1/K2 core with one part taken out (their outputs are wrong by
+# design and are not checked), and with the 4 x 4 warp grid in place of 2 x 8:
+# where the kernels' time goes, and what the grid gives.
+_SLAB_LOADS = ("field_core.cuh",
+               "            if (!s.trans) {            // rows r0+k0 .. +ks, every column",
                "            if (t > STAGES) {} else if (!s.trans) {            // rows r0+k0 .. +ks, every column")
-_SLAB_BARRIER = ("        cp_async_wait<STAGES - 2>();\n        __syncthreads();",
+_SLAB_BARRIER = ("field_core.cuh", "        cp_async_wait<STAGES - 2>();\n        __syncthreads();",
                  "        cp_async_wait<STAGES - 2>();")
+_ONE_PASS = ("field_core.cuh", "    mma1688(t, al, bh);\n    mma1688(t, ah, bl);\n", "")
 # The f32 builds' products in one TF32 pass (hi_a hi_b) in place of three:
 # whether the tensor pipe or the operand loads and splits bound them.
 F32_ONE_PASS = "f32: one TF32 pass"
 ABLATIONS = {
-    F32_ONE_PASS: ("field", "field_core.cuh", [(
-        "    mma1688(t, al, bh);\n    mma1688(t, ah, bl);\n", "")]),
-    "weight slab loads out": ("field", "field_core.cuh", [_SLAB_LOADS]),
-    "per-slab barrier out": ("field", "field_core.cuh", [_SLAB_BARRIER]),
-    "loads and barrier out": ("field", "field_core.cuh", [_SLAB_LOADS, _SLAB_BARRIER]),
-    "4 x 4 warp grid": ("field", "field_core.cuh",
-                        [("constexpr int WM = 2, WN = 8;", "constexpr int WM = 4, WN = 4;")]),
+    F32_ONE_PASS: ("field", [[_ONE_PASS]]),
+    "weight slab loads out": ("field", [[_SLAB_LOADS]]),
+    "per-slab barrier out": ("field", [[_SLAB_BARRIER]]),
+    "loads and barrier out": ("field", [[_SLAB_LOADS, _SLAB_BARRIER]]),
+    "4 x 4 warp grid": ("field", [[("field_core.cuh", "constexpr int WM = 2, WN = 8;",
+                                    "constexpr int WM = 4, WN = 4;")]]),
 }
 # K4 at a fixed count of rays per block in place of group_rays' choice (2 at
 # S = 64): the sweep behind that rule (its weights must equal the real build's)
-for _G in (1, 4, 8):
-    ABLATIONS[f"K4 with G={_G} rays per block"] = ("render_field", "render_field.cu", [(
-        "const int G = group_rays(", f"const int G = HEADS == H_SIGMA ? {_G} : group_rays(")])
+K4_SWEEP = [f"K4 with G={g} rays per block" for g in (1, 4, 8)]
+for _G, _name in zip((1, 4, 8), K4_SWEEP):
+    ABLATIONS[_name] = ("render_field", [[(
+        "render_field.cu", "const int G = group_rays(",
+        f"const int G = HEADS == H_SIGMA ? {_G} : group_rays(")]])
+# Where the f32 composites' time goes (K3 and K5 f32 at 4096 x 192; timing
+# only, the outputs are wrong by design): render_field.cu built with one part
+# taken out. The first alternative is the f32 composite of these sources
+# (composite_f32.cuh: a producer warp, an mbarrier ring, wgmma; "barriers
+# out" takes out the named barriers between layers: its slab waits cannot
+# go, since a bulk copy may not be expected on a stage before the last one
+# landed), the second the design before it (composite_kernel<float> on
+# field_core.cuh's mma.sync ring; "barriers out" takes out the per-slab
+# block barrier), so that `--ab` splits an older tree's build too.
+_F32C = "composite_f32.cuh"
+F32_SPLIT = {
+    "f32 split: one TF32 pass": [
+        [(_F32C, "            wgmma_n<NT>(p, al, bh, 0);\n            wgmma_n<NT>(p, ah, bl, 1);\n"
+                 "            wgmma_n<NT>(p, ah, bh, 1);",
+          "            wgmma_n<NT>(p, ah, bh, 0);")],
+        [_ONE_PASS]],
+    "f32 split: weight slab loads out": [
+        [(_F32C, "                mbar_expect_tx(full, bytes);\n                bulk_copy(",
+          "                mbar_arrive(full);\n                if (false) bulk_copy(")],
+        [_SLAB_LOADS]],
+    "f32 split: barriers out": [
+        [(_F32C, 'asm volatile("bar.sync 1, %0;\\n" ::"n"(CONSUMERS) : "memory");',
+          'asm volatile("" ::: "memory");')],
+        [_SLAB_BARRIER]],
+    "f32 split: composite out": [
+        [(_F32C, "        if (HEADS == H_SIGMA) for_pairs(sig, 8, 8, put);\n"
+                 "        else for_pairs(acc, m.CP, m.CP, put);",
+          "        if (keep_alive(acc, R) || keep_alive(sig, R)) for_pairs(acc, m.CP, m.CP, put);"),
+         (_F32C, "        if (tid < nv)\n            alpha[tid]",
+          "        if (false)\n            alpha[tid]"),
+         (_F32C, "        if (mine && i0 < i1) {", "        if (false) {"),
+         (_F32C, "template <Heads HEADS>\n__global__",
+          "template <int M>\n__device__ bool keep_alive(float (&a)[M], int R) {\n"
+          "    float s = 0.0f;\n#pragma unroll\n    for (int i = 0; i < M; ++i) s += a[i];\n"
+          "    return __float_as_int(s) == -R;\n}\n\ntemplate <Heads HEADS>\n__global__")],
+        [("render_field.cu",
+          "        __syncthreads();                 // every warp has read ins_h in H\n"
+          "        core::for_pairs(",
+          "        __syncthreads();                 // every warp has read ins_h in H\n"
+          "        if (keep_alive(acc_out, R)) core::for_pairs("),
+         ("render_field.cu", "        if (tid < nv)\n            alpha[tid]",
+          "        if (false)\n            alpha[tid]"),
+         ("render_field.cu", "        if (mine && i0 < i1) {", "        if (false) {"),
+         ("render_field.cu", "template <class T, Heads HEADS>\n__global__",
+          "template <int M, int N>\n__device__ bool keep_alive(float (&a)[M][N][4], int R) {\n"
+          "    float s = 0.0f;\n#pragma unroll\n    for (int i = 0; i < M; ++i)\n#pragma unroll\n"
+          "        for (int j = 0; j < N; ++j)\n"
+          "            s += a[i][j][0] + a[i][j][1] + a[i][j][2] + a[i][j][3];\n"
+          "    return __float_as_int(s) == -R;\n}\n\n"
+          "template <class T, Heads HEADS>\n__global__")]],
+}
+ABLATIONS.update({name: ("render_field", alts) for name, alts in F32_SPLIT.items()})
 CHILDREN = []                           # the processes this script starts
 
 
-def start_ablation_builds():
-    """One nvcc per ABLATIONS entry, started now (they build while the real
-    kernels are checked): {name: (library name, library path, process)}."""
+def patched_build(name, src, out, lib, alternatives):
+    """Copy the csrc directory src to out, apply the first of alternatives
+    whose old texts are all found there, and start nvcc on out/<lib>.cu:
+    (library path, process)."""
     import shutil
     from dmnerf_torch.kernels import build
-    root = os.path.join(REPO, "build", "ablation")
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(src, out)
+    texts = {}
+    for patches in alternatives:
+        texts = {f: open(os.path.join(out, f)).read() for f, _, _ in patches
+                 if os.path.exists(os.path.join(out, f))}
+        if all(f in texts and old in texts[f] for f, old, _ in patches):
+            for f, old, new in patches:
+                texts[f] = texts[f].replace(old, new)
+            break
+    else:
+        raise AssertionError(f"ablation {name!r}: no alternative's texts are all in {src}")
+    for f, text in texts.items():
+        open(os.path.join(out, f), "w").write(text)
+    so = os.path.join(out, f"lib{lib}.so")
+    proc = subprocess.Popen(
+        [build._nvcc(), *build.NVCC_FLAGS, "-o", so, os.path.join(out, f"{lib}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    CHILDREN.append(proc)
+    return so, proc
+
+
+def start_ablation_builds(names=None, src=None, root=None):
+    """One nvcc per ABLATIONS entry (of those in names, if given) on the
+    sources in src (this tree's csrc by default), started now (they build
+    while the real kernels are checked): {name: (library name, library path,
+    process)}."""
+    import shutil
+    from dmnerf_torch.kernels import build
+    root = root or os.path.join(REPO, "build", "ablation")
     shutil.rmtree(root, ignore_errors=True)
     out = {}
-    for i, (name, (lib, fname, patches)) in enumerate(ABLATIONS.items()):
-        d = os.path.join(root, str(i))
-        shutil.copytree(build.CSRC, d)
-        text = open(os.path.join(d, fname)).read()
-        for old, new in patches:
-            if old not in text:
-                raise AssertionError(f"ablation {name!r}: {fname} has no {old!r}")
-            text = text.replace(old, new)
-        open(os.path.join(d, fname), "w").write(text)
-        so = os.path.join(d, f"lib{lib}.so")
-        out[name] = (lib, so, subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-o", so, os.path.join(d, f"{lib}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        CHILDREN.append(out[name][2])
+    for i, (name, (lib, alternatives)) in enumerate(ABLATIONS.items()):
+        if names is None or name in names:
+            out[name] = (lib, *patched_build(name, src or build.CSRC, os.path.join(root, str(i)),
+                                             lib, alternatives))
     return out
 
 
@@ -549,6 +678,45 @@ def ablation_libs(builds, lib, names=None):
     return out
 
 
+def f32_split(libs, card, label="this tree", legacy=False):
+    """K3 and K5 f32 at 4096 rays x 192 (the flagship field, K=32) through
+    each render_field library of libs ({name: library}, "real build" first),
+    in turns: each in order, then in reverse (the better of each pair), CUDA
+    event medians of 5. Timing only: the split builds' outputs are wrong by
+    design. legacy: the libraries read the layout before composite_f32.cuh
+    (for_layout). Returns {name: {"K3": ms, "K5": ms}}."""
+    from dmnerf_torch.kernels import build
+    from dmnerf_torch.kernels import render_field as krf
+    from dmnerf_torch.models.fields import FieldConfig, init_field_params
+
+    cfg = FieldConfig(**FLAGSHIP, ins_num=32, compute_dtype=torch.float32)
+    pk = for_layout(krf.pack_field(init_field_params(torch.Generator().manual_seed(15), cfg,
+                                                     device="cuda")), legacy)
+    g = torch.Generator().manual_seed(15)
+    rd = torch.nn.functional.normalize(torch.randn(4096, 3, generator=g), dim=-1).cuda()
+    z = (torch.sort(torch.rand(4096, 192, generator=g), -1)[0] * 11 + 1).cuda()
+    pts = (torch.randn(4096, 1, 3, generator=g).cuda() * 0.3 + rd[:, None] * z[..., None])
+    vd = rd[:, None].contiguous()
+    fns = {"K3": lambda: krf.render_field_all(pk, pts, vd, z, rd),
+           "K5": lambda: krf.render_field_ins(pk, pts, z, rd)}
+    real, times = build.load_render_field, {}
+    try:
+        with torch.no_grad():
+            for name in [*libs, *reversed(libs)]:
+                build.load_render_field = lambda lib=libs[name]: lib
+                for k, fn in fns.items():
+                    ms = cuda_ms(fn, 5, 1)
+                    times.setdefault(name, {})[k] = min(ms, times.get(name, {}).get(k, ms))
+                    print(f"  f32 split of {label}, {name}, {k}: {ms:.3f} ms", flush=True)
+    finally:
+        build.load_render_field = real
+    base = times[next(iter(libs))]
+    for name, t in times.items():
+        print(f"  f32 split of {label}, {name}: K3 {t['K3']:.3f} ms ({t['K3'] / base['K3']:.3f}x), "
+              f"K5 {t['K5']:.3f} ms ({t['K5'] / base['K5']:.3f}x) (4096 x 192; {card})")
+    return times
+
+
 def k4_rays_sweep(builds, packed, pts, z, rd, want, card):
     """Phase 6c: K4 on phase 3's coarse rays at group_rays' choice (the real
     build) and through the ABLATIONS builds at a fixed count of rays per
@@ -559,7 +727,7 @@ def k4_rays_sweep(builds, packed, pts, z, rd, want, card):
 
     phase("6c K4 by rays per block (timing only)")
     libs = {"real build (group_rays)": build.load_render_field(),
-            **ablation_libs(builds, "render_field")}
+            **ablation_libs(builds, "render_field", K4_SWEEP)}
     real, times = build.load_render_field, {}
     try:
         with torch.no_grad():
@@ -1275,19 +1443,21 @@ def ins_kernel_vs_plain(fine, packed, pts, vd, z, rd, card):
                     render_bytes("render_field_ins", R, S, packed, fine.cfg.ins_num))
 
 
-def held_f32(name, got, want, sigma_last=None):
+def held_f32(name, got, want, sigma_last=None, quiet=False):
     """The max abs error of an f32 build's output per ray (per point for raw)
     over the rays off the last-sample step, held to F32_TOL of max(1, max
-    |want|); at most MAX_STEP_RAYS rays may be exempt."""
+    |want|); at most MAX_STEP_RAYS rays may be exempt. Printed unless
+    quiet."""
     if got.shape != want.shape or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{name}: shape {tuple(got.shape)} or non-finite")
     err = (got - want).abs().reshape(got.shape[0], -1).amax(1)
     step = (sigma_last.abs() < F32_STEP if sigma_last is not None
             else torch.zeros_like(err, dtype=torch.bool))
     worst, scale = float(err[~step].max()), max(1.0, float(want.abs().max()))
-    print(f"{name} {tuple(got.shape)}: max abs err {worst:.3e}, {worst / scale:.3e} of "
-          f"max(1, max |want|) (tolerance {F32_TOL:.0e}); {int(step.sum())} rays exempt at the "
-          f"last-sample step (raw max {float(err.max()):.3e})")
+    if not quiet:
+        print(f"{name} {tuple(got.shape)}: max abs err {worst:.3e}, {worst / scale:.3e} of "
+              f"max(1, max |want|) (tolerance {F32_TOL:.0e}); {int(step.sum())} rays exempt at "
+              f"the last-sample step (raw max {float(err.max()):.3e})")
     if worst > F32_TOL * scale or int(step.sum()) > MAX_STEP_RAYS:
         raise AssertionError(f"{name} disagrees with its plain f32 version")
     return worst
@@ -1332,6 +1502,76 @@ def f32_train_step(dev, card):
           f"{' / '.join(f'{t:.2f}' for t in times[False])} ms/step; kernels/plain "
           f"{ms / plain:.3f} ({STEP_RUNS} steps a turn; {card})")
     return {"ms": ms, "plain_ms": plain}
+
+
+def f32_views(dev, card):
+    """Phase 12: one f32 render view (bench.py's render workload: 128x128,
+    N_test 4096, 64+128 samples, the flagship pair at K=32) and one f32 edit
+    view (one rigid object moved, the same field and rays) on the kernels
+    and on the plain path (use_pallas False), in turns plain, kernels,
+    kernels, plain after a warm-up of each (host clock, each view ending in
+    a sync). In the warm-up every f32 composite launch is held to its plain
+    version on its inputs (composites_held); the kernels' view is held to
+    the plain one at VIEW_OFF's bars. Returns {"render": {...}, "edit":
+    {...}} with ms, plain_ms."""
+    from dmnerf_torch.edit import manipulator
+    from dmnerf_torch.eval.renderer import make_image_renderer
+    from dmnerf_torch.models.fields import FieldConfig, init_field_params
+
+    cfg = FieldConfig(**FLAGSHIP, ins_num=32, compute_dtype=torch.float32)
+    gen = torch.Generator().manual_seed(16)
+    params = {k: init_field_params(gen, cfg, device=dev).eval() for k in ("coarse", "fine")}
+    bench = SimpleNamespace(N_test=4096, N_samples=64, N_importance=128, near=1.0, far=12.0)
+    K = np.array([[0.7 * 128, 0, 64], [0, -0.7 * 128, 64], [0, 0, -1.0]], np.float32)
+    pose = look_at_poses(4)[1].astype(np.float64)
+    moved = (translation(0.3) @ pose)[None]
+
+    def as_numpy(out):
+        return [o.detach().cpu().numpy() if torch.is_tensor(o) else np.asarray(o) for o in out]
+
+    fns = {}
+    for kernels in (True, False):
+        render = make_image_renderer(cfg, bench, 128, 128, device=dev, use_pallas=kernels)
+        edit = manipulator.make_pose_image_manipulator(
+            cfg, params, bench, [{"mode": "rigid"}], [1], 128, 128, K, device=dev,
+            use_pallas=kernels)
+        fns["render", kernels] = lambda r=render: as_numpy(r(params, K, pose.astype(np.float32)))
+        fns["edit", kernels] = lambda e=edit: as_numpy(e(pose, moved, np.zeros(1)))
+    out = {}
+    with torch.no_grad():
+        for what in ("render", "edit"):
+            with composites_held({}) as worst:                           # warm-up
+                views = {kernels: fns[what, kernels]() for kernels in (True, False)}
+            times = {True: [], False: []}
+            for kernels in (False, True, True, False):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fns[what, kernels]()
+                torch.cuda.synchronize()
+                times[kernels].append((time.perf_counter() - t0) * 1e3)
+            # render: rgb, label, conf, depth; edit: rgb, label, ..., conf
+            k_out, p_out = views[True], views[False]
+            rgb_err = np.abs(k_out[0] - p_out[0]).reshape(128 * 128, -1).max(1)
+            off = rgb_err > F32_TOL * max(1.0, float(np.abs(p_out[0]).max()))
+            if what == "render":
+                off |= np.abs(k_out[3] - p_out[3]).reshape(-1) > F32_TOL * max(
+                    1.0, float(np.abs(p_out[3]).max()))
+            relabelled = int((k_out[1].reshape(-1) != p_out[1].reshape(-1)).sum())
+            ms, plain = min(times[True]), min(times[False])
+            print(f"f32 {what} view, 128x128 (bench.py's workload"
+                  f"{', 1 rigid object' if what == 'edit' else ''}): kernels "
+                  f"{' / '.join(f'{t:.2f}' for t in times[True])} ms, plain (use_pallas False) "
+                  f"{' / '.join(f'{t:.2f}' for t in times[False])} ms; kernels/plain "
+                  f"{ms / plain:.3f}; every f32 composite launch within F32_TOL of its plain "
+                  f"version ({', '.join(f'{k} {v:.2e}' for k, v in worst.items())} of scale); "
+                  f"the views: rgb max |diff| {float(rgb_err.max()):.3e}, median "
+                  f"{float(np.median(rgb_err)):.3e}, {int(off.sum())} pixels off F32_TOL, "
+                  f"{relabelled} relabelled ({card})")
+            if (max(int(off.sum()), relabelled) > VIEW_OFF * rgb_err.size
+                    or float(np.median(rgb_err)) > F32_TOL / 10):
+                raise AssertionError(f"f32 {what} view: the kernels disagree with the plain path")
+            out[what] = {"ms": ms, "plain_ms": plain}
+    return out
 
 
 def f32_builds(dev, card, ro, rd, vd, z_c, z_f, mesh_cfg, ablation_builds):
@@ -1464,15 +1704,27 @@ def f32_builds(dev, card, ro, rd, vd, z_c, z_f, mesh_cfg, ablation_builds):
     entries += [k1, k2]
     del cases
     entries[-1]["train_step"] = f32_train_step(dev, card)
+    # where K3 and K5 f32's time goes (the F32_SPLIT builds), then a render
+    # and an edit view on the kernels against the plain path
+    f32_split({"real build": build.load_render_field(),
+               **ablation_libs(ablation_builds, "render_field", list(F32_SPLIT))}, card)
+    views = f32_views(dev, card)
+    for entry in entries[:3]:
+        entry["view"] = views
 
     def counted(what, fn, want):
+        """fn() with its f32 composite launches held to their plain versions
+        (composites_held; the held runs' seconds include the plain path's)."""
         kf.reset_launches()
         krf.reset_launches()
         t0 = time.perf_counter()
-        out = fn()
+        with composites_held({}) as worst:
+            out = fn()
         torch.cuda.synchronize()
         got = {k: v for k, v in {**kf.LAUNCHES, **krf.LAUNCHES}.items() if v}
-        print(f"{what} in f32: {time.perf_counter() - t0:.1f} s; launches {got}")
+        print(f"{what} in f32: {time.perf_counter() - t0:.1f} s; launches {got}"
+              + "".join(f"; {k}_f32 within {v:.2e} of scale of its plain version"
+                        for k, v in worst.items()))
         want = want(out) if callable(want) else want
         if got != want:
             raise AssertionError(f"{what} in f32: launches {got}, expected {want}")
@@ -3143,8 +3395,11 @@ def ab_main(dirs):
     field at K=32, in bf16 and in f32, timed in turns other, this, this,
     other (CUDA events, median of 10; 5 for K2). The bf16 outputs must equal
     this tree's bit for bit; the f32 ones are printed with their largest
-    difference, then each f32 build's accuracy (f32_accuracy). All
-    libraries build at once."""
+    difference, then each f32 build's accuracy (f32_accuracy, and K3/K5's
+    f32_composite_accuracy), then the f32 split (F32_SPLIT) of this tree
+    and of the first DIR. All libraries build at once. AB_ONLY=prefix[,...]
+    in the environment times only the kernels whose "{build} {kernel}"
+    label starts with one of them (e.g. "f32 K3,f32 K5")."""
     from dmnerf_torch.kernels import build
     from dmnerf_torch.kernels import field as kf
     from dmnerf_torch.kernels import render_field as krf
@@ -3158,6 +3413,10 @@ def ab_main(dirs):
     print(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     procs = []
+    # the f32 split (F32_SPLIT) of this tree and of the first other one
+    splits = {t: start_ablation_builds(list(F32_SPLIT), None if t == "this" else t,
+                                       os.path.join(REPO, "build", "ab_split", str(i)))
+              for i, t in enumerate(["this", *dirs[:1]])}
     for i, d in enumerate(dirs):
         out = os.path.join(REPO, "build", "ab", str(i))
         os.makedirs(out, exist_ok=True)
@@ -3186,11 +3445,13 @@ def ab_main(dirs):
     print(f"built {len(procs) + 2} libraries in {time.perf_counter() - t0:.1f} s")
     real = build.load_field, build.load_render_field
 
+    legacy = {t: legacy_layout(t) for t in ["this", *dirs]}
+
     def run(which, fn, reps):
         build.load_field, build.load_render_field = (lambda: libs[which][0]), (lambda: libs[which][1])
         try:
-            out = fn()
-            return (out if isinstance(out, tuple) else (out,)), cuda_ms(fn, reps)
+            out = fn(which)
+            return (out if isinstance(out, tuple) else (out,)), cuda_ms(lambda: fn(which), reps)
         finally:
             build.load_field, build.load_render_field = real
 
@@ -3207,14 +3468,20 @@ def ab_main(dirs):
         cases = list(field_cases("cuda", 32, 2, 3072, (64, 192), dtype))
         for _, _, fp, fvd, pf, dirs_, ppd, gk in cases:
             S = fp.shape[1]
-            fns[f"K1 3072x{S}"] = (10, lambda fp=fp, fvd=fvd: kf.field_forward(pk, fp, fvd))
-            fns[f"K2 3072x{S}"] = (5, lambda pf=pf, d=dirs_, p=ppd, gk=gk: tuple(
+            fns[f"K1 3072x{S}"] = (10, lambda w, fp=fp, fvd=fvd: kf.field_forward(pk, fp, fvd))
+            fns[f"K2 3072x{S}"] = (5, lambda w, pf=pf, d=dirs_, p=ppd, gk=gk: tuple(
                 kf.field_backward(pk, pf, d, p, gk)[:2]))
-        fns["K4 4096x64"] = (10, lambda: krf.render_field_sigma(pk, pc, zc, rd))
-        fns["K3 4096x192"] = (10, lambda: krf.render_field_all(pk, pts, vd, z, rd))
-        fns["K5 4096x192"] = (10, lambda: krf.render_field_ins(pk, pts, z, rd))
+        fns["K4 4096x64"] = (10, lambda w: krf.render_field_sigma(
+            for_layout(pk, legacy[w]), pc, zc, rd))
+        fns["K3 4096x192"] = (10, lambda w: krf.render_field_all(
+            for_layout(pk, legacy[w]), pts, vd, z, rd))
+        fns["K5 4096x192"] = (10, lambda w: krf.render_field_ins(
+            for_layout(pk, legacy[w]), pts, z, rd))
+        only = tuple(os.environ.get("AB_ONLY", "").split(","))
         with torch.no_grad():
             for name, (reps, fn) in fns.items():
+                if not f"{prec} {name}".startswith(only):
+                    continue
                 for d in dirs:
                     (o, o1), (t, t1), (_, t2), (_, o2) = (run(w, fn, reps)
                                                           for w in (d, "this", "this", d))
@@ -3226,7 +3493,27 @@ def ab_main(dirs):
                         raise AssertionError(f"bf16 {name}: this tree's output differs from {d}'s")
     for case in cases:
         f32_accuracy(case, {w: libs[w][0] for w in ["this", *dirs]}, card)
+    f32_composite_accuracy({w: libs[w][1] for w in ["this", *dirs]}, card, legacy)
+    read_rates(card)
+    for t, builds in splits.items():
+        f32_split({"real build": libs[t][1], **ablation_libs(builds, "render_field")}, card, t,
+                  legacy[t])
     return 0
+
+
+def legacy_layout(csrc):
+    """Whether the f32 composites of the csrc directory ("this": this tree's)
+    read the K1/K2 layout (w, meta), as they did before composite_f32.cuh,
+    in place of pack_field's slabs."""
+    from dmnerf_torch.kernels import build
+    return not os.path.exists(os.path.join(build.CSRC if csrc == "this" else csrc,
+                                           "composite_f32.cuh"))
+
+
+def for_layout(packed, legacy):
+    """packed as the f32 composites of a tree read it: legacy (see
+    legacy_layout) hands them w and meta in place of the slabs."""
+    return packed._replace(slabs=packed.w, slab_meta=packed.meta) if legacy else packed
 
 
 # f32_accuracy: a ReLU input within this of zero may take the other side of
@@ -3275,6 +3562,65 @@ def f32_accuracy(case, libs, card):
                   f"{RELU_NEAR:.0e} of zero ({card})")
     finally:
         build.load_field = real
+
+
+def read_rates(card):
+    """The rate at which one torch.sum reads 256 rows that are all the same
+    5.59 MB of fp32 (the f32 composites' hi and lo weights, resident in
+    L2), beside one read of 1,024 MB from device memory: GB/s over
+    CUDA-event medians of 20."""
+    x = torch.ones(1398016, device="cuda")
+    for name, fn, nbytes in (("5.59 MB x 256 (L2)", lambda: x.expand(256, -1).sum(1),
+                              256 * x.numel() * 4),
+                             ("1,024 MB (device memory)", lambda: y.sum(), 1024e6)):
+        y = torch.ones(256 * 10 ** 6, device="cuda") if "device" in name else None
+        ms = cuda_ms(fn, 20, 5)
+        print(f"read rate of torch.sum over {name}: {nbytes / ms / 1e6:.1f} GB/s "
+              f"({ms:.3f} ms; {card})")
+        del y
+
+
+def f32_composite_accuracy(libs, card, legacy=None):
+    """For each render_field library of libs ({name: library}): K3 and K5
+    f32 at f32_split's 4096 x 192 against an f64 run of their plain versions
+    (rms of the error over rms of the f64 output, per output), beside the
+    plain f32 path's. legacy: {name: whether the library reads the layout
+    before composite_f32.cuh} (for_layout)."""
+    from dmnerf_torch.kernels import build
+    from dmnerf_torch.kernels import render_field as krf
+    from dmnerf_torch.models.fields import FieldConfig, init_field_params
+
+    cfg = FieldConfig(**FLAGSHIP, ins_num=32, compute_dtype=torch.float32)
+    field = init_field_params(torch.Generator().manual_seed(15), cfg, device="cuda").eval()
+    pk = krf.pack_field(field)
+    g = torch.Generator().manual_seed(15)
+    rd = torch.nn.functional.normalize(torch.randn(4096, 3, generator=g), dim=-1).cuda()
+    z = (torch.sort(torch.rand(4096, 192, generator=g), -1)[0] * 11 + 1).cuda()
+    pts = (torch.randn(4096, 1, 3, generator=g).cuda() * 0.3 + rd[:, None] * z[..., None])
+    vd = rd[:, None].contiguous()
+    names = ("K3 rgb", "K3 depth", "K3 ins_logits", "K5 ins_logits")
+
+    def run(f, p, v, zz, r):
+        return (*krf.render_field_all_ref(f, p, v, zz, r), krf.render_field_ins_ref(f, p, zz, r))
+
+    with torch.no_grad():
+        want = run(field.double(), pts.double(), vd.double(), z.double(), rd.double())
+        field.float()
+        rms = lambda got: [float((a.double() - b).norm() / b.norm()) for a, b in zip(got, want)]
+        rows = {"plain f32": rms(run(field, pts, vd, z, rd))}
+        real = build.load_render_field
+        try:
+            for name, lib in libs.items():
+                build.load_render_field = lambda lib=lib: lib
+                p = for_layout(pk, (legacy or {}).get(name, False))
+                rows[name] = rms((*krf.render_field_all(p, pts, vd, z, rd),
+                                  krf.render_field_ins(p, pts, z, rd)))
+        finally:
+            build.load_render_field = real
+    for name, errs in rows.items():
+        print(f"f32 composite accuracy, {name}: "
+              + ", ".join(f"{n} {e:.3e}" for n, e in zip(names, errs))
+              + f" rms of an f64 run (4096 x 192; {card})")
 
 
 if __name__ == "__main__":

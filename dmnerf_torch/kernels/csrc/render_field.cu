@@ -17,7 +17,7 @@
 // fit in a block's shared memory, so the Pallas design of keeping every
 // weight on chip does not carry over.
 //
-// K3, K4 and K5 (composite_kernel) run the field on K1's core: field_tile.cuh's
+// The bf16 K3, K4 and K5 (composite_kernel) run the field on K1's core: field_tile.cuh's
 // forward_tile, the very function of field.cu's K1, on 128-point tiles with
 // the weights staged through a ring of shared-memory slabs (field_core.cuh).
 // - One block takes G consecutive rays, whose G*S points are contiguous in
@@ -43,10 +43,10 @@
 // - The output layer's register tile holds up to 128 columns (field_tile.cuh),
 //   so K3 and K5 take K <= 123 at any width.
 // - The f32 builds (render_field_{sigma,all,ins}_f32; the JAX kernel with
-//   compute_dtype float32) run the same kernel on the core's float build:
-//   64-point tiles, products in three TF32 passes on the tensor cores with
-//   fp32 accumulation (field_core.cuh), fp32 activations, slabs half as
-//   deep.
+//   compute_dtype float32) are a kernel of their own, composite_f32.cuh:
+//   64-point tiles, a producer warp keeping a ring of bulk-copied weight
+//   slabs, wgmma in three TF32 passes, the same composite; they read
+//   pack_field's slabs, not its bf16-shaped weights.
 // - Positional encoding is computed in the kernels from the fp32 points, in
 //   the reference channel order, with precise sinf/cosf (arguments reach
 //   x*2^9, so fast-math intrinsics would be wrong); the packer needs no
@@ -59,21 +59,21 @@
 
 #include <cstring>
 
-#include "field_tile.cuh"
+#include "composite_f32.cuh"
 
 using core::Ring;
 
 namespace {
 
 constexpr int STAGES = 2;               // the weight ring: K1's
-template <class T> constexpr int KS = sizeof(T) == 2 ? 64 : 32;
+constexpr int KS = 64;                  // and its slab depth
 constexpr int MAXG = 8;                 // rays per block at most
 
-// Rays per block: of 1 .. min(MAXG, R, THREADS / ch), the count whose G*S
+// Rays per block: of 1 .. min(MAXG, R, threads / ch), the count whose G*S
 // points leave the smallest share of padded rows in their last tm-point tile
-// (the fewest rays on a tie). ch: threads per ray of the scan.
-int group_rays(int R, int S, int ch, int tm) {
-    const int gmax = std::max(1, std::min({MAXG, R, THREADS / ch}));
+// (the fewest rays on a tie). ch: threads per ray of the scan, of threads.
+int group_rays(int R, int S, int ch, int tm, int threads = THREADS) {
+    const int gmax = std::max(1, std::min({MAXG, R, threads / ch}));
     int best = 1;
     double best_pad = 1.0;
     for (int g = 1; g <= gmax; ++g) {
@@ -87,31 +87,29 @@ int group_rays(int R, int S, int ch, int tm) {
 // a tile's fp32 raw [TM, CP + 4] (4 columns of padding against bank
 // conflicts), staged over H and Bf
 __host__ __device__ inline int stage_ld(const Meta& m) { return m.CP + 4; }
-template <class T>
 __host__ __device__ inline size_t stage_bytes(const Meta& m) {
-    return (size_t)core::TM<T> * stage_ld(m) * sizeof(float);
+    return (size_t)core::TM<bf16> * stage_ld(m) * sizeof(float);
 }
 
 // composite state after the ring: alpha [TM], then T and the sum [2, THREADS]
-template <class T>
 size_t composite_smem(const Meta& m, const Plan& p) {
-    return tile_smem<T>(m, p, STAGES, false, stage_bytes<T>(m))
-        + (size_t)(core::TM<T> + 2 * THREADS) * sizeof(float);
+    return tile_smem<bf16>(m, p, STAGES, false, stage_bytes(m))
+        + (size_t)(core::TM<bf16> + 2 * THREADS) * sizeof(float);
 }
 
 // G rays per block, their points in TM-point tiles through forward_tile.
 // H_ALL: rgb [R,3], depth [R], instance logits [R,K+1] (K3). H_INS: instance
 // logits [R,K+1] (K5). H_SIGMA: compositing weights [R,S] in out_ins (K4).
-template <class T, Heads HEADS>
+template <Heads HEADS>
 __global__ void __launch_bounds__(THREADS, 1)
 composite_kernel(const float* __restrict__ pts, const float* __restrict__ vdirs,
                  const float* __restrict__ zv, const float* __restrict__ dists, int R, int S,
-                 int G, const T* __restrict__ w, const float* __restrict__ b, const Meta m,
+                 int G, const bf16* __restrict__ w, const float* __restrict__ b, const Meta m,
                  const __grid_constant__ Plan plan, float* __restrict__ out_rgb,
                  float* __restrict__ out_depth, float* __restrict__ out_ins) {
     extern __shared__ __align__(128) unsigned char smem[];
-    constexpr int TM = core::TM<T>;
-    const Bufs<T> B = carve<T>(smem, m, plan, STAGES, false, stage_bytes<T>(m));
+    constexpr int TM = core::TM<bf16>;
+    const Bufs<bf16> B = carve<bf16>(smem, m, plan, STAGES, false, stage_bytes(m));
     float* alpha = reinterpret_cast<float*>(B.tail);
     float* carry = alpha + TM;
     float* stage = reinterpret_cast<float*>(B.H);     // fp32 raw [TM, lds], over H and Bf
@@ -131,15 +129,15 @@ composite_kernel(const float* __restrict__ pts, const float* __restrict__ vdirs,
     carry[tid] = 1.0f;
     carry[THREADS + tid] = 0.0f;
 
-    Ring<T, STAGES, KS<T>, true> Rg;
+    Ring<bf16, STAGES, KS, true> Rg;
     Rg.start(B.ring, &plan, w, tiles);
-    core::Acc<T> acc;
-    core::AccT<T, HEADS == H_SIGMA ? 1 : core::NTO> acc_out;
+    core::Acc<bf16> acc;
+    core::AccT<bf16, HEADS == H_SIGMA ? 1 : core::NTO> acc_out;
     for (int t = 0; t < tiles; ++t) {
         const int p0 = t * TM, nv = min(TM, n - p0);
         forward_tile<HEADS, true, false>(Rg, B, acc, acc_out, pts + (size_t)(q0 + p0) * 3, nv,
                                          vdirs, q0 + p0, S, b, m,
-                                         Save<T>{nullptr, nullptr, nullptr});
+                                         Save<bf16>{nullptr, nullptr, nullptr});
         __syncthreads();                 // every warp has read ins_h in H
         core::for_pairs(acc_out, HEADS == H_SIGMA ? 8 : m.CP,
                         [&](int r, int cc, float v0, float v1, int) {
@@ -194,20 +192,56 @@ int read_meta(const int* meta, int n_meta, int R, int S, Meta* m) {
     return 0;
 }
 
-template <class T, Heads HEADS>
+// The f32 builds (composite_f32.cuh): the meta ints are Meta's, then the
+// slab offsets of the H_ALL plan's segments (f32c::MAXSEG, -1 past the last)
+template <Heads HEADS>
+int launch_composite_f32(const float* pts, const float* vdirs, const float* z,
+                         const float* dists, int R, int S, const float* slabs, const float* b,
+                         const int* meta, int n_meta, float* rgb, float* depth, float* ins,
+                         void* stream) {
+    Meta m;
+    if (n_meta != META_INTS + f32c::MAXSEG) return (int)cudaErrorInvalidValue;
+    if (int err = read_meta(meta, META_INTS, R, S, &m)) return err;
+    int offs[f32c::MAXSEG];
+    memcpy(offs, meta + META_INTS, sizeof(offs));
+    f32c::Plan p;
+    f32c::plan_heads(m, offs, HEADS, &p);
+    for (int i = 0; i < p.n; ++i)
+        if (p.s[i].off < 0) return (int)cudaErrorInvalidValue;
+    int dev, optin;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return (int)err;
+    // as many ring stages as fit beside the activations and the tail
+    const long stage_bytes = (long)p.stage_words * sizeof(float);
+    const long fixed = (long)(f32c::hb_bytes(m) + f32c::tail_bytes(f32c::MAXSTAGES));
+    p.stages = (int)std::min<long>(f32c::MAXSTAGES, (optin - fixed) / stage_bytes);
+    if (p.stages < 2) return (int)cudaErrorInvalidValue;
+    const size_t smem = f32c::hb_bytes(m) + p.stages * stage_bytes + f32c::tail_bytes(p.stages);
+    auto kernel = f32c::composite_f32<HEADS>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const int G = group_rays(R, S, HEADS == H_SIGMA ? 1 : m.C, f32c::TM, f32c::CONSUMERS);
+    kernel<<<(R + G - 1) / G, f32c::THREADS, smem, (cudaStream_t)stream>>>(
+        pts, vdirs, z, dists, R, S, G, slabs, b, m, p, rgb, depth, ins);
+    return (int)cudaGetLastError();
+}
+
+template <Heads HEADS>
 int launch_composite(const float* pts, const float* vdirs, const float* z, const float* dists,
-                     int R, int S, const T* w, const float* b, const int* meta, int n_meta,
+                     int R, int S, const bf16* w, const float* b, const int* meta, int n_meta,
                      float* rgb, float* depth, float* ins, void* stream) {
     Meta m;
     if (int err = read_meta(meta, n_meta, R, S, &m)) return err;
-    Planner<T> pb(KS<T>);
+    Planner<bf16> pb(KS);
     plan_forward(pb, m, HEADS, true);
-    const size_t smem = composite_smem<T>(m, pb.p);
-    auto kernel = composite_kernel<T, HEADS>;
+    const size_t smem = composite_smem(m, pb.p);
+    auto kernel = composite_kernel<HEADS>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return (int)err;
-    const int G = group_rays(R, S, HEADS == H_SIGMA ? 1 : m.C, core::TM<T>);
+    const int G = group_rays(R, S, HEADS == H_SIGMA ? 1 : m.C, core::TM<bf16>);
     kernel<<<(R + G - 1) / G, THREADS, smem, (cudaStream_t)stream>>>(
         pts, vdirs, z, dists, R, S, G, w, b, m, pb.p, rgb, depth, ins);
     return (int)cudaGetLastError();
@@ -222,8 +256,8 @@ extern "C" {
 int render_field_sigma(const float* pts, const float* z, const float* dists, int R, int S,
                        const bf16* w, const float* b, const int* meta, int n_meta,
                        float* weights, void* stream) {
-    return launch_composite<bf16, H_SIGMA>(pts, nullptr, z, dists, R, S, w, b, meta, n_meta,
-                                           nullptr, nullptr, weights, stream);
+    return launch_composite<H_SIGMA>(pts, nullptr, z, dists, R, S, w, b, meta, n_meta,
+                                     nullptr, nullptr, weights, stream);
 }
 
 // K3: rgb [R,3], depth [R], ins logits [R,K+1] <- pts [R,S,3], viewdirs [R,3],
@@ -232,8 +266,8 @@ int render_field_all(const float* pts, const float* vdirs, const float* z,
                      const float* dists, int R, int S, const bf16* w, const float* b,
                      const int* meta, int n_meta, float* rgb, float* depth, float* ins,
                      void* stream) {
-    return launch_composite<bf16, H_ALL>(pts, vdirs, z, dists, R, S, w, b, meta, n_meta, rgb,
-                                         depth, ins, stream);
+    return launch_composite<H_ALL>(pts, vdirs, z, dists, R, S, w, b, meta, n_meta, rgb,
+                                   depth, ins, stream);
 }
 
 // K5: ins logits [R,K+1] <- pts [R,S,3], z [R,S], dists [R,S] (all fp32),
@@ -241,31 +275,32 @@ int render_field_all(const float* pts, const float* vdirs, const float* z,
 int render_field_ins(const float* pts, const float* z, const float* dists, int R, int S,
                      const bf16* w, const float* b, const int* meta, int n_meta,
                      float* ins, void* stream) {
-    return launch_composite<bf16, H_INS>(pts, nullptr, z, dists, R, S, w, b, meta, n_meta,
-                                         nullptr, nullptr, ins, stream);
+    return launch_composite<H_INS>(pts, nullptr, z, dists, R, S, w, b, meta, n_meta,
+                                   nullptr, nullptr, ins, stream);
 }
 
-// The f32 builds of K4, K3 and K5: the same with fp32 weights.
+// The f32 builds of K4, K3 and K5 (composite_f32.cuh): the same with the f32
+// slabs of pack_field and their meta.
 int render_field_sigma_f32(const float* pts, const float* z, const float* dists, int R, int S,
                            const float* w, const float* b, const int* meta, int n_meta,
                            float* weights, void* stream) {
-    return launch_composite<float, H_SIGMA>(pts, nullptr, z, dists, R, S, w, b, meta, n_meta,
-                                            nullptr, nullptr, weights, stream);
+    return launch_composite_f32<H_SIGMA>(pts, nullptr, z, dists, R, S, w, b, meta, n_meta,
+                                         nullptr, nullptr, weights, stream);
 }
 
 int render_field_all_f32(const float* pts, const float* vdirs, const float* z,
                          const float* dists, int R, int S, const float* w, const float* b,
                          const int* meta, int n_meta, float* rgb, float* depth, float* ins,
                          void* stream) {
-    return launch_composite<float, H_ALL>(pts, vdirs, z, dists, R, S, w, b, meta, n_meta, rgb,
-                                          depth, ins, stream);
+    return launch_composite_f32<H_ALL>(pts, vdirs, z, dists, R, S, w, b, meta, n_meta, rgb,
+                                       depth, ins, stream);
 }
 
 int render_field_ins_f32(const float* pts, const float* z, const float* dists, int R, int S,
                          const float* w, const float* b, const int* meta, int n_meta,
                          float* ins, void* stream) {
-    return launch_composite<float, H_INS>(pts, nullptr, z, dists, R, S, w, b, meta, n_meta,
-                                          nullptr, nullptr, ins, stream);
+    return launch_composite_f32<H_INS>(pts, nullptr, z, dists, R, S, w, b, meta, n_meta,
+                                       nullptr, nullptr, ins, stream);
 }
 
 const char* render_field_error_string(int err) {

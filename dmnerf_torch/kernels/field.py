@@ -310,7 +310,7 @@ def field_forward(params: Params, pts: torch.Tensor, viewdirs: torch.Tensor) -> 
     if _device_kind(pts) == "cpu":
         return field_forward_ref(_as_field(params), pts, viewdirs)
     from dmnerf_torch.kernels.build import load_field
-    packed = params if isinstance(params, PackedField) else pack_field(params)
+    packed = params if isinstance(params, PackedField) else pack_field(params, slabs=False)
     pf, dirs, ppd = flatten_inputs(pts, viewdirs)
     _check(packed, pf, dirs)
     P, C = pf.shape[0], packed.field.cfg.ins_num + 5
@@ -422,7 +422,7 @@ def _field_fn(cfg: FieldConfig, trainable: bool):
             raise ValueError("field kernels: params were built for another FieldConfig")
         if not trainable:
             return field_forward(params, pts, viewdirs)
-        packed = params if isinstance(params, PackedField) else pack_field(params)
+        packed = params if isinstance(params, PackedField) else pack_field(params, slabs=False)
         return FusedField.apply(packed, pts, viewdirs, *field_tensors(module))
     return field
 

@@ -15,7 +15,7 @@ csrc/render_field.cu replace the TPU kernel `_composite_kernel`:
   (no view directions, no rgb branch), then per ray the instance logits
   [R,K+1]. The edit path's accumulated-label passes composite nothing else.
 
-K3, K4 and K5 run the field through K1's tile forward (csrc/field_tile.cuh
+The bf16 K3, K4 and K5 run the field through K1's tile forward (csrc/field_tile.cuh
 on the mma.sync core of csrc/field_core.cuh): a block takes a few whole rays
 and walks their points in 128-point tiles, then composites each ray's rows
 in sample order. check_kernel_shape holds every field kernel's wrapper
@@ -33,12 +33,15 @@ of each kernel.
 Every field kernel (K1-K5) has a bf16 build (the deployed precision) and an
 f32 build (precision f32: fp32 weights, activations, products and sums, on
 64-point tiles); the wrappers pick the build from the packed weights' dtype
-(build_of) and count its launches under its own key.
+(build_of) and count its launches under its own key. The f32 builds of K3,
+K4 and K5 are a kernel of their own (csrc/composite_f32.cuh) and read the
+weights as pack_field's slabs: each 8-row slab of a layer contiguous, hi and
+lo halves, in the order its wgmma read them.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Union
+from typing import Dict, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -60,6 +63,7 @@ MAX_DEPTH = 16          # trunk layers the kernel's Meta block describes
 MAX_WIDTH = 256         # the widest layer the kernels' register tiles hold (csrc MAXW)
 MAX_OUT = 128           # the widest output layer, 4+ins_num+1 padded to 16 (csrc MAXCP)
 _ALIGN = 128            # elements between packed matrices (256 bytes in bf16)
+N_SLAB_OFFS = MAX_DEPTH + 8   # slab offsets after the Meta ints (csrc f32c::MAXSEG)
 
 
 def reset_launches() -> None:
@@ -86,14 +90,65 @@ class PackedField(NamedTuple):
        ins_feat [W], ins_hidden [W/2], out [CP] = [rgb_out, density, ins_out, 0].
     meta: int32, the kernel's `Meta` struct (dims, then element offsets).
     field: the module the weights came from (the CPU path runs it).
+    slabs: the f32 composites' weights (K3, K4, K5 f32; None for bf16 and
+       where pack_field was asked for none), fp32 — per segment of the
+       plan (composite_segments), per 8-row slab of its [rows, n] matrix,
+       the hi block then the lo block (hi = tf32(w) rounded to nearest, ties
+       away from zero; lo = w - hi, exact), each [2, n/8, 8, 4]: word (c, g,
+       r, q) holds row 4c + q of the slab, column 8g + r (the no-swizzle
+       K-major layout that wgmma reads, csrc/composite_f32.cuh). The
+       segments (_composite_segments) are the trunk's blocks, then rgb_feat,
+       rgb_hidden, out's density rows [W:2W, 0:8], ins_feat, ins_hidden,
+       out's rgb rows [0:W/2, 0:8] and its instance rows [W/2:W, :].
+    slab_meta: int32, meta followed by each segment's word offset in slabs
+       (N_SLAB_OFFS, -1 past the last).
     """
     field: DMNeRFField
     w: torch.Tensor
     b: torch.Tensor
     meta: np.ndarray
+    slabs: Optional[torch.Tensor] = None
+    slab_meta: Optional[np.ndarray] = None
 
 
-def pack_field(field: DMNeRFField) -> PackedField:
+def rna_tf32(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32 on fp32 x: round to 10 mantissa bits, to nearest,
+    ties away from zero (a carry may reach the exponent)."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = (bits + 0x1000) & 0xFFFFE000
+    return (bits - ((bits >> 31) << 32)).to(torch.int32).view(torch.float32)
+
+
+def _composite_segments(cfg: FieldConfig):
+    """The f32 composites' weight plan for heads="all", in the order the
+    kernel consumes it (csrc/composite_f32.cuh::plan_heads; K4 and K5 take
+    a subset): (name, rows, n) per segment, an [rows, n] block of a packed
+    [in, out] matrix."""
+    D, W, HW = cfg.netdepth, cfg.netwidth, cfg.netwidth // 2
+    XP, DP, CP = _ru(cfg.pos_ch, 16), _ru(cfg.view_ch, 16), _ru(cfg.ins_num + 5, 16)
+    segs = [("t0", XP, W)]
+    for i in range(1, D):
+        segs.append((f"t{i}", W, W))
+        if i == cfg.skip + 1:
+            segs.append((f"t{i}x", XP, W))
+    return segs + [("rgb_feat", W, W), ("rgb_hidden", W + DP, HW), ("density", W, 8),
+                   ("ins_feat", W, W), ("ins_hidden", W, HW), ("rgb_out", HW, 8),
+                   ("ins_out", HW, CP)]
+
+
+def _slab_block(m: torch.Tensor) -> torch.Tensor:
+    """[rows, n] fp32 -> its slabs, flat: per 8 rows, hi then lo, each as
+    [2, n/8, 8, 4] (PackedField.slabs)."""
+    rows, n = m.shape
+    hi = rna_tf32(m)
+    x = torch.stack([hi, m - hi]).reshape(2, rows // 8, 2, 4, n // 8, 8)
+    return x.permute(1, 0, 2, 4, 5, 3).reshape(-1)
+
+
+def pack_field(field: DMNeRFField, slabs: bool = True) -> PackedField:
+    """The weights of field laid out for the kernels; slabs: the f32
+    composites' slabs too (f32 fields only; the training kernels K1/K2 need
+    none)."""
     cfg = field.cfg
     D, W, K1 = cfg.netdepth, cfg.netwidth, cfg.ins_num + 1
     if D > MAX_DEPTH:
@@ -146,7 +201,40 @@ def pack_field(field: DMNeRFField) -> PackedField:
 
     meta = ([D, W, cfg.skip, XP, DP, CP, C, cfg.multires, cfg.multires_views]
             + offs[:D] + [0] * (MAX_DEPTH - D) + offs[D:] + boffs)
-    return PackedField(field, w, b, np.asarray(meta, np.int32))
+    packed = PackedField(field, w, b, np.asarray(meta, np.int32))
+    if slabs and cfg.compute_dtype == torch.float32:
+        with torch.no_grad():
+            packed = _with_slabs(packed, trunk, mats[D:], out)
+    return packed
+
+
+def _with_slabs(packed: PackedField, trunk, heads, out) -> PackedField:
+    """packed with the f32 composites' slabs of the [in, out] matrices
+    trunk, heads (rgb_feat, rgb_hidden, ins_feat, ins_hidden) and out."""
+    W, HW = packed.field.cfg.netwidth, packed.field.cfg.netwidth // 2
+    mats = {f"t{i}": m[:W] if i else m for i, m in enumerate(trunk)}
+    mats.update({f"t{i}x": m[W:] for i, m in enumerate(trunk) if i and m.shape[0] > W})
+    mats.update(zip(("rgb_feat", "rgb_hidden", "ins_feat", "ins_hidden"), heads))
+    mats.update(density=out[W:2 * W, 0:8], rgb_out=out[0:HW, 0:8], ins_out=out[HW:W])
+    blocks, offs, n = [], [], 0
+    for name, rows, cols in _composite_segments(packed.field.cfg):
+        m = mats[name].float()
+        if tuple(m.shape) != (rows, cols):
+            raise AssertionError(f"pack_field: segment {name} is {tuple(m.shape)}, the plan "
+                                 f"reads {(rows, cols)}")
+        offs.append(n)
+        blocks.append(_slab_block(m))
+        n += blocks[-1].numel()
+    meta = np.concatenate([packed.meta, np.asarray(offs + [-1] * (N_SLAB_OFFS - len(offs)),
+                                                   np.int32)])
+    return packed._replace(slabs=torch.cat(blocks), slab_meta=meta)
+
+
+def with_slabs(packed: PackedField) -> PackedField:
+    """packed, with the f32 composites' slabs if it has none."""
+    if packed.slabs is not None or packed.w.dtype != torch.float32:
+        return packed
+    return pack_field(packed.field)
 
 
 Params = Union[DMNeRFField, PackedField]
@@ -245,6 +333,15 @@ def _check(packed: PackedField, pts, z, rays_d, viewdirs=None):
     check_kernel_shape(cfg, "render_field")
 
 
+def _weights(packed: PackedField):
+    """(the build's LAUNCHES suffix, its weights, its meta): the bf16 build
+    reads w and meta, the f32 one slabs and slab_meta."""
+    build = build_of(packed, "render_field")
+    if build == "_f32":
+        return build, packed.slabs, packed.slab_meta
+    return build, packed.w, packed.meta
+
+
 def _device_kind(t: torch.Tensor) -> str:
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"render_field: no path for device {t.device}")
@@ -263,17 +360,17 @@ def render_field_sigma(params: Params, pts: torch.Tensor, z: torch.Tensor,
     if _device_kind(pts) == "cpu":
         return render_field_sigma_ref(_as_field(params), pts, z, rays_d)
     from dmnerf_torch.kernels.build import load_render_field
-    packed = params if isinstance(params, PackedField) else pack_field(params)
+    packed = with_slabs(params if isinstance(params, PackedField) else pack_field(params))
     _check(packed, pts, z, rays_d)
     R, S = z.shape
     dists = sample_dists(z, rays_d).contiguous()
     weights = torch.empty((R, S), dtype=torch.float32, device=pts.device)
     lib = load_render_field()
-    name = "render_field_sigma" + build_of(packed, "render_field")
+    build, w, meta = _weights(packed)
+    name = "render_field_sigma" + build
     rc = getattr(lib, name)(
         pts.data_ptr(), z.data_ptr(), dists.data_ptr(), R, S,
-        packed.w.data_ptr(), packed.b.data_ptr(), packed.meta.ctypes.data,
-        len(packed.meta), weights.data_ptr(),
+        w.data_ptr(), packed.b.data_ptr(), meta.ctypes.data, len(meta), weights.data_ptr(),
         torch.cuda.current_stream(pts.device).cuda_stream)
     _raise_on(rc, lib, name)
     LAUNCHES[name] += 1
@@ -286,7 +383,7 @@ def render_field_all(params: Params, pts: torch.Tensor, viewdirs: torch.Tensor,
     if _device_kind(pts) == "cpu":
         return render_field_all_ref(_as_field(params), pts, viewdirs, z, rays_d)
     from dmnerf_torch.kernels.build import load_render_field
-    packed = params if isinstance(params, PackedField) else pack_field(params)
+    packed = with_slabs(params if isinstance(params, PackedField) else pack_field(params))
     _check(packed, pts, z, rays_d, viewdirs)
     R, S = z.shape
     K1 = packed.field.cfg.ins_num + 1
@@ -295,11 +392,12 @@ def render_field_all(params: Params, pts: torch.Tensor, viewdirs: torch.Tensor,
     rgb, depth = torch.empty((R, 3), **out), torch.empty((R,), **out)
     ins = torch.empty((R, K1), **out)
     lib = load_render_field()
-    name = "render_field_all" + build_of(packed, "render_field")
+    build, w, meta = _weights(packed)
+    name = "render_field_all" + build
     rc = getattr(lib, name)(
         pts.data_ptr(), viewdirs.data_ptr(), z.data_ptr(), dists.data_ptr(), R, S,
-        packed.w.data_ptr(), packed.b.data_ptr(), packed.meta.ctypes.data,
-        len(packed.meta), rgb.data_ptr(), depth.data_ptr(), ins.data_ptr(),
+        w.data_ptr(), packed.b.data_ptr(), meta.ctypes.data, len(meta), rgb.data_ptr(),
+        depth.data_ptr(), ins.data_ptr(),
         torch.cuda.current_stream(pts.device).cuda_stream)
     _raise_on(rc, lib, name)
     LAUNCHES[name] += 1
@@ -312,18 +410,18 @@ def render_field_ins(params: Params, pts: torch.Tensor, z: torch.Tensor,
     if _device_kind(pts) == "cpu":
         return render_field_ins_ref(_as_field(params), pts, z, rays_d)
     from dmnerf_torch.kernels.build import load_render_field
-    packed = params if isinstance(params, PackedField) else pack_field(params)
+    packed = with_slabs(params if isinstance(params, PackedField) else pack_field(params))
     _check(packed, pts, z, rays_d)
     R, S = z.shape
     dists = sample_dists(z, rays_d).contiguous()
     ins = torch.empty((R, packed.field.cfg.ins_num + 1), dtype=torch.float32,
                       device=pts.device)
     lib = load_render_field()
-    name = "render_field_ins" + build_of(packed, "render_field")
+    build, w, meta = _weights(packed)
+    name = "render_field_ins" + build
     rc = getattr(lib, name)(
         pts.data_ptr(), z.data_ptr(), dists.data_ptr(), R, S,
-        packed.w.data_ptr(), packed.b.data_ptr(), packed.meta.ctypes.data,
-        len(packed.meta), ins.data_ptr(),
+        w.data_ptr(), packed.b.data_ptr(), meta.ctypes.data, len(meta), ins.data_ptr(),
         torch.cuda.current_stream(pts.device).cuda_stream)
     _raise_on(rc, lib, name)
     LAUNCHES[name] += 1

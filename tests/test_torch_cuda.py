@@ -2,9 +2,10 @@
 the render kernels K3/K4, the edit kernel K5 and the training kernels K1/K2
 (up to ins_num 123 at width 256, 128 and 64), K3 and K5 against the composite of K1's
 raw at shapes whose rays cross tiles and blocks, K4 at every grouping of
-rays, the f32 builds of K1-K5 against the plain f32 path, the edit
-path's launches of K1 and K5, the mesh path's density query (K1) and
-vertex labels (K4 + K3), the stress scenes' ground truth march
+rays, the f32 builds of K1-K5 against the plain f32 path and the f32
+render's and edit's launches, the edit path's launches of K1 and K5, the
+mesh path's density query (K1) and vertex labels (K4 + K3), the stress
+scenes' ground truth march
 (data/procedural.py) on the card against the CPU, the JPEG codec
 (native/jpeg.cpp, built by this machine's g++) on its golden fixtures,
 LPIPS (eval/lpips.py) on the card against the CPU, and a train step split
@@ -143,8 +144,9 @@ F32_TOL = 1e-4
 @pytest.mark.cuda
 @pytest.mark.parametrize("width,ins_num,R,S,pe", [
     (64, 11, 37, 100, (10, 4)), (128, 65, 16, 70, (10, 4)), (256, 32, 16, 70, (10, 4)),
-    (64, 11, 37, 100, (7, 2))], ids=["64-11-37-100", "128-65-16-70", "256-32-16-70",
-                                     "64-11-37-100-tail"])
+    (64, 11, 37, 100, (7, 2)), (256, 32, 7, 45, (10, 4)), (32, 4, 7, 45, (4, 2))],
+    ids=["64-11-37-100", "128-65-16-70", "256-32-16-70", "64-11-37-100-tail", "256-32-7-45",
+         "32-4-7-45"])
 def test_f32_kernels_match_plain_versions_on_the_card(width, ins_num, R, S, pe):
     """The f32 builds of K1-K5 vs their plain f32 versions: raw and every
     render output within 1e-4 of max(1, its largest magnitude); K2's
@@ -152,10 +154,12 @@ def test_f32_kernels_match_plain_versions_on_the_card(width, ins_num, R, S, pe):
     across launches. The last sample's distance is 1e10, so its alpha is a
     step in sign(sigma): rays whose plain last-sample |sigma| < 1e-3 are
     exempt. A small field (width 64), replica64_stress's shape (width 128,
-    ins_num 65) and the flagship width; R*S is not a multiple of the f32
-    builds' 64-point tile, and rays cross tiles. PE 7/2 (XP 48, W + DP 80)
-    leaves a 16-deep last slab behind the 32-deep slabs of K1, K3, K4 and
-    K5's f32 builds."""
+    ins_num 65), the flagship width and the narrowest (width 32, where each
+    warpgroup of the f32 composites owns one 8-column tile of a layer); R*S
+    is not a multiple of the f32 builds' 64-point tile, and rays cross
+    tiles; at R = 7 the f32 composites launch fewer blocks than the card
+    has SMs. PE 7/2 (XP 48, W + DP 80) leaves a 16-deep last slab behind
+    the 32-deep slabs of K1's f32 build."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -328,6 +332,51 @@ def test_edit_launches_k1_and_k5_per_chunk():
                             "render_field_ins": 3 * 3, **F32_UNUSED}
     assert rgb.shape == (192, 3) and torch.isfinite(rgb).all() and torch.isfinite(conf).all()
     assert int(label.min()) >= 0 and int(label.max()) <= scene.ins_num
+
+
+@pytest.mark.cuda
+def test_f32_render_and_edit_launch_counts():
+    """An f32 render of a 12x12 image in chunks of 64 rays (3 chunks) and a
+    2-object f32 edit of it through the kernels launch the f32 builds alone,
+    as many as the bf16 runs launch bf16 ones: per chunk one K4 and one K3
+    for the render; 2 * (1 + n_obj) K1 and 1 + n_obj K5 for the edit; finite
+    outputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from dmnerf_torch.config import default_config
+    from dmnerf_torch.data.synthetic import make_scene
+    from dmnerf_torch.edit.manipulator import make_pose_image_manipulator
+    from dmnerf_torch.eval.renderer import make_image_renderer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    scene = make_scene(H=12, W=12, n_train=1, n_test=1)
+    args = default_config(N_test=64, N_samples=16, N_importance=32, near=1.0, far=12.0)
+    cfg = FieldConfig(netdepth=8, netwidth=64, multires=10, multires_views=4,
+                      ins_num=scene.ins_num, compute_dtype=torch.float32)
+    g = torch.Generator().manual_seed(7)
+    params = {k: init_field_params(g, cfg, device="cuda").eval() for k in ("coarse", "fine")}
+    ori = np.asarray(scene.poses[0], np.float32)
+    kf.reset_launches()
+    krf.reset_launches()
+    out = make_image_renderer(cfg, args, 12, 12, device="cuda", use_pallas=True)(
+        params, scene.K, ori)
+    torch.cuda.synchronize()
+    assert all(np.isfinite(o).all() for o in out)
+    assert {k: v for k, v in {**kf.LAUNCHES, **krf.LAUNCHES}.items() if v} == {
+        "render_field_sigma_f32": 3, "render_field_all_f32": 3}
+    objs = [{"mode": "rigid"}, {"mode": "deform", "deform_func": "sin"}]
+    run = make_pose_image_manipulator(cfg, params, args, objs, [1, 2], 12, 12, scene.K,
+                                      device="cuda", use_pallas=True)
+    trans = np.eye(4)
+    trans[:3, 3] = [0.3, 0.0, 0.0]
+    kf.reset_launches()
+    krf.reset_launches()
+    rgb, label, _, conf = run(ori.astype(np.float64), np.stack([trans @ ori, ori]),
+                              np.array([0.0, 0.5]))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in {**kf.LAUNCHES, **krf.LAUNCHES}.items() if v} == {
+        "field_forward_f32": 3 * 2 * 3, "render_field_ins_f32": 3 * 3}
+    assert torch.isfinite(rgb).all() and torch.isfinite(conf).all()
 
 
 def _flagship_pair(seed, ins_num=4):

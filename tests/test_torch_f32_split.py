@@ -23,12 +23,17 @@ import torch
 from torch.overrides import TorchFunctionMode
 
 from dmnerf_tpu.models import fields as jf
+from dmnerf_tpu.ops.pallas import render_field as jrf
 from dmnerf_torch.kernels import field as kf
+from dmnerf_torch.kernels import render_field as krf
 from dmnerf_torch.kernels.render_field import pack_field
 from dmnerf_torch.models import fields as tf
 from dmnerf_torch.models.convert import state_dict_from_jax
 
 F32_TOL = 1e-4
+# 8-deep steps per fp32 flush of the three passes' partial in the f32
+# composites (csrc/composite_f32.cuh) and in field_core.cuh: every step
+FLUSH = 1
 # the flagship field (chip_smoke.py::FLAGSHIP) at K=32, 12 rays x 24 points
 FLAGSHIP = dict(netdepth=8, netwidth=256, multires=10, multires_views=4, ins_num=32)
 R, S = 12, 24
@@ -48,11 +53,13 @@ def split_tf32(x: torch.Tensor):
     return hi, rna_tf32(x - hi)
 
 
-def tf32_product(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:
+def tf32_product(a: torch.Tensor, b: torch.Tensor, passes: int = 3,
+                 flush: int = 1) -> torch.Tensor:
     """a [..., K] @ b [K, N] as the kernels take it: per 8-deep step of the
-    reduction, in order, a zeroed fragment takes lo_a hi_b, hi_a lo_b and
-    hi_a hi_b (passes 3), or hi_a hi_b alone (passes 1), and the accumulator
-    adds it, each sum in fp32."""
+    reduction, in order, a partial takes lo_a hi_b, hi_a lo_b and hi_a hi_b
+    (passes 3), or hi_a hi_b alone (passes 1), and every flush steps the
+    accumulator adds the partial and it starts from zero again, each sum in
+    fp32."""
     lead, K = a.shape[:-1], a.shape[-1]
     a = a.reshape(-1, K)
     pad = -K % 8
@@ -65,11 +72,12 @@ def tf32_product(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Ten
 
     terms = [chunks(al, bh), chunks(ah, bl), chunks(ah, bh)][3 - passes:]
     acc = torch.zeros(a.shape[0], b.shape[1])
+    part = torch.zeros_like(acc)
     for k in range(steps):
-        step = torch.zeros_like(acc)
         for t in terms:
-            step = step + t[k]
-        acc = acc + step
+            part = part + t[k]
+        if (k + 1) % flush == 0 or k + 1 == steps:
+            acc, part = acc + part, torch.zeros_like(acc)
     return acc.reshape(*lead, b.shape[1])
 
 
@@ -77,15 +85,15 @@ class TF32Products(TorchFunctionMode):
     """Every fp32 matmul (`@`, torch.matmul) inside the block as the kernels'
     TF32 product."""
 
-    def __init__(self, passes=3):
+    def __init__(self, passes=3, flush=1):
         super().__init__()
-        self.passes = passes
+        self.passes, self.flush = passes, flush
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         if func in (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__) and not kwargs:
             a, b = args
             if a.dtype == b.dtype == torch.float32 and b.dim() == 2:
-                return tf32_product(a, b, self.passes)
+                return tf32_product(a, b, self.passes, self.flush)
         return func(*args, **(kwargs or {}))
 
 
@@ -207,3 +215,52 @@ def test_three_tf32_passes_hold_the_flagship_gradients(flagship):
     assert grad_error(three, plain) <= F32_TOL / 10, grad_error(three, plain)
     assert grad_error(three, grads_j) <= F32_TOL / 10, grad_error(three, grads_j)
     assert grad_error(one, plain) > F32_TOL, grad_error(one, plain)
+
+
+@pytest.fixture(scope="module")
+def flagship_composites():
+    """The flagship f32 field in both packages, R x S points along rays from
+    numpy seeds, and the JAX package's f32 render_field (the Pallas kernel
+    in interpret mode) for heads "all" (rgb, depth, logits) and "ins"."""
+    cfg_j = jf.FieldConfig(**FLAGSHIP, compute_dtype=jnp.float32)
+    params = numpy_params(cfg_j, 15)
+    field = tf.DMNeRFField(tf.FieldConfig(**FLAGSHIP, compute_dtype=torch.float32))
+    field.load_state_dict(state_dict_from_jax(params))
+    rng = np.random.default_rng(15)
+    rd = rng.normal(size=(R, 3))
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    z = np.sort(rng.uniform(1.0, 12.0, (R, S)), -1)
+    pts = rng.normal(size=(R, 1, 3)) * 0.3 + rd[:, None] * z[..., None]
+    pts, z, rd, vd = (x.astype(np.float32) for x in (pts, z, rd, rd[:, None]))
+    jx = [jnp.asarray(x) for x in (pts, vd, z, rd)]
+    want = {"all": jrf.make_render_field(cfg_j, heads="all")(params, *jx),
+            "ins": (jrf.make_render_field(cfg_j, heads="ins")(params, jx[0], *jx[2:]),)}
+    want = {k: [torch.from_numpy(np.array(x)) for x in v] for k, v in want.items()}
+    return field, [torch.from_numpy(x) for x in (pts, vd, z, rd)], want
+
+
+@pytest.mark.parametrize("heads", ["all", "ins"])
+def test_three_tf32_passes_hold_the_flagship_composites(flagship_composites, heads):
+    """The plain K3 (heads "all": rgb, depth, logits) and K5 ("ins":
+    logits) run on the 3-pass products with the f32 composites' flush
+    interval (FLUSH) against the JAX package's f32 render_field and the
+    plain fp32 path: each output within F32_TOL / 10 of max(1, its largest
+    magnitude). The deviation from the JAX package is the order of fp32
+    sums (its transmittance is an exp of a log-sum) and the split's
+    rounding; one pass misses F32_TOL on the logits."""
+    field, (pts, vd, z, rd), want = flagship_composites
+
+    def run(passes=None):
+        with torch.no_grad(), (TF32Products(passes, FLUSH) if passes else torch.no_grad()):
+            if heads == "all":
+                return krf.render_field_all_ref(field, pts, vd, z, rd)
+            return (krf.render_field_ins_ref(field, pts, z, rd),)
+
+    plain, three, one = run(), run(3), run(1)
+    for name, p, t, j in zip(("rgb", "depth", "logits") if heads == "all" else ("logits",),
+                             plain, three, want[heads]):
+        assert t.shape == j.shape and torch.isfinite(t).all()
+        assert raw_error(p, j) <= F32_TOL / 10, (name, raw_error(p, j))
+        assert raw_error(t, p) <= F32_TOL / 10, (name, raw_error(t, p))
+        assert raw_error(t, j) <= F32_TOL / 10, (name, raw_error(t, j))
+    assert raw_error(one[-1], plain[-1]) > F32_TOL, raw_error(one[-1], plain[-1])

@@ -254,6 +254,104 @@ def test_packing_emulation_matches_plain_version(over, prec):
             assert err.max() <= 1e-5, err.max()
 
 
+def _composite_plan(slab_meta, heads):
+    """csrc/composite_f32.cuh::plan_heads over pack_field's slab_meta: the
+    (word offset, rows, n) of every segment the f32 build of heads reads, in
+    the order it reads them."""
+    m = [int(v) for v in slab_meta]
+    D, W, skip, XP, DP, CP = m[:6]
+    so, HW = m[36:], W // 2
+    segs, k = [(so[0], XP, W)], 1
+    for i in range(1, D):
+        segs.append((so[k], W, W))
+        k += 1
+        if i == skip + 1:
+            segs.append((so[k], XP, W))
+            k += 1
+    h = so[k:]
+    if heads == "all":
+        segs += [(h[0], W, W), (h[1], W + DP, HW)]
+    segs.append((h[2], W, 8))
+    if heads != "sigma":
+        segs += [(h[3], W, W), (h[4], W, HW)]
+        if heads == "all":
+            segs.append((h[5], HW, 8))
+        segs.append((h[6], HW, CP))
+    return segs
+
+
+def _field_blocks(field):
+    """The [in, out] blocks of field's weights that the f32 composites'
+    plan reads, in its order, from the module itself (not pack_field's
+    matrices): zero rows pad the encodings, the density and rgb_out blocks
+    are 8 columns wide (the density in column 3), ins_out CP wide (the
+    logits in columns 4:C)."""
+    cfg = field.cfg
+    W, HW, C = cfg.netwidth, cfg.netwidth // 2, cfg.ins_num + 5
+    XP, DP, CP = -(-cfg.pos_ch // 16) * 16, -(-cfg.view_ch // 16) * 16, -(-C // 16) * 16
+
+    def wt(lin, rows=None):
+        m = lin.weight.detach().T
+        return torch.nn.functional.pad(m, (0, 0, 0, rows - m.shape[0])) if rows else m
+
+    def cols(m, n, c0):
+        out = torch.zeros(m.shape[0], n)
+        out[:, c0:c0 + m.shape[1]] = m
+        return out
+
+    blocks = [wt(field.mlps[0], XP)]
+    for i in range(1, cfg.netdepth):
+        m = wt(field.mlps[i])
+        blocks.append(m[:W])
+        if i == cfg.skip + 1:
+            blocks.append(torch.nn.functional.pad(m[W:], (0, 0, 0, XP - (m.shape[0] - W))))
+    rh = wt(field.rgb_feature_linears[0])
+    rh = torch.cat([rh[:W], torch.nn.functional.pad(rh[W:], (0, 0, 0, DP - (rh.shape[0] - W)))])
+    return blocks + [wt(field.rgb_feature_linear), rh,
+                     cols(wt(field.density_linear), 8, 3), wt(field.ins_feature_linear),
+                     wt(field.ins_feature_linears[0]), cols(wt(field.rgb_linear), 8, 0),
+                     cols(wt(field.ins_linear), CP, 4)]
+
+
+@pytest.mark.parametrize("shape", [
+    dict(netdepth=8, netwidth=256, multires=10, multires_views=4, ins_num=32),
+    STRESS64, dict(netdepth=8, netwidth=64, multires=10, multires_views=4, ins_num=123)],
+    ids=["flagship", "128-65", "64-123"])
+def test_f32_composite_slabs_unpack_to_the_weights(shape):
+    """pack_field's slabs for the f32 builds of K3, K4 and K5: read at the
+    offsets the kernel's plan takes from slab_meta, the segments of K3's
+    plan tile the buffer without a gap, each a run of 8-row slabs of 16 n
+    words, hi then lo, in the [2, n/8, 8, 4] order of the no-swizzle
+    K-major layout; hi is representable in TF32 (13 low bits clear), lo =
+    w - hi, and hi + lo gives every weight of the field bit for bit. K4's
+    and K5's plans read subsets of K3's, in its order. The bf16 build and
+    a packing for K1/K2 alone carry no slabs."""
+    _, _, field = _field(torch.float32, seed=8, **shape)
+    packed = krf.pack_field(field)
+    assert packed.slabs.dtype == torch.float32 and len(packed.slab_meta) == 36 + 24
+    assert np.array_equal(packed.slab_meta[:36], packed.meta)
+    plan = _composite_plan(packed.slab_meta, "all")
+    blocks = _field_blocks(field)
+    assert len(plan) == len(blocks) == len([o for o in packed.slab_meta[36:] if o >= 0])
+    end = 0
+    for (off, rows, n), want in zip(plan, blocks):
+        assert off == end and rows % 8 == 0 and n % 8 == 0
+        end = off + rows * n * 2
+        x = packed.slabs[off:end].reshape(rows // 8, 2, 2, n // 8, 8, 4)
+        hi, lo = (x[:, i].permute(0, 1, 4, 2, 3).reshape(rows, n) for i in (0, 1))
+        assert not (hi.view(torch.int32) & 0x1FFF).any()
+        assert torch.equal(lo, want - hi) and torch.equal(hi + lo, want)
+        assert torch.equal(hi, krf.rna_tf32(want))
+    assert end == packed.slabs.numel()
+    for heads in ("sigma", "ins"):
+        sub = _composite_plan(packed.slab_meta, heads)
+        assert [plan.index(s) for s in sub] == sorted(plan.index(s) for s in sub)
+    assert krf.pack_field(field, slabs=False).slabs is None
+    assert torch.equal(krf.with_slabs(krf.pack_field(field, slabs=False)).slabs, packed.slabs)
+    _, _, bf = _field(torch.bfloat16, seed=8, **shape)
+    assert krf.pack_field(bf).slabs is None
+
+
 @pytest.mark.parametrize("prec", ["bf16", "f32"])
 def test_cpu_wrappers_take_the_plain_version_without_launching(prec):
     cfg_j, params, field = _field({"bf16": torch.bfloat16, "f32": torch.float32}[prec])
