@@ -37,6 +37,7 @@ from dmnerf_torch.kernels.render_field import make_fused_chunk_renderer, pack_pa
 from dmnerf_torch.models.fields import FieldConfig
 from dmnerf_torch.parallel.mesh import data_axis, gather, rank_share, shard_batch
 from dmnerf_torch.parallel.model_parallel import gather_params_model
+from dmnerf_torch.utils.profiling import span
 
 
 def make_chunk_renderer(cfg: FieldConfig, n_samples: int, n_importance: int,
@@ -151,7 +152,8 @@ def make_image_renderer(cfg: FieldConfig, args, H: int, W: int, *, device,
     render_im.many(params, K, c2ws) yields one such tuple per pose, launching
     view i+1 before it waits for view i's copy, so host work on view i
     (metrics, pngs) overlaps the device's work on view i+1; render_im.device
-    is `device`, render_im.mesh is `mesh`."""
+    is `device`, render_im.mesh is `mesh`. Each view is one `render.view`
+    span (utils/profiling.py)."""
     chunk = int(args.N_test)
     device = torch.device(device)
     n = H * W
@@ -163,20 +165,21 @@ def make_image_renderer(cfg: FieldConfig, args, H: int, W: int, *, device,
 
     @torch.no_grad()
     def render_im_dev(params, K, c2w):
-        K = torch.as_tensor(np.asarray(K), dtype=torch.float32, device=device)
-        c2w = torch.as_tensor(np.asarray(c2w), dtype=torch.float32, device=device)
-        rays_o, rays_d = get_rays(H, W, K, c2w)
-        rays_o, rays_d = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
-        if n_pad:
-            # edge-pad (repeat the last ray): works even when n_pad > n
-            rays_o = torch.cat([rays_o, rays_o[-1:].expand(n_pad, 3)])
-            rays_d = torch.cat([rays_d, rays_d[-1:].expand(n_pad, 3)])
-        rgb, ins, depth = render_all(params, rays_o, rays_d)
-        label = torch.argmax(ins[:n], dim=-1).to(torch.int32)
-        conf = torch.amax(ins[:n], dim=-1)
-        out = (rgb[:n].reshape(H, W, 3), label.reshape(H, W),
-               conf.reshape(H, W), depth[:n].reshape(H, W))
-        return _copy_to_host(out, device)
+        with span("render.view"):
+            K = torch.as_tensor(np.asarray(K), dtype=torch.float32, device=device)
+            c2w = torch.as_tensor(np.asarray(c2w), dtype=torch.float32, device=device)
+            rays_o, rays_d = get_rays(H, W, K, c2w)
+            rays_o, rays_d = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
+            if n_pad:
+                # edge-pad (repeat the last ray): works even when n_pad > n
+                rays_o = torch.cat([rays_o, rays_o[-1:].expand(n_pad, 3)])
+                rays_d = torch.cat([rays_d, rays_d[-1:].expand(n_pad, 3)])
+            rgb, ins, depth = render_all(params, rays_o, rays_d)
+            label = torch.argmax(ins[:n], dim=-1).to(torch.int32)
+            conf = torch.amax(ins[:n], dim=-1)
+            out = (rgb[:n].reshape(H, W, 3), label.reshape(H, W),
+                   conf.reshape(H, W), depth[:n].reshape(H, W))
+            return _copy_to_host(out, device)
 
     def render_im(params, K, c2w):
         return _wait(render_im_dev(params, K, c2w))

@@ -27,10 +27,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from dmnerf_torch.ops.lap import lap_square
 from dmnerf_torch.parallel.mesh import DataMesh, psum
+from dmnerf_torch.utils.profiling import span
 
 
 class InsLoss(NamedTuple):
@@ -104,12 +104,13 @@ def ins_loss_from_stats(stats, row_valid, valid_num, ins_num: int):
     cost = torch.stack([ce + siou for ce, siou, _ in stats]).detach()
     cost = torch.where(row_valid[None, :, None], cost, 0.0)
     # the spans name the copy (it waits for the queued forward) and the solve
-    # in a torch.profiler trace (tools/trace_step.py)
-    with record_function("lap.copy_to_host"):
+    # in a torch.profiler trace (tools/trace_step.py; the benchmark reads them
+    # by these names)
+    with span("lap.copy_to_host"):
         host = torch.cat([cost.reshape(-1).double(), valid_num.double()[None]]).cpu().numpy()
     nv = int(host[-1])
     costs = host[:-1].reshape(len(stats), ins_num, ins_num)
-    with record_function("lap.solve"):
+    with span("lap.solve"):
         col4rows = np.stack([lap_square(c, nv) for c in costs])
     col4rows = torch.from_numpy(col4rows).to(cost.device)
     return tuple(_matched_loss(ce, siou, col_mean, row_valid, valid_num, ins_num, c4r)

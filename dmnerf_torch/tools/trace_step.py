@@ -3,13 +3,15 @@ by category and by kernel, its device busy share and the split of its host
 time (port of tools/trace_step.py).
 
     python -m dmnerf_torch.tools.trace_step [--steps 50] [--top 40] [--out DIR]
+                                            [--precision bf16|f32]
     python -m dmnerf_torch.tools.trace_step --parse_only --out DIR [--steps N]
 
 Capture: bench.py's train workload (tools/bench_step_anatomy.py:39-76: 3072
 rays, 64+128 samples, two 8x256 fields, K=32 on the subdivided boxroom
-labels, penalizer and perturb on, bf16, the kernels K1/K2) on the card; one
-dispatch of --steps steps outside the trace (it builds the kernels), then one
-traced dispatch of --steps steps into --out.
+labels, penalizer and perturb on, the kernels K1/K2 in --precision's build,
+bf16 by default) on the card; one dispatch of --steps steps outside the
+trace (it builds the kernels), then one traced dispatch of --steps steps
+into --out.
 
 --parse_only reads the newest *.pt.trace.json[.gz] under --out, which is also
 what `cli.train --profile_steps N` writes into {logdir}/profile (there pass
@@ -24,15 +26,23 @@ what `cli.train --profile_steps N` writes into {logdir}/profile (there pass
 - the host's time: in CUDA API calls that launch, that copy or wait, and
   the rest of the API; in torch ops outside the API; outside both (Python,
   the host LAP's solve); the LAP's spans (losses/instance.py's
-  `lap.copy_to_host` and `lap.solve` annotations); and the copies and waits
-  by the torch ops and annotations around each, outermost first (which op
-  made the host wait for the device).
+  `lap.copy_to_host` and `lap.solve` annotations);
+- one row per span, in the order they first open: the program's
+  (utils/profiling.py::span: `train.step` and its phases, the LAP's,
+  `render.view`) and torch's own annotations (Adam's `Optimizer.step#...`):
+  calls, host ms/step, self ms/step (the span less its child spans on its
+  thread), the device's idle ms/step inside it, and the blocking CUDA
+  calls/step that start inside it, on any thread (any *Synchronize, and any
+  cudaMemcpy* whose copy runs device to host);
+- the copies and waits by the torch ops and spans around each, outermost
+  first (which op, in which phase, made the host wait for the device).
 A trace taken on the card that holds no device events is an error (exit 1).
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import glob
 import gzip
 import json
@@ -50,9 +60,11 @@ CATEGORIES = ("field_forward", "field_forward_f32", "field_backward", "field_bac
               "gemm", "sort", "reduce", "elementwise", "copy", "other")
 # the CUDA kernels of each launch of the port's wrappers (kernels/csrc): K1
 # one, K2 a per-tile pass, the dW GEMM and two reductions, K3/K4/K5 one
-# composite_kernel each, told apart by its Heads argument; the build by the
-# template's type (float: the f32 build). K2's reductions are not templated:
-# they count under field_backward in either build.
+# composite kernel each, told apart by its Heads argument; the build by the
+# template's type (float: the f32 build), the composites' by their name
+# (composite_kernel<Heads>: bf16, composite_f32<Heads>: f32). K2's
+# reductions are not templated: they count under field_backward in either
+# build.
 _FIELD = {"field_forward_kernel": "field_forward", "field_bwd_tile_kernel": "field_backward",
           "dw_partial_kernel": "field_backward", "reduce_splits_kernel": "field_backward"}
 # the kernel that marks one launch of each wrapper
@@ -78,10 +90,10 @@ def categorize(name: str, cat: str = "kernel") -> str:
         if mark in name:
             m = re.search(mark + r"<([^>]*)>", name)
             return _f32(port, m.group(1) if m else "")
-    m = re.search(r"composite_kernel<([^,>]+),([^>]*)>", name)
+    m = re.search(r"composite_(kernel|f32)<([^>]*)>", name)
     if m:
         head = _HEADS.get(re.findall(r"\w+", m.group(2))[-1], "all")
-        return _f32(f"render_field_{head}", m.group(1))
+        return _f32(f"render_field_{head}", "float" if m.group(1) == "f32" else m.group(2))
     low = name.lower()
     for category, keys in _GENERIC:
         if any(k in low for k in keys):
@@ -147,6 +159,69 @@ def _enclosing(containers, calls):
     return out
 
 
+def _correlation(e):
+    return (e.get("args") or {}).get("correlation")
+
+
+def _blocking(events, api):
+    """Sorted start times of the blocking CUDA API calls: any *Synchronize,
+    and any cudaMemcpy* whose copy on the device (matched by correlation id)
+    runs device to host."""
+    dtoh = {_correlation(e) for e in events
+            if e.get("cat", "").lower() == "gpu_memcpy" and "DtoH" in e.get("name", "")}
+    dtoh.discard(None)
+    return sorted(float(e["ts"]) for e in api
+                  if e.get("name", "").endswith("Synchronize")
+                  or (e.get("name", "").startswith("cudaMemcpy") and _correlation(e) in dtoh))
+
+
+def _gaps(window, busy):
+    """The parts of the merged window not covered by the merged busy
+    intervals."""
+    if not window:
+        return []
+    out, cursor = [], window[0][0]
+    for a, b in busy:
+        if a > cursor:
+            out.append([cursor, a])
+        cursor = max(cursor, b)
+    if window[-1][1] > cursor:
+        out.append([cursor, window[-1][1]])
+    return out
+
+
+def _spans(annotations, idle, blocking):
+    """{span name: {"calls", "host_ms", "self_ms", "idle_ms", "blocking"}} of
+    the trace's host annotations (the program's spans, utils/profiling.py::
+    span, and torch's own), in the order they first open. self_ms: each span
+    less its child spans on its thread; idle_ms: device idle inside the
+    name's intervals (None without device events); blocking: blocking calls
+    that start inside them, on any thread."""
+    rows, ivs = {}, defaultdict(list)
+    by_thread = defaultdict(list)
+    for e in sorted(annotations, key=lambda e: (float(e["ts"]), -float(e["dur"]))):
+        ts, dur, name = float(e["ts"]), float(e["dur"]), e.get("name", "?")
+        row = rows.setdefault(name, {"calls": 0, "host_ms": 0.0, "self_ms": 0.0,
+                                     "idle_ms": None, "blocking": 0})
+        row["calls"] += 1
+        row["host_ms"] += dur / 1e3
+        row["self_ms"] += dur / 1e3
+        ivs[name].append((ts, ts + dur))
+        stack = by_thread[(e.get("pid"), e.get("tid"))]     # (end, name) of open spans
+        while stack and stack[-1][0] <= ts:
+            stack.pop()
+        if stack:
+            rows[stack[-1][1]]["self_ms"] -= dur / 1e3
+        stack.append((ts + dur, name))
+    for name, row in rows.items():
+        merged = _merge(ivs[name])
+        if idle is not None:
+            row["idle_ms"] = _length(_intersect(idle, merged)) / 1e3
+        row["blocking"] = sum(bisect.bisect_left(blocking, b) - bisect.bisect_left(blocking, a)
+                              for a, b in merged)
+    return rows
+
+
 def newest_trace(out_dir: str) -> str:
     files = [p for pat in ("*.pt.trace.json", "*.pt.trace.json.gz")
              for p in glob.glob(os.path.join(out_dir, "**", pat), recursive=True)]
@@ -208,12 +283,15 @@ def summarize(trace: dict) -> dict:
         if e.get("name") in lap and e.get("cat", "").lower() == "user_annotation":
             lap[e["name"]][0] += float(e["dur"]) / 1e3
             lap[e["name"]][1] += 1
+    idle = _gaps(span, _intervals(dev)) if dev else None
+    annotations = [e for e in containers if e.get("cat", "").lower() == "user_annotation"]
     return {"window_ms": window, "device_ms": sum(v[0] for v in by_cat.values()),
             "busy_ms": busy, "busy_share": busy / window if window else 0.0,
             "by_category": {c: tuple(by_cat[c]) for c in CATEGORIES if c in by_cat},
             "by_name": {k: tuple(v) for k, v in by_name.items()},
             "launches": dict(launches), "host": {k: tuple(v) for k, v in host.items()},
             "lap": {k: tuple(v) for k, v in lap.items()},
+            "spans": _spans(annotations, idle, _blocking(events, api)),
             "waits_by_op": {k: tuple(v) for k, v in sorted(
                 _enclosing(containers, waits).items(), key=lambda kv: -kv[1][0])},
             "on_card": bool(trace.get("deviceProperties")) or bool(api) or bool(dev)}
@@ -247,6 +325,13 @@ def report(path: str, steps: int, top: int) -> int:
         print(f"  {key:30s} {ms:10.3f} {ms / steps:9.3f} {'' if n is None else n:>7}")
     for key, (ms, n) in s["lap"].items():
         print(f"  {key:30s} {ms:10.3f} {ms / steps:9.3f} {n:7d}")
+    print("\n== program spans (calls; host, self and device-idle ms/step; blocking "
+          "calls/step) ==")
+    width = max(map(len, s["spans"]), default=0)
+    for name, r in s["spans"].items():
+        idle = "-" if r["idle_ms"] is None else f"{r['idle_ms'] / steps:9.3f}"
+        print(f"  {name:{width}s} {r['calls']:7d} {r['host_ms'] / steps:9.3f} "
+              f"{r['self_ms'] / steps:9.3f} {idle:>9} {r['blocking'] / steps:7.2f}")
     print("\n== copies and waits by the ops around them, outermost first "
           "(ms, ms/step, calls) ==")
     for key, (ms, n) in list(s["waits_by_op"].items())[:10]:
@@ -254,9 +339,10 @@ def report(path: str, steps: int, top: int) -> int:
     return 0
 
 
-def capture(out_dir: str, steps: int, device: str) -> None:
-    """bench.py's train workload: one dispatch of `steps` steps outside the
-    trace, then one traced dispatch into out_dir."""
+def capture(out_dir: str, steps: int, device: str, precision: str = "bf16") -> None:
+    """bench.py's train workload at `precision` (bf16 or f32): one dispatch
+    of `steps` steps outside the trace, then one traced dispatch into
+    out_dir."""
     import numpy as np
     import torch
 
@@ -272,7 +358,7 @@ def capture(out_dir: str, steps: int, device: str) -> None:
     args = default_config(
         N_train=3072, N_samples=64, N_importance=128, near=1.0, far=12.0, perturb=1.0,
         penalize=True, tolerance=0.05, deta_w=0.05, lrate=5e-4, lrate_decay=500,
-        precision="bf16", netdepth=8, netwidth=256, multires=10, multires_views=4,
+        precision=precision, netdepth=8, netwidth=256, multires=10, multires_views=4,
         pallas_train=True, ins_num=32)
     scene = make_scene(H=128, W=128, n_train=4, n_test=4)
     yy, xx = np.meshgrid(np.arange(scene.H), np.arange(scene.W), indexing="ij")
@@ -298,9 +384,11 @@ def main(argv=None) -> int:
     p.add_argument("--top", type=int, default=40)
     p.add_argument("--parse_only", action="store_true")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--precision", choices=("bf16", "f32"), default="bf16",
+                   help="the captured step's precision (its kernels' build)")
     a = p.parse_args(argv)
     if not a.parse_only:
-        capture(a.out, a.steps, a.device)
+        capture(a.out, a.steps, a.device, a.precision)
     return report(newest_trace(a.out), a.steps, a.top)
 
 

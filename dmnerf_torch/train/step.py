@@ -65,6 +65,7 @@ from dmnerf_torch.parallel.mesh import (Mesh2D, all_reduce_grads, data_axis, ran
                                         shard_batch)
 from dmnerf_torch.parallel.model_parallel import shard_params_model
 from dmnerf_torch.train.schedule import make_optimizer
+from dmnerf_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -168,9 +169,10 @@ def make_train_step(args, cfg: FieldConfig, sampler: str = "full", mesh=None):
     """step_fn(state, scene, gen, img_i) -> metrics (detached 0-d tensors);
     updates `state` in place. step_fn.loss_fn(params, rays_o, rays_d,
     target_c, target_i, gen, noise=None) -> (total, metrics) is the
-    differentiable part (under a mesh, on this rank's rows). mesh: a
-    DataMesh, a Mesh2D (the state from create_train_state(..., mesh=mesh))
-    or None.
+    differentiable part (under a mesh, on this rank's rows). Its two halves:
+    step_fn.draw(scene, gen, img_i) -> batch, and step_fn.update(state,
+    batch, gen) -> metrics. mesh: a DataMesh, a Mesh2D (the state from
+    create_train_state(..., mesh=mesh)) or None.
 
     args needs: N_train, N_samples, N_importance, near, far, perturb,
     penalize, tolerance, deta_w, ins_num, pallas_train, remat."""
@@ -204,29 +206,33 @@ def make_train_step(args, cfg: FieldConfig, sampler: str = "full", mesh=None):
     def loss_fn(params, rays_o, rays_d, target_c, target_i, gen, noise=None):
         coarse_fn = lambda pts, vd: field(params["coarse"], pts, vd)
         fine_fn = lambda pts, vd: field(params["fine"], pts, vd)
-        z_coarse = z_val_sample(rays_o.shape[0], near, far, n_samples, device=rays_o.device)
-        out = render_rays(coarse_fn, fine_fn, rays_o, rays_d, z_coarse, n_importance,
-                          generator=gen, perturb=perturb, noise=noise)
+        with span("train.forward"):
+            z_coarse = z_val_sample(rays_o.shape[0], near, far, n_samples, device=rays_o.device)
+            out = render_rays(coarse_fn, fine_fn, rays_o, rays_d, z_coarse, n_importance,
+                              generator=gen, perturb=perturb, noise=noise)
 
-        rgb_loss_c = img2mse(out["rgb_coarse"], target_c, mesh)
-        rgb_loss_f = img2mse(out["rgb_fine"], target_c, mesh)
-        loss_c, loss_f = ins_criterion_pair(
-            out["ins_coarse"][ins_rows], out["ins_fine"][ins_rows], target_i, ins_num,
-            logits_coarse=out["ins_logits_coarse"][ins_rows],
-            logits_fine=out["ins_logits_fine"][ins_rows], mesh=mesh, n_rays=n_ins)
-        rgb_loss = rgb_loss_f + rgb_loss_c
-        ins_loss = loss_f.total + loss_c.total
-        total = rgb_loss + ins_loss
-        if penalize:
-            for sfx in ("coarse", "fine"):
-                total = total + ins_penalizer(out[f"raw_{sfx}"], out[f"z_vals_{sfx}"],
-                                              out[f"depth_{sfx}"], rays_d,
-                                              args.tolerance, args.deta_w, mesh)
-        metrics = {"psnr_fine": mse2psnr(rgb_loss_f), "psnr_coarse": mse2psnr(rgb_loss_c),
-                   "rgb_loss": rgb_loss, "ins_loss": ins_loss, "total_loss": total}
+        with span("train.loss"):
+            rgb_loss_c = img2mse(out["rgb_coarse"], target_c, mesh)
+            rgb_loss_f = img2mse(out["rgb_fine"], target_c, mesh)
+            loss_c, loss_f = ins_criterion_pair(
+                out["ins_coarse"][ins_rows], out["ins_fine"][ins_rows], target_i, ins_num,
+                logits_coarse=out["ins_logits_coarse"][ins_rows],
+                logits_fine=out["ins_logits_fine"][ins_rows], mesh=mesh, n_rays=n_ins)
+            rgb_loss = rgb_loss_f + rgb_loss_c
+            ins_loss = loss_f.total + loss_c.total
+            total = rgb_loss + ins_loss
+            if penalize:
+                for sfx in ("coarse", "fine"):
+                    total = total + ins_penalizer(out[f"raw_{sfx}"], out[f"z_vals_{sfx}"],
+                                                  out[f"depth_{sfx}"], rays_d,
+                                                  args.tolerance, args.deta_w, mesh)
+            metrics = {"psnr_fine": mse2psnr(rgb_loss_f), "psnr_coarse": mse2psnr(rgb_loss_c),
+                       "rgb_loss": rgb_loss, "ins_loss": ins_loss, "total_loss": total}
         return total, metrics
 
-    def step_fn(state: TrainState, scene: SceneArrays, gen: torch.Generator, img_i: int):
+    def draw(scene: SceneArrays, gen: torch.Generator, img_i: int):
+        """The step's batch (rays_o, rays_d, target_c, target_i, noise): its
+        pixels of image img_i, their rays and targets, this rank's rows."""
         H, W = scene.images.shape[1:3]
         if sampler == "crop":
             pix, lab_pix = _select_pixels_crop(gen, scene, img_i, n_train, n_ins, H * W)
@@ -245,18 +251,33 @@ def make_train_step(args, cfg: FieldConfig, sampler: str = "full", mesh=None):
             rays_o, rays_d, target_c, noise = shard_batch((rays_o, rays_d, target_c, noise),
                                                          mesh)
             target_i = target_i[target_rows]
+        return rays_o, rays_d, target_c, target_i, noise
 
+    def update(state: TrainState, batch, gen: torch.Generator):
+        """Loss, gradients and one Adam step on a batch from draw."""
+        rays_o, rays_d, target_c, target_i, noise = batch
         total, metrics = loss_fn(state.params, rays_o, rays_d, target_c, target_i, gen, noise)
-        state.opt.zero_grad(set_to_none=True)
-        total.backward()
-        if mesh is not None:
-            all_reduce_grads([p for g in state.opt.param_groups for p in g["params"]], mesh)
-        state.opt.step()
-        state.sched.step()
+        # the gradients are cleared before backward (not after the update), so
+        # they stay readable on the parameters after the step
+        with span("train.backward"):
+            state.opt.zero_grad(set_to_none=True)
+            total.backward()
+        with span("train.optimizer"):
+            if mesh is not None:
+                all_reduce_grads([p for g in state.opt.param_groups for p in g["params"]], mesh)
+            state.opt.step()
+            state.sched.step()
         state.step += 1
         return {k: v.detach() for k, v in metrics.items()}
 
+    def step_fn(state: TrainState, scene: SceneArrays, gen: torch.Generator, img_i: int):
+        with span("train.draw"):
+            batch = draw(scene, gen, img_i)
+        return update(state, batch, gen)
+
     step_fn.loss_fn = loss_fn
+    step_fn.draw = draw
+    step_fn.update = update
     return step_fn
 
 
@@ -264,16 +285,20 @@ def make_train_scan_step(args, cfg: FieldConfig, sampler: str = "full", mesh=Non
     """scan_fn(state, scene, base_seed, i_train, n_steps) -> metrics of the
     last of n_steps steps. Step s draws its image (uniform over i_train) and
     all its randomness from step_randomness(base_seed, s): training is a pure
-    function of (init, base_seed, step)."""
+    function of (init, base_seed, step). Each step is one `train.step` span
+    around its five phases (utils/profiling.py)."""
     step_fn = make_train_step(args, cfg, sampler=sampler, mesh=mesh)
 
     def scan_fn(state: TrainState, scene: SceneArrays, base_seed: int,
                 i_train: np.ndarray, n_steps: int):
         metrics = None
         for _ in range(n_steps):
-            idx, gen = step_randomness(base_seed, state.step, len(i_train),
-                                       scene.images.device)
-            metrics = step_fn(state, scene, gen, int(i_train[idx]))
+            with span("train.step"):
+                with span("train.draw"):
+                    idx, gen = step_randomness(base_seed, state.step, len(i_train),
+                                               scene.images.device)
+                    batch = step_fn.draw(scene, gen, int(i_train[idx]))
+                metrics = step_fn.update(state, batch, gen)
         return metrics
 
     return scan_fn

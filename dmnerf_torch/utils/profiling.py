@@ -1,20 +1,45 @@
-# Ported from dmnerf_tpu/utils/profiling.py (trace on torch.profiler; ThroughputMeter copied as it is).
+# Ported from dmnerf_tpu/utils/profiling.py (trace on torch.profiler; span added; ThroughputMeter left out, nothing in the port reads it).
 """Profiling and observability helpers.
 
 The reference has no tracing (only per-image wall-clock prints). Here:
 torch.profiler trace capture around training windows, written as a
 Chrome/Perfetto trace (`*.pt.trace.json`, readable by
-`python -m dmnerf_torch.tools.trace_step --parse_only --out DIR`), and a
-windowed throughput meter.
+`python -m dmnerf_torch.tools.trace_step --parse_only --out DIR`), and the
+program's spans on torch.profiler's clock.
+
+Spans (`span`), each read by `tools/trace_step.py`'s span table and by the
+benchmark's per-layer metrics:
+- `train.step` (train/step.py::make_train_scan_step), one a step, and its
+  five disjoint children in order: `train.draw` (the step's randomness,
+  pixels, rays, targets and their shard), `train.forward` (render_rays: both
+  fields and the importance sampling), `train.loss` (photometric, instance
+  and penalizer; `lap.copy_to_host` and `lap.solve` inside it, from
+  losses/instance.py), `train.backward` (the gradients set to none, then
+  backward) and `train.optimizer` (the mesh's gradient sum, Adam and its
+  schedule);
+- `render.view` (eval/renderer.py::make_image_renderer's render_im_dev):
+  one view's rays, chunk launches, label reduction and the start of its copy
+  to the host.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
 
 import torch
+from torch.profiler import record_function
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A torch.profiler span `name` (record_function) while a profiler is
+    running, else a no-op that makes no dispatcher call: a span costs one
+    check when nothing traces."""
+    if torch._C._autograd._profiler_enabled():
+        return record_function(name)
+    return _OFF
 
 
 @contextlib.contextmanager
@@ -36,29 +61,3 @@ def trace(log_dir: str, device):
         finally:
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
-
-
-class ThroughputMeter:
-    """Windowed rays/sec + step-time tracker."""
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self):
-        self._t0 = time.perf_counter()
-        self._rays = 0
-        self._steps = 0
-
-    def update(self, n_rays: int):
-        self._rays += n_rays
-        self._steps += 1
-
-    @property
-    def rays_per_sec(self) -> float:
-        dt = time.perf_counter() - self._t0
-        return self._rays / dt if dt > 0 else 0.0
-
-    @property
-    def ms_per_step(self) -> float:
-        dt = time.perf_counter() - self._t0
-        return 1000.0 * dt / self._steps if self._steps else 0.0

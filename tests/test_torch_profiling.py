@@ -1,9 +1,12 @@
 """The port's profiling and run-record tools on the CPU: `cli.train
 --profile_steps` writes a torch.profiler trace and the same metrics as an
 untraced run; trace_step's reader on a committed Chrome-trace fixture with
-known durations (tests/torch_golden/trace/fixture.pt.trace.json);
-ThroughputMeter; check_resume_replay on a resumed run's metrics.jsonl; and
-quality_curve on a run's in-training evals."""
+known durations (tests/torch_golden/trace/fixture.pt.trace.json); the
+program's spans (utils/profiling.py::span) in the train step and the render
+view, and their readers, trace_step's span table and the benchmark's
+(benchmark/spans.py), on a hand-made trace with known idle intervals;
+check_resume_replay on a resumed run's metrics.jsonl; and quality_curve on a
+run's in-training evals."""
 
 import gzip
 import json
@@ -12,10 +15,17 @@ import shutil
 
 import numpy as np
 import pytest
+from torch.profiler import ProfilerActivity, profile
 
+from benchmark import harness, spans as bench_spans
 from dmnerf_torch.cli import train as cli_train
+from dmnerf_torch.config import default_config
+from dmnerf_torch.data.synthetic import make_scene
+from dmnerf_torch.eval.renderer import make_image_renderer
+from dmnerf_torch.models.fields import DMNeRFField, FieldConfig
 from dmnerf_torch.tools import check_resume_replay, quality_curve, trace_step
-from dmnerf_torch.utils.profiling import ThroughputMeter
+from dmnerf_torch.train.step import create_train_state, make_train_scan_step, scene_arrays
+from dmnerf_torch.utils import profiling
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "tests", "torch_golden", "trace")
@@ -107,6 +117,18 @@ def test_trace_reader_sums_the_fixture():
      "((anonymous namespace)::Heads)1>(float const*)", "kernel", "render_field_ins"),
     ("void (anonymous namespace)::composite_kernel<float, H_SIGMA>(float const*)", "kernel",
      "render_field_sigma_f32"),
+    # the bf16 composites' one template argument, by name or by value
+    ("void (anonymous namespace)::composite_kernel<H_ALL>(float const*)", "kernel",
+     "render_field_all"),
+    ("void (anonymous namespace)::composite_kernel<((anonymous namespace)::Heads)2>"
+     "(float const*, int)", "kernel", "render_field_sigma"),
+    ("void (anonymous namespace)::composite_kernel<H_INS>(float const*)", "kernel",
+     "render_field_ins"),
+    # the f32 composites (composite_f32.cuh)
+    ("void f32c::composite_f32<(Heads)0>(float const*, float const*)", "kernel",
+     "render_field_all_f32"),
+    ("void f32c::composite_f32<H_SIGMA>(float const*)", "kernel", "render_field_sigma_f32"),
+    ("void f32c::composite_f32<(Heads)1>(float const*)", "kernel", "render_field_ins_f32"),
     ("nvjet_tst_128x64_64x8_1x2_h_bz_coopA_NTN", "kernel", "gemm"),
     ("Memcpy HtoD (Pageable -> Device)", "gpu_memcpy", "copy"),
 ])
@@ -131,14 +153,173 @@ def test_trace_reader_reads_gzip_and_refuses_a_card_trace_without_device_events(
     assert "holds no device events" in capsys.readouterr().err
 
 
-def test_throughput_meter():
-    m = ThroughputMeter()
-    m.update(100)
-    m.update(100)
-    assert m.rays_per_sec > 0
-    assert m.ms_per_step > 0
-    m.reset()
-    assert m._steps == 0
+def _ev(name, cat, ts, dur, tid=1, corr=None):
+    e = {"ph": "X", "name": name, "cat": cat, "ts": ts, "dur": dur, "pid": 1, "tid": tid}
+    if corr is not None:
+        e["args"] = {"correlation": corr}
+    return e
+
+
+# One step (us): train.step over 0-1000 with its five phases, the LAP's spans
+# inside train.loss; five device events; idle 0-55, 58-160, 400-420,
+# 425-640, 800-920, 980-1000. Blocking: the DtoH copy (410) and the sync
+# (440) in lap.copy_to_host, the autograd thread's sync (700) in
+# train.backward; the HtoD copy (50) and the launches do not block.
+SPAN_TRACE = {"traceEvents": [
+    _ev("train.step", "user_annotation", 0, 1000),
+    _ev("train.step", "gpu_user_annotation", 160, 820, tid=7),
+    _ev("train.draw", "user_annotation", 0, 100),
+    _ev("cudaMemcpyAsync", "cuda_runtime", 50, 10, corr=6),
+    _ev("Memcpy HtoD (Pageable -> Device)", "gpu_memcpy", 55, 3, tid=7, corr=6),
+    _ev("train.forward", "user_annotation", 100, 200),
+    _ev("cudaLaunchKernel", "cuda_runtime", 150, 5, corr=7),
+    _ev("field_forward_kernel<__nv_bfloat16>", "kernel", 160, 240, tid=7, corr=7),
+    _ev("train.loss", "user_annotation", 300, 300),
+    _ev("lap.copy_to_host", "user_annotation", 400, 50),
+    _ev("cudaMemcpyAsync", "cuda_runtime", 410, 30, corr=5),
+    _ev("Memcpy DtoH (Device -> Pageable)", "gpu_memcpy", 420, 5, tid=7, corr=5),
+    _ev("cudaStreamSynchronize", "cuda_runtime", 440, 5),
+    _ev("lap.solve", "user_annotation", 450, 100),
+    _ev("train.backward", "user_annotation", 600, 300),
+    _ev("cudaLaunchKernel", "cuda_runtime", 620, 5, corr=8),
+    _ev("field_bwd_tile_kernel<__nv_bfloat16, 4>", "kernel", 640, 160, tid=7, corr=8),
+    _ev("cudaStreamSynchronize", "cuda_runtime", 700, 20, tid=2),
+    _ev("train.optimizer", "user_annotation", 900, 100),
+    _ev("cudaLaunchKernel", "cuda_runtime", 910, 5, corr=9),
+    _ev("multi_tensor_apply_kernel", "kernel", 920, 60, tid=7, corr=9),
+]}
+# (calls, host ms, self ms, device-idle ms, blocking calls)
+SPAN_WANT = {"train.step": (1, 1.0, 0.0, 0.532, 3), "train.draw": (1, 0.1, 0.1, 0.097, 0),
+             "train.forward": (1, 0.2, 0.2, 0.060, 0), "train.loss": (1, 0.3, 0.15, 0.195, 2),
+             "lap.copy_to_host": (1, 0.05, 0.05, 0.045, 2), "lap.solve": (1, 0.1, 0.1, 0.1, 0),
+             "train.backward": (1, 0.3, 0.3, 0.140, 1),
+             "train.optimizer": (1, 0.1, 0.1, 0.040, 0)}
+
+
+def test_span_table_on_a_hand_made_trace(tmp_path, capsys):
+    """trace_step's span table, in the order the spans open: calls, host and
+    self time, the device's idle time inside each span and the blocking calls
+    that start inside it; the phases' idle sums to the step's."""
+    s = trace_step.summarize(SPAN_TRACE)
+    assert list(s["spans"]) == list(SPAN_WANT)
+    for name, (calls, host, self_, idle, blocking) in SPAN_WANT.items():
+        r = s["spans"][name]
+        assert (r["calls"], r["blocking"]) == (calls, blocking), name
+        for k, v in (("host_ms", host), ("self_ms", self_), ("idle_ms", idle)):
+            assert r[k] == pytest.approx(v, abs=1e-9), (name, k)
+    phases = ("train.draw", "train.forward", "train.loss", "train.backward", "train.optimizer")
+    assert sum(s["spans"][p]["idle_ms"] for p in phases) == pytest.approx(
+        s["window_ms"] - s["busy_ms"])
+    # the LAP's copy names its phase among the waits
+    assert s["waits_by_op"]["train.step > train.loss > lap.copy_to_host"][1] == 2
+    # a trace without device events has no idle to read
+    cpu = {"traceEvents": [e for e in SPAN_TRACE["traceEvents"]
+                           if e["cat"] not in trace_step.DEVICE_CATS + trace_step.API_CATS]}
+    assert all(r["idle_ms"] is None for r in trace_step.summarize(cpu)["spans"].values())
+    (tmp_path / "s.pt.trace.json").write_text(json.dumps(SPAN_TRACE))
+    assert trace_step.main(["--parse_only", "--out", str(tmp_path), "--steps", "1"]) == 0
+    rows = {line.split()[0]: line.split()[1:] for line in capsys.readouterr().out.splitlines()
+            if line.startswith("  train.") or line.startswith("  lap.")}
+    assert rows["train.loss"] == ["1", "0.300", "0.150", "0.195", "2.00"]
+
+
+@pytest.mark.parametrize("metric,span,value", [
+    ("draw_idle_ms.train", "train.draw", 0.097), ("forward_idle_ms.train", "train.forward", 0.060),
+    ("loss_idle_ms.train", "train.loss", 0.195), ("backward_idle_ms.train", "train.backward", 0.140),
+    ("optimizer_idle_ms.train", "train.optimizer", 0.040), ("host_syncs.train", "train.step", 3),
+])
+def test_benchmark_span_readers_on_the_hand_made_trace(metric, span, value):
+    """benchmark/spans.py and each reader of BENCHMARK.json's span metrics
+    agree with trace_step's table, per traced step; without the spans (the
+    parent's program) or a traced run each reads nothing."""
+    read = harness.layer_reader(metric)
+    assert read({"traced": {"steps": 2, "trace": SPAN_TRACE}}) == pytest.approx(value / 2)
+    ours = trace_step.summarize(SPAN_TRACE)["spans"][span]
+    ix = bench_spans.index({"trace": SPAN_TRACE})
+    assert bench_spans.idle_ms(ix, span) == pytest.approx(ours["idle_ms"])
+    assert bench_spans.blocking_calls(ix, span) == ours["blocking"]
+    bare = {"traceEvents": [e for e in SPAN_TRACE["traceEvents"]
+                            if e["cat"] != "user_annotation"]}
+    assert read({"traced": {"steps": 2, "trace": bare}}) is None
+    cpu = {"traceEvents": [e for e in SPAN_TRACE["traceEvents"]
+                           if e["cat"] in ("user_annotation", "cpu_op")]}
+    assert read({"traced": {"steps": 2, "trace": cpu}}) is None
+    assert read({"untraced": {"steps": 2, "seconds": 1.0}}) is None
+    assert harness.layer_reader("view_idle_ms.render")(
+        {"traced": {"views": 1, "trace": SPAN_TRACE}}) is None
+
+
+def test_span_makes_no_record_function_call_without_a_profiler(monkeypatch):
+    calls = []
+    real = profiling.record_function
+
+    def counted(name):
+        calls.append(name)
+        return real(name)
+
+    monkeypatch.setattr(profiling, "record_function", counted)
+    for _ in range(3):
+        with profiling.span("train.step"):
+            pass
+    assert calls == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        with profiling.span("train.step"):
+            pass
+    assert calls == ["train.step"]
+
+
+def _toy_args(**over):
+    return default_config(N_train=32, N_samples=4, N_importance=4, near=1.0, far=12.0,
+                          perturb=1.0, penalize=True, tolerance=0.05, deta_w=0.05, lrate=5e-3,
+                          lrate_decay=500, precision="f32", netdepth=2, netwidth=32,
+                          multires=2, multires_views=2, N_test=64, **over)
+
+
+def _spans_of(prof):
+    return sorted(((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.name.startswith(("train.", "lap.", "render."))),
+                  key=lambda x: (x[0], -x[1]))
+
+
+def test_train_step_records_one_step_span_with_five_phases_in_order():
+    """A plain-path step of a toy config under the CPU profiler, 2 steps:
+    each train.step holds draw, forward, loss, backward and optimizer, in
+    that order, disjoint and inside it, and both lap.* spans inside the
+    loss."""
+    scene = make_scene(H=8, W=8, n_train=2, n_test=1)
+    args = _toy_args(pallas_train=False, ins_num=scene.ins_num)
+    cfg = FieldConfig.from_args(args)
+    state = create_train_state(0, cfg, args.lrate, args.lrate_decay)
+    scan = make_train_scan_step(args, cfg)
+    arrs = scene_arrays(scene, "cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        scan(state, arrs, 1, np.asarray(scene.i_train), 2)
+    ev = _spans_of(prof)
+    steps = [e for e in ev if e[2] == "train.step"]
+    assert len(steps) == 2
+    phases = ["train.draw", "train.forward", "train.loss", "train.backward", "train.optimizer"]
+    for a, b, _ in steps:
+        inside = [e for e in ev if a <= e[0] and e[1] <= b and e[2] != "train.step"]
+        kids = [e for e in inside if e[2] in phases]
+        assert [e[2] for e in kids] == phases
+        assert all(x[1] <= y[0] for x, y in zip(kids, kids[1:]))
+        la, lb, _ = kids[2]
+        laps = [e for e in inside if e[2].startswith("lap.")]
+        assert [e[2] for e in laps] == ["lap.copy_to_host", "lap.solve"]
+        assert all(la <= e[0] and e[1] <= lb for e in laps)
+    assert len(ev) == 2 * 8
+
+
+def test_render_many_records_one_view_span_a_view():
+    scene = make_scene(H=8, W=8, n_train=1, n_test=2)
+    args = _toy_args(ins_num=scene.ins_num)
+    cfg = FieldConfig.from_args(args)
+    params = {k: DMNeRFField(cfg) for k in ("coarse", "fine")}
+    render_im = make_image_renderer(cfg, args, 8, 8, device="cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        views = list(render_im.many(params, scene.K, scene.poses[:2]))
+    assert len(views) == 2
+    assert [e[2] for e in _spans_of(prof)] == ["render.view"] * 2
 
 
 def test_check_resume_replay_on_a_resumed_run(tmp_path, capsys):
