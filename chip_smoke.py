@@ -40,10 +40,14 @@ Phases (each fails the run by raising; nothing is caught):
    time of each kernel and its plain version (K1; K2; both); the same checks
    and times at K=64 on the coarse shape; the rate that torch.matmul reaches
    at [589,824 x 256] @ [256 x 256] bf16, as a reference for this width (the
-   port never calls it). 6b: K1 and K2 timed through builds of their core
+   port never calls it). 6b: K1 timed through builds of field_core.cuh
    with the weight slab loads, the per-slab barrier, or both taken out, and
-   on a 4 x 4 warp grid (built in parallel since phase 2, with phase 6c's
-   and phase 12's; timing only, the first three are wrong by design). 6c:
+   on a 4 x 4 warp grid; the bf16 K2 (field_bwd_wgmma.cuh at these shapes)
+   split at K2_SPLIT_SHAPES through the K2_SPLIT builds (its weight slab
+   loads, layer barriers, act/dys stores or dW staging taken out), in turns,
+   each with the device time of its tile pass, dW GEMM and reductions (built
+   in parallel since phase 2, with phase 6c's and phase 12's; timing only,
+   wrong by design). 6c:
    K4 on phase 3's rays through builds at 1, 4 and 8 rays per block beside
    the real build's choice (2), its weights equal at each (timing only).
 7. the training slice through its entry point: dmnerf_torch.cli.train on
@@ -612,6 +616,45 @@ F32_SPLIT = {
           "template <class T, Heads HEADS>\n__global__")]],
 }
 ABLATIONS.update({name: ("render_field", alts) for name, alts in F32_SPLIT.items()})
+# Where the bf16 K2's time goes (K2_SPLIT_SHAPES; timing only, the outputs
+# are wrong by design): field.cu built with one part taken out. The first
+# alternative is K2 on field_bwd_wgmma.cuh (the weight slabs' TMA loads, the
+# warpgroups' layer barriers, the act/dys TMA stores, or the dW GEMM's TMA
+# staging of act and dys after its first ring; a slab wait cannot go, since a
+# copy may not be expected on a stage before the last one landed), the second
+# the mma.sync K2 of field_core.cuh (its slab loads after the first ring, its
+# block barrier per slab, its row stores, its dW staging after the first
+# stages), so that k2_split_main splits an older tree's build too.
+_K2W = "field_bwd_wgmma.cuh"
+K2_SPLIT = {
+    "K2 split: weight slab loads out": [
+        [(_K2W, "                mbar_expect_tx(full, bytes);\n            }\n            __syncwarp();\n"
+                "            copy_slab(",
+          "                mbar_arrive(full);\n            }\n            __syncwarp();\n"
+          "            if (false) copy_slab(")],
+        [_SLAB_LOADS]],
+    "K2 split: barriers out": [
+        [(_K2W, 'asm volatile("bar.sync %0, 128;\\n" ::"r"(1 + (int)threadIdx.x / 128) : "memory");',
+          'asm volatile("" ::: "memory");')],
+        [_SLAB_BARRIER]],
+    "K2 split: row stores out": [
+        [(_K2W, "    if (threadIdx.x % 128 == 0) {\n        for (int b = 0; b < ncols / 64; ++b)",
+          "    if (false) {\n        for (int b = 0; b < ncols / 64; ++b)")],
+        [("field_core.cuh", "    if (threadIdx.x < TM<T>) {\n        asm volatile(\"cp.async.bulk.global",
+          "    if (false) {\n        asm volatile(\"cp.async.bulk.global")]],
+    "K2 split: dW staging out": [
+        [(_K2W, "                    mbar_expect_tx(full, (2 + nb) * GBOX);\n                }\n"
+                "                __syncwarp();\n                copy_stage(",
+          "                    if (s >= GSTAGES) mbar_arrive(full);\n"
+          "                    else mbar_expect_tx(full, (2 + nb) * GBOX);\n                }\n"
+          "                __syncwarp();\n                if (s < GSTAGES) copy_stage(")],
+        [("field.cu", "    auto load = [&](int s, int step) {\n",
+          "    auto load = [&](int s, int step) {\n        if (step >= DW_STAGES) return;\n")]],
+}
+ABLATIONS.update({name: ("field", alts) for name, alts in K2_SPLIT.items()})
+# the shapes of the split: the fine pass of the train step (3072 x 192, K=32)
+# and the coarse one at K=64 (3072 x 64)
+K2_SPLIT_SHAPES = {"P=589824": (32, 2, 192), "K=64 P=196608": (64, 64, 64)}
 CHILDREN = []                           # the processes this script starts
 
 
@@ -1188,8 +1231,9 @@ def field_work(case, part):
 
 def ablation_times(builds, fwd_k, bwd_k, card):
     """Phase 6b: K1 and K2 at P=589,824 through each ABLATIONS build of
-    field.cu, between two timings of the real build, in one stretch of the
-    run."""
+    field.cu but K2_SPLIT's, between two timings of the real build, in one
+    stretch of the run; then the bf16 K2 split (k2_split) through
+    K2_SPLIT's."""
     from dmnerf_torch.kernels import build
 
     phase("6b where K1/K2's time goes: the core with a part taken out, or on a 4 x 4 warp "
@@ -1197,8 +1241,8 @@ def ablation_times(builds, fwd_k, bwd_k, card):
     real = build.load_field
     rows = [("real kernels", cuda_ms(fwd_k), cuda_ms(bwd_k, 5))]
     try:
-        for name, lib in ablation_libs(builds, "field",
-                                       [n for n in ABLATIONS if n != F32_ONE_PASS]).items():
+        for name, lib in ablation_libs(builds, "field", [n for n in ABLATIONS if n != F32_ONE_PASS
+                                                         and n not in K2_SPLIT]).items():
             build.load_field = lambda lib=lib: lib
             rows.append((name, cuda_ms(fwd_k), cuda_ms(bwd_k, 5)))
     finally:
@@ -1206,6 +1250,93 @@ def ablation_times(builds, fwd_k, bwd_k, card):
     rows.append(("real kernels, again", cuda_ms(fwd_k), cuda_ms(bwd_k, 5)))
     for name, ms1, ms2 in rows:
         print(f"  {name}: K1 {ms1:.3f} ms, K2 {ms2:.3f} ms (P=589824; {card})")
+    k2_split({"real build": real(), **ablation_libs(builds, "field", list(K2_SPLIT))}, card)
+
+
+def k2_parts(fn, reps=3):
+    """Device ms per call of fn() in K2's kernels (torch.profiler, over the
+    calls the profile kept): {"tile pass", "dW GEMM", "reductions"}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    parts = {"tile pass": 0.0, "dW GEMM": 0.0, "reductions": 0.0}
+    calls = 0              # the launches the profile kept (a call has one tile pass)
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        for mark, part in (("field_bwd_tile_kernel", "tile pass"), ("dw_partial_kernel", "dW GEMM"),
+                           ("reduce_splits_kernel", "reductions")):
+            if mark in e.key:
+                parts[part] += us / 1e3
+                calls += e.count if part == "tile pass" else 0
+    return {k: v / max(calls, 1) for k, v in parts.items()}
+
+
+def k2_split(libs, card, label="this tree"):
+    """The bf16 K2 at K2_SPLIT_SHAPES (the flagship field) through each field
+    library of libs ({name: library}, the real build first), in turns: each
+    in order, then in reverse (the better of each pair): the CUDA-event
+    median of 5 calls, and the device time of its tile pass, dW GEMM and
+    reductions (torch.profiler). Timing only: the split builds' outputs are
+    wrong by design. Returns {name: {shape: (ms, parts)}}."""
+    from dmnerf_torch.kernels import build
+    from dmnerf_torch.kernels import field as kf
+
+    cases = {}
+    for shape, (ins_num, seed, S) in K2_SPLIT_SHAPES.items():
+        *_, case = field_cases(torch.device("cuda"), ins_num, seed, 3072, sorted({64, S}))
+        cases[shape] = case
+    real, times = build.load_field, {}
+    try:
+        for name in [*libs, *reversed(libs)]:
+            build.load_field = lambda lib=libs[name]: lib
+            for shape, (field, packed, pts, vd, pf, dirs, ppd, g) in cases.items():
+                fn = lambda: kf.field_backward(packed, pf, dirs, ppd, g)
+                ms, parts = cuda_ms(fn, 5, 1), k2_parts(fn)
+                old = times.setdefault(name, {}).get(shape)
+                if old is None or ms < old[0]:
+                    times[name][shape] = (ms, parts)
+    finally:
+        build.load_field = real
+    for shape in cases:
+        base = times[next(iter(libs))][shape][0]
+        for name, t in times.items():
+            ms, parts = t[shape]
+            print(f"  K2 split of {label}, {name}, {shape}: {ms:.3f} ms ({ms / base:.3f}x); "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()) + f" ms ({card})")
+    return times
+
+
+def k2_split_main(dirs=()):
+    """`python3 -c "import chip_smoke as cs; cs.k2_split_main()"`: the split
+    of this tree's bf16 K2 (K2_SPLIT), then of each directory of dirs (another
+    tree's dmnerf_torch/kernels/csrc), each beside its real build."""
+    from dmnerf_torch.kernels import build
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    trees = {"this tree": None, **{d: d for d in dirs}}
+    builds = {}
+    for i, (label, src) in enumerate(trees.items()):
+        root = os.path.join(REPO, "build", "k2_split", str(i))
+        builds[label] = start_ablation_builds(list(K2_SPLIT), src, root)
+        if src is not None:
+            builds[label]["real build"] = ("field", *patched_build(
+                "real build", src, os.path.join(root, "real"), "field", [[]]))
+    build.build_all(["field"])
+    for label, b in builds.items():
+        libs = ablation_libs(b, "field")
+        real = libs.pop("real build", None) or build.load_field()
+        k2_split({"real build": real, **libs}, card, label)
 
 
 def train_cfg(tmp, name, n_iters, extra=(), precision="bf16"):

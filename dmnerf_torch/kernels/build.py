@@ -87,6 +87,7 @@ _K2 = [_P, _P, _I, _I, _P, _P, _P, _I, _P,
        _P, _I, _P, _I, _P, _P,
        _P, _I, _P, _I, _I,
        _P, _P, _P]
+_K2W = [*_K2[:13], _P, _I, *_K2[13:]]         # and the ReLU masks' scratch
 # argument types of each entry point of csrc/render_field.cu and csrc/field.cu
 RENDER_FIELD_ENTRIES = {
     "render_field_sigma": _K4, "render_field_sigma_f32": _K4,
@@ -96,7 +97,8 @@ RENDER_FIELD_ENTRIES = {
 FIELD_ENTRIES = {
     "field_tile_rows": [], "field_tile_rows_f32": [], "field_scratch_widths": [_P, _I, _P, _P],
     "field_forward": _K1, "field_forward_f32": _K1,
-    "field_backward": _K2, "field_backward_f32": _K2,
+    "field_backward": _K2, "field_backward_f32": _K2, "field_backward_wgmma": _K2W,
+    "field_mask_words": [_P, _I],
 }
 
 

@@ -29,11 +29,18 @@
 //   per 128 points (4,608 x 1.40 MB = 6.45 GB per call at 589,824 points)
 //   with the next slab in flight. The epilogues (bias, ReLU, bf16 rounding)
 //   run on the accumulators and store bf16 pairs.
-// - mma.sync, not wgmma: a wgmma version of the same core (B from the ring
-//   in the canonical no-swizzle layout, A from registers) gave the same
-//   results on the card but was slower, since each slab waits for its
-//   products before the block barrier; overlapping them needs a producer
-//   warp and mbarriers, which is later work (PERF.md §6).
+// - mma.sync here: a wgmma version of this core (B from the ring in the
+//   canonical no-swizzle layout, A from registers) gave the same results on
+//   the card but was slower, since each slab waited for its products before
+//   the block barrier. The bf16 K2 now runs a pipeline of its own at widths
+//   128 and 256 (field_bwd_wgmma.cuh, launch_backward_wgmma: a producer
+//   warpgroup feeding a TMA ring behind mbarriers, consumer warpgroups on
+//   wgmma; kernels/field.py::k2_core chooses it by shape); this core keeps
+//   K1, K2's other shapes and every f32 build. Measured on the card (PERF.md
+//   section 6), the mma.sync K2 at 589,824 points spent 12.9 ms in its tile
+//   pass and 5.6 ms in the dW GEMM: taking out its weight slab loads saved
+//   22% of the tile pass, its per-slab barrier 7%, its act/dys row stores 27%,
+//   and the dW GEMM's staging 31% of the GEMM.
 // - Each layer's output is written over its input once every warp has read
 //   it (the accumulators hold the whole output), so a tile needs two
 //   activation buffers: H (the trunk, then ins_f/ins_h) and Bf (the
@@ -93,6 +100,7 @@
 #include <algorithm>
 #include <cstring>
 
+#include "field_bwd_wgmma.cuh"
 #include "field_tile.cuh"
 
 using core::Ring;
@@ -508,6 +516,17 @@ __global__ void reduce_splits_kernel(const float* __restrict__ partial, int n_sp
     }
 }
 
+// dw [n_w] and db [n_b]: the partials of the n_split point ranges, summed in
+// split order
+int reduce_splits(const float* partial_w, int n_w, float* dw, const float* partial_b, int n_b,
+                  float* db, int n_split, cudaStream_t st) {
+    reduce_splits_kernel<<<std::min((n_w + 255) / 256, 4096), 256, 0, st>>>(
+        partial_w, n_split, n_w, dw);
+    if (cudaError_t err = cudaGetLastError(); err != cudaSuccess) return (int)err;
+    reduce_splits_kernel<<<(n_b + 255) / 256, 256, 0, st>>>(partial_b, n_split, n_b, db);
+    return (int)cudaGetLastError();
+}
+
 int read_meta(const int* meta, int n_meta, Meta* m) {
     if (n_meta != META_INTS) return (int)cudaErrorInvalidValue;
     memcpy(m, meta, sizeof(Meta));
@@ -596,11 +615,63 @@ int launch_backward(const float* pts, const float* vdirs, int P, int ppd, const 
         act, L.ACT, dys, L.DYW, g, P, m.C, P_pad, psplit, J, partial_w, n_w, partial_b, n_b);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-    reduce_splits_kernel<<<std::min((n_w + 255) / 256, 4096), 256, 0, st>>>(
-        partial_w, n_split, n_w, dw);
+    return reduce_splits(partial_w, n_w, dw, partial_b, n_b, db, n_split, st);
+}
+
+// K2's bf16 build on field_bwd_wgmma.cuh's pipeline, for the shapes k2w::fits
+// admits: launch_backward's arguments, scratch and outputs, and the ReLU
+// masks' scratch (k2w::mask_words per thread of each tile).
+int launch_backward_wgmma(const float* pts, const float* vdirs, int P, int ppd, const bf16* w,
+                          const float* b, const int* meta, int n_meta, const float* g, bf16* act,
+                          int act_w, bf16* dys, int dy_w, uint32_t* masks, int mask_w, float* gx,
+                          float* gd, float* partial_w, int n_w, float* partial_b, int n_b,
+                          int psplit, float* dw, float* db, void* stream) {
+    static_assert(k2w::TM == core::TM<bf16> && k2w::GBM == BM && k2w::GBN == BN,
+                  "the tiles of field_tile_rows and the jobs of make_jobs");
+    Meta m;
+    if (int err = read_meta(meta, n_meta, &m)) return err;
+    const Layout L = make_layout(m);
+    const Jobs J = make_jobs(m, L);
+    if (!k2w::fits(m) || P < 1 || ppd < 1 || psplit < k2w::GBK || psplit % k2w::GBK
+        || act_w != L.ACT || dy_w != L.DYW || mask_w != k2w::mask_words(m)
+        || n_b != L.NB + m.CP || n_w < m.off_out + 2 * m.W * m.CP)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    const int tiles = (P + k2w::TM - 1) / k2w::TM, P_pad = tiles * k2w::TM;
+    const int n_split = (P_pad + psplit - 1) / psplit;
+    int smem_max;
+    if (int e = max_smem(&smem_max)) return e;
+
+    CUtensorMap act_map, dys_map;
+    k2w::Planner pb(w);
+    k2w::plan_tile(pb, m, gx != nullptr, gd != nullptr);
+    const size_t fixed = k2w::fixed_smem(m);
+    pb.p.stage_bytes = k2w::stage_bytes(m);
+    pb.p.stages = fixed < (size_t)smem_max
+        ? std::min(k2w::MAXSTAGES, (int)(((size_t)smem_max - fixed) / (pb.p.stage_bytes + 16)))
+        : 0;
+    if (!pb.ok || pb.p.stages < 2
+        || !k2w::encode(&act_map, act, P_pad, L.ACT, 64, 64, CU_TENSOR_MAP_SWIZZLE_128B)
+        || !k2w::encode(&dys_map, dys, P_pad, L.DYW, 64, 64, CU_TENSOR_MAP_SWIZZLE_128B))
+        return (int)cudaErrorInvalidValue;
+    const size_t smem = fixed + (size_t)pb.p.stages * (pb.p.stage_bytes + 16);
+    auto tile = m.W == 256 ? k2w::field_bwd_tile_kernel<bf16, 256>
+                           : k2w::field_bwd_tile_kernel<bf16, 128>;
+    cudaError_t err = cudaFuncSetAttribute(tile, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    tile<<<tiles, k2w::THREADS, smem, st>>>(pts, vdirs, P, ppd, b, m, L, pb.p, act_map, dys_map,
+                                            g, act, dys, masks, gx, gd);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    reduce_splits_kernel<<<(n_b + 255) / 256, 256, 0, st>>>(partial_b, n_split, n_b, db);
-    return (int)cudaGetLastError();
+
+    const int dw_smem = 1024 + k2w::GSTAGES * (k2w::GSTAGE + 16);
+    err = cudaFuncSetAttribute(k2w::dw_partial_kernel<bf16, Jobs>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, dw_smem);
+    if (err != cudaSuccess) return (int)err;
+    k2w::dw_partial_kernel<bf16, Jobs><<<dim3(J.tile0[J.n], n_split), k2w::THREADS, dw_smem, st>>>(
+        act_map, dys_map, g, P, m.C, P_pad, psplit, J, partial_w, n_w, partial_b, n_b);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    return reduce_splits(partial_w, n_w, dw, partial_b, n_b, db, n_split, st);
 }
 
 }  // namespace
@@ -649,6 +720,28 @@ int field_backward(const float* pts, const float* vdirs, int P, int ppd, const b
     return launch_backward<bf16>(pts, vdirs, P, ppd, w, b, meta, n_meta, g, act, act_w, dys,
                                  dy_w, gx, gd, partial_w, n_w, partial_b, n_b, psplit, dw, db,
                                  stream);
+}
+
+// Words of K2's ReLU mask scratch per thread of a tile, for
+// field_backward_wgmma (256 threads a tile): the shapes it takes, else 0.
+int field_mask_words(const int* meta, int n_meta) {
+    Meta m;
+    if (read_meta(meta, n_meta, &m) || !k2w::fits(m)) return 0;
+    return k2w::mask_words(m);
+}
+
+// K2 on field_bwd_wgmma.cuh's pipeline, for the shapes kernels/field.py::
+// k2_core gives it: the arguments of field_backward, and the ReLU masks'
+// scratch masks [P_pad / 128, mask_w, 256] (int32, mask_w from
+// field_mask_words).
+int field_backward_wgmma(const float* pts, const float* vdirs, int P, int ppd, const bf16* w,
+                         const float* b, const int* meta, int n_meta, const float* g,
+                         bf16* act, int act_w, bf16* dys, int dy_w, uint32_t* masks, int mask_w,
+                         float* gx, float* gd, float* partial_w, int n_w, float* partial_b,
+                         int n_b, int psplit, float* dw, float* db, void* stream) {
+    return launch_backward_wgmma(pts, vdirs, P, ppd, w, b, meta, n_meta, g, act, act_w, dys,
+                                 dy_w, masks, mask_w, gx, gd, partial_w, n_w, partial_b, n_b,
+                                 psplit, dw, db, stream);
 }
 
 // K2's f32 build: the same with fp32 weights and fp32 act / dys, P_pad = P

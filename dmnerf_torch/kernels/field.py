@@ -44,17 +44,20 @@ from dmnerf_torch.models.fields import FieldConfig, field_tensors, param_names
 # launches of each kernel since the last reset (the CPU plain path adds none)
 LAUNCHES: Dict[str, int] = {"field_forward": 0, "field_backward": 0,
                             "field_forward_f32": 0, "field_backward_f32": 0}
+# launches of K2's bf16 build by the core that ran them (k2_core)
+K2_CORES: Dict[str, int] = {"wgmma": 0, "mma_sync": 0}
 
-# points per fixed-order partial of K2's dW and bias sums (a multiple of the
-# dW pass's 32-point slabs)
+# points per fixed-order partial of K2's dW and bias sums (a multiple of either
+# dW pass's stages: 32 points on the mma.sync core, 64 on field_bwd_wgmma.cuh)
 PSPLIT = 16384
 # points per chunk of the plain backward (bounds its fp32 activations)
 REF_CHUNK = 1 << 16
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, K2_CORES):
+        for k in counts:
+            counts[k] = 0
 
 
 class Layout(NamedTuple):
@@ -92,6 +95,29 @@ def layout(packed: PackedField) -> Layout:
     m = [int(v) for v in packed.meta]
     D = m[0]
     return Layout(*m[:9], tuple(m[9:9 + D]), *m[25:36])
+
+
+# shared memory a block may take on the H100 (opt-in), bytes
+SMEM_H100 = 232448
+
+
+def k2_core(L: Layout, dtype: torch.dtype) -> Optional[str]:
+    """The core that K2's bf16 build runs for the packed layout L: "wgmma"
+    (csrc/field_bwd_wgmma.cuh: a producer warpgroup, a TMA-fed weight ring,
+    wgmma consumer warpgroups) for widths 128 and 256 with 4+K+1 padded at
+    most 128, where a tile's activations (64-column blocks), the hidden
+    layers' biases and a weight ring of two stages fit the H100's shared
+    memory (k2w::fits holds the same rule); else "mma_sync" (field_core.cuh).
+    None for the f32 build."""
+    if dtype != torch.bfloat16:
+        return None
+    W = L.W
+    if W not in (128, 256) or L.CP > 128:
+        return "mma_sync"
+    blocks = W // 64 + -(-(W + max(L.CP, L.DP)) // 64)      # of H and Bf, per warpgroup
+    biases = -(-L.boff_o * 4 // 1024) * 1024                  # the hidden layers', fp32
+    smem = 1024 + 2 * blocks * 64 * 128 + biases + 2 * (W * 64 + 16)
+    return "wgmma" if smem <= SMEM_H100 else "mma_sync"
 
 
 class FieldGrads(NamedTuple):
@@ -355,15 +381,25 @@ def field_backward(packed: PackedField, pts: torch.Tensor, dirs: torch.Tensor, p
     dw = torch.empty(n_w, dtype=f32, device=dev)
     db = torch.empty(n_b, dtype=f32, device=dev)
     name = "field_backward" + suffix
-    rc = getattr(lib, name)(
+    core = k2_core(L, packed.w.dtype)
+    scratch = [act.data_ptr(), aw.value, dys.data_ptr(), yw.value]
+    entry = name
+    if core == "wgmma":
+        # the ReLU masks of each tile, by words per thread
+        mask_w = lib.field_mask_words(packed.meta.ctypes.data, len(packed.meta))
+        masks = torch.empty((P_pad // tile, mask_w, 256), dtype=torch.int32, device=dev)
+        scratch += [masks.data_ptr(), mask_w]
+        entry = "field_backward_wgmma"
+    rc = getattr(lib, entry)(
         pts.data_ptr(), dirs.data_ptr(), P, ppd, packed.w.data_ptr(), packed.b.data_ptr(),
-        packed.meta.ctypes.data, len(packed.meta), g.data_ptr(),
-        act.data_ptr(), aw.value, dys.data_ptr(), yw.value,
+        packed.meta.ctypes.data, len(packed.meta), g.data_ptr(), *scratch,
         gx.data_ptr() if need_x else None, gd.data_ptr() if need_d else None,
         partial_w.data_ptr(), n_w, partial_b.data_ptr(), n_b, PSPLIT,
         dw.data_ptr(), db.data_ptr(), _stream(pts))
-    _raise_on(rc, lib, name)
+    _raise_on(rc, lib, entry)
     LAUNCHES[name] += 1
+    if core:
+        K2_CORES[core] += 1
     return FieldGrads(dw, db, gx[:P] if need_x else None, gd[:P] if need_d else None)
 
 

@@ -11,7 +11,8 @@ rays, 64+128 samples, two 8x256 fields, K=32 on the subdivided boxroom
 labels, penalizer and perturb on, the kernels K1/K2 in --precision's build,
 bf16 by default) on the card; one dispatch of --steps steps outside the
 trace (it builds the kernels), then one traced dispatch of --steps steps
-into --out.
+into --out; it prints that dispatch's kernel launches (kernels/field.py's
+LAUNCHES) and the bf16 K2's by core (K2_CORES: wgmma or mma_sync).
 
 --parse_only reads the newest *.pt.trace.json[.gz] under --out, which is also
 what `cli.train --profile_steps N` writes into {logdir}/profile (there pass
@@ -348,6 +349,7 @@ def capture(out_dir: str, steps: int, device: str, precision: str = "bf16") -> N
 
     from dmnerf_torch.config import default_config
     from dmnerf_torch.data.synthetic import make_scene
+    from dmnerf_torch.kernels import field as kf
     from dmnerf_torch.models.fields import FieldConfig
     from dmnerf_torch.train.step import create_train_state, make_train_scan_step, scene_arrays
     from dmnerf_torch.utils.profiling import trace
@@ -372,9 +374,11 @@ def capture(out_dir: str, steps: int, device: str, precision: str = "bf16") -> N
     step(state, arrs, 1, i_train, steps)                 # builds the kernels
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+    kf.reset_launches()
     with trace(out_dir, dev):
         step(state, arrs, 1, i_train, steps)
-    print(f"trace captured to {out_dir}", flush=True)
+    print(f"trace captured to {out_dir}; the traced dispatch's launches {kf.LAUNCHES}, "
+          f"K2's bf16 launches by core {kf.K2_CORES}", flush=True)
 
 
 def main(argv=None) -> int:

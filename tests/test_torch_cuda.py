@@ -207,6 +207,56 @@ def test_f32_kernels_match_plain_versions_on_the_card(width, ins_num, R, S, pe):
         assert (a - b).norm() <= F32_TOL * b.norm(), float((a - b).norm() / b.norm())
 
 
+def kernel_digests():
+    """sha256 (16 hex digits) of what K1, K3, K4 and K5 (bf16 and f32) and
+    K2's f32 build return for one field (8x256, ins_num 32, seed 5) and 16
+    rays x 70 points (TF32 off)."""
+    import hashlib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pts, vd, z, rd = _rays(16, 70, seed=5)
+    pf, dirs, ppd = kf.flatten_inputs(pts, vd)
+    g = torch.randn(16 * 70, 37, device="cuda", generator=torch.Generator("cuda").manual_seed(5))
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        cfg = FieldConfig(netdepth=8, netwidth=256, multires=10, multires_views=4, ins_num=32,
+                          compute_dtype=dtype)
+        packed = krf.pack_field(init_field_params(torch.Generator().manual_seed(5), cfg,
+                                                  device="cuda"))
+        build = kf.build_of(packed, "digests")
+        with torch.no_grad():
+            got = {"K1": [kf.field_forward(packed, pts, vd)],
+                   "K3": list(krf.render_field_all(packed, pts, vd, z, rd)),
+                   "K4": [krf.render_field_sigma(packed, pts, z, rd)],
+                   "K5": [krf.render_field_ins(packed, pts, z, rd)]}
+        if dtype == torch.float32:
+            got["K2"] = list(kf.field_backward(packed, pf, dirs, ppd, g, True, True))
+        for name, tensors in got.items():
+            h = hashlib.sha256()
+            for t in tensors:
+                h.update(t.detach().float().cpu().numpy().tobytes())
+            out[name + build] = h.hexdigest()[:16]
+    return out
+
+
+# kernel_digests() of the build before K2's bf16 pipeline of its own
+# (field_bwd_wgmma.cuh), on an NVIDIA H100 80GB HBM3 with CUDA 12.9's nvcc:
+# that change leaves these kernels bit for bit as they were
+PARENT_DIGESTS = {"K1": "6ed2b9ffb50cf7b5", "K3": "88a553a2495b3506", "K4": "4273883d49dfa336",
+                  "K5": "fc1a4d011189545e", "K1_f32": "601f831237d1609e",
+                  "K3_f32": "c09b8a191398166b", "K4_f32": "82ca0460bc65e2f2",
+                  "K5_f32": "b38149c0985f0b4b", "K2_f32": "e7a6dc568a04c1ff"}
+
+
+@pytest.mark.cuda
+def test_other_kernels_equal_their_builds_before_the_k2_pipeline():
+    """K1, K3, K4 and K5 (bf16 and f32) and the f32 K2 return the same bits as
+    the build before K2's bf16 pipeline of its own, which shares no device
+    code with them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    assert kernel_digests() == PARENT_DIGESTS
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("width,ins_num,R,S", [(64, 11, 37, 100), (256, 32, 16, 70),
                                                (256, 32, 2, 50), (256, 64, 16, 70),
@@ -226,9 +276,13 @@ def test_field_kernels_match_plain_versions_on_the_card(width, ins_num, R, S):
     at width 256). K2 is bit-identical across launches, and an
     instance-logit loss gives the trunk exactly zero. R*S is not a multiple
     of the kernels' 128-point tile, and 100 points leave one partial tile.
-    At width 256 ins_num 64 and 123 (CP 80 and 128) take K2's shallower
-    weight slabs; width 128 with ins_num 65 is replica64_stress's shape, and
-    width 64 with ins_num 123 an output layer twice as wide as the trunk."""
+    At width 256 ins_num 64 and 123 (CP 80 and 128) widen the cotangent K2's
+    tile pass keeps beside the rgb branch; width 128 with ins_num 65 is
+    replica64_stress's shape, and
+    width 64 with ins_num 123 an output layer twice as wide as the trunk.
+    Widths 128 and 256 run K2 on field_bwd_wgmma.cuh's pipeline, width 64 on
+    field_core.cuh's mma.sync core (kernels/field.py::k2_core, counted in
+    K2_CORES)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -252,6 +306,9 @@ def test_field_kernels_match_plain_versions_on_the_card(width, ins_num, R, S):
     torch.cuda.synchronize()
     assert kf.LAUNCHES == {"field_forward": 1, "field_backward": 3, "field_forward_f32": 0,
                            "field_backward_f32": 0}
+    core = "wgmma" if width in (128, 256) else "mma_sync"
+    assert kf.k2_core(kf.layout(packed), packed.w.dtype) == core
+    assert kf.K2_CORES == {"wgmma": 0, "mma_sync": 0, core: 3}
     assert raw.shape == want.shape and torch.isfinite(raw).all()
     raw, want = raw.reshape(-1, ins_num + 5), want.reshape(-1, ins_num + 5)
     err = (raw - want).abs()
@@ -267,6 +324,36 @@ def test_field_kernels_match_plain_versions_on_the_card(width, ins_num, R, S):
     names = [n for n, _ in field.named_parameters()]
     assert all(not t.any() for n, t in zip(names, zero) if n.startswith("mlps."))
     assert zero[names.index("ins_linear.weight")].abs().sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,ins_num,R,S", [(256, 32, 16, 70), (256, 64, 16, 70),
+                                               (256, 123, 2, 50), (128, 65, 16, 70)])
+def test_k2_pipeline_gives_the_bits_of_the_mma_sync_core(width, ins_num, R, S, monkeypatch):
+    """The bf16 K2 on field_bwd_wgmma.cuh's pipeline takes the mma.sync core's
+    sums in its order (16-deep products in order of the reduction; the dW
+    GEMM's points in order within each split, the bias sums point by point)
+    and rounds where it does, so the two cores give the same gradients and
+    encoding cotangents on the same inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = FieldConfig(netdepth=8, netwidth=width, multires=10, multires_views=4,
+                      ins_num=ins_num)
+    packed = krf.pack_field(init_field_params(torch.Generator().manual_seed(6), cfg,
+                                              device="cuda"))
+    pts, vd, _, _ = _rays(R, S, seed=6)
+    pf, dirs, ppd = kf.flatten_inputs(pts, vd)
+    g = torch.randn(R * S, ins_num + 5, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(6)) * 1e-3
+    kf.reset_launches()
+    got = kf.field_backward(packed, pf, dirs, ppd, g, True, True)
+    monkeypatch.setattr(kf, "k2_core", lambda L, dtype: "mma_sync")
+    was = kf.field_backward(packed, pf, dirs, ppd, g, True, True)
+    torch.cuda.synchronize()
+    assert kf.K2_CORES == {"wgmma": 1, "mma_sync": 1}
+    for a, b in zip(got, was):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

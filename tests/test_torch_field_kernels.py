@@ -194,6 +194,41 @@ def test_cpu_wrappers_take_the_plain_version_without_launching(prec):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
     assert kf.LAUNCHES == {"field_forward": 0, "field_backward": 0,
                            "field_forward_f32": 0, "field_backward_f32": 0}
+    assert kf.K2_CORES == {"wgmma": 0, "mma_sync": 0}
+
+
+# (netdepth, netwidth, ins_num, compute dtype) -> the core of K2's bf16 build
+# (kernels/field.py::k2_core; csrc/field_bwd_wgmma.cuh's k2w::fits): wgmma
+# at widths 128 and 256 with CP up to 128, mma.sync elsewhere, none for the
+# f32 build
+@pytest.mark.parametrize("depth,width,ins_num,dtype,core", [
+    (8, 256, 32, torch.bfloat16, "wgmma"),        # dmsr_k32, the flagship
+    (8, 256, 64, torch.bfloat16, "wgmma"),        # replica_k64: CP 80
+    (8, 256, 123, torch.bfloat16, "wgmma"),       # CP 128
+    (8, 128, 65, torch.bfloat16, "wgmma"),        # replica64_stress
+    (16, 256, 123, torch.bfloat16, "wgmma"),      # the deepest trunk
+    (2, 128, 3, torch.bfloat16, "wgmma"),
+    (8, 192, 32, torch.bfloat16, "mma_sync"),     # HW 96: not whole 64-column blocks
+    (8, 64, 11, torch.bfloat16, "mma_sync"),      # W 64
+    (8, 64, 123, torch.bfloat16, "mma_sync"),
+    (3, 32, 3, torch.bfloat16, "mma_sync"),       # W 32
+    (8, 160, 32, torch.bfloat16, "mma_sync"),
+    (8, 256, 32, torch.float32, None),            # the f32 build: its own core
+    (8, 64, 11, torch.float32, None),
+])
+def test_k2_core_by_shape(depth, width, ins_num, dtype, core):
+    cfg = tf.FieldConfig(netdepth=depth, netwidth=width, multires=10, multires_views=4,
+                         ins_num=ins_num, compute_dtype=dtype)
+    packed = pack_field(tf.DMNeRFField(cfg), slabs=False)
+    assert kf.k2_core(kf.layout(packed), packed.w.dtype) == core
+
+
+def test_reset_launches_clears_the_core_counts():
+    kf.K2_CORES["wgmma"], kf.K2_CORES["mma_sync"] = 3, 2
+    kf.LAUNCHES["field_backward"] = 5
+    kf.reset_launches()
+    assert kf.K2_CORES == {"wgmma": 0, "mma_sync": 0}
+    assert not any(kf.LAUNCHES.values())
 
 
 def test_flatten_inputs_and_validation():
@@ -262,3 +297,23 @@ def test_chip_smoke_counts_the_field_layers(part, over):
     want = sum(p.numel() for n, p in field.named_parameters()
                if n.endswith("weight") and n.startswith(heads))
     assert _chip_smoke().field_macs(field.cfg, part) == want
+
+
+@pytest.mark.parametrize("name", ["K2 split: weight slab loads out", "K2 split: barriers out",
+                                  "K2 split: row stores out", "K2 split: dW staging out"])
+def test_k2_split_builds_patch_text_in_the_sources(name):
+    """chip_smoke.py's K2_SPLIT entries (ABLATIONS of field.cu): the first
+    alternative patches field_bwd_wgmma.cuh's K2, the second field_core.cuh's
+    and field.cu's mma.sync K2; every old text is in these sources once, and
+    the patch changes it."""
+    import os
+    from dmnerf_torch.kernels.build import CSRC
+    cs = _chip_smoke()
+    lib, alternatives = cs.ABLATIONS[name]
+    assert lib == "field" and len(alternatives) == 2 and name in cs.K2_SPLIT
+    assert all(f == "field_bwd_wgmma.cuh" for f, _, _ in alternatives[0])
+    for patches in alternatives:
+        for f, old, new in patches:
+            text = open(os.path.join(CSRC, f)).read()
+            assert text.count(old) == 1 and old != new
+    assert set(cs.K2_SPLIT_SHAPES) == {"P=589824", "K=64 P=196608"}

@@ -129,6 +129,13 @@ def test_trace_reader_sums_the_fixture():
      "render_field_all_f32"),
     ("void f32c::composite_f32<H_SIGMA>(float const*)", "kernel", "render_field_sigma_f32"),
     ("void f32c::composite_f32<(Heads)1>(float const*)", "kernel", "render_field_ins_f32"),
+    # K2 on field_bwd_wgmma.cuh (k2w): its tile pass and dW GEMM
+    ("void k2w::field_bwd_tile_kernel<__nv_bfloat16>(float const*, float const*, int, int, "
+     "float const*, (anonymous namespace)::Meta, (anonymous namespace)::Layout, k2w::Plan, "
+     "float const*, __nv_bfloat16*, __nv_bfloat16*, float*, float*)", "kernel", "field_backward"),
+    ("void k2w::dw_partial_kernel<__nv_bfloat16, (anonymous namespace)::Jobs>(CUtensorMap_st, "
+     "CUtensorMap_st, float const*, int, int, int, int, (anonymous namespace)::Jobs, float*, int, "
+     "float*, int)", "kernel", "field_backward"),
     ("nvjet_tst_128x64_64x8_1x2_h_bz_coopA_NTN", "kernel", "gemm"),
     ("Memcpy HtoD (Pageable -> Device)", "gpu_memcpy", "copy"),
 ])
@@ -364,3 +371,26 @@ def test_quality_curve_collects_the_in_training_evals(tmp_path, capsys):
     shutil.rmtree(ldir / "testset_000004")
     with pytest.raises(SystemExit):
         quality_curve.main([str(ldir)])
+
+
+@pytest.mark.parametrize("name", [
+    "void k2w::field_bwd_tile_kernel<__nv_bfloat16>(float const*, float const*, int, int)",
+    "void k2w::dw_partial_kernel<__nv_bfloat16, (anonymous namespace)::Jobs>(CUtensorMap_st)",
+    "void (anonymous namespace)::field_bwd_tile_kernel<__nv_bfloat16, 32>(float const*)",
+    "void (anonymous namespace)::dw_partial_kernel<__nv_bfloat16>(__nv_bfloat16 const*, int)",
+    "reduce_splits_kernel(float const*, int, int, float*)",
+])
+def test_k2_kernels_count_as_field_backward_in_the_benchmark(name):
+    """Each kernel of the bf16 K2, on either core, is what the benchmark's
+    k2_roofline.train pattern and its trace reader count as K2, and what
+    trace_step files under field_backward."""
+    import importlib.util
+
+    from benchmark import trace_summary
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "benchmark", "layer_metrics", "k2_roofline.train.py")
+    spec = importlib.util.spec_from_file_location("k2_roofline_train", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert mod.PATTERN.search(name)
+    assert trace_summary.categorize(name) == trace_step.categorize(name) == "field_backward"
