@@ -45,6 +45,7 @@ from dmnerf_torch.kernels.render_field import make_render_field, pack_params
 from dmnerf_torch.edit.deform import deform_curve
 from dmnerf_torch.parallel.mesh import data_axis, gather, rank_share
 from dmnerf_torch.parallel.model_parallel import gather_params_model
+from dmnerf_torch.utils.profiling import span
 
 
 def _field_raw(field_fn, rays_o, rays_d, z_vals):
@@ -109,56 +110,71 @@ def manipulate_chunk(coarse_fn, fine_fn, ori_rays, tar_rays,
     coarse_fn/fine_fn(pts [N,S,3], viewdirs [N,1,3]) -> raw [N,S,C].
     fine_accum_fn(rays_o, rays_d, z_full) -> ins map [N, K+1] (air kept): the
     fused field+composite for the accumulated-label passes, whose raws are
-    only composited; None composites fine_fn's raw."""
+    only composited; None composites fine_fn's raw.
+
+    The phases are spans (utils/profiling.py::span), disjoint and in the
+    order the chain of dependencies runs them: edit.coarse, edit.resample,
+    edit.accum, edit.exchange, edit.resample, edit.fine, edit.exchange,
+    edit.fine (so three of the five names open twice a chunk)."""
     ori_o, ori_d = ori_rays
     N = ori_o.shape[0]
     n_obj = len(tar_rays)
 
-    ori_z = z_val_sample(N, near, far, n_samples, device=ori_o.device)
-    ori_raw = _field_raw(coarse_fn, ori_o, ori_d, ori_z)
-    ori_w = composite(ori_raw, ori_z, ori_d, keep_air=True).weights
-    ori_mid = 0.5 * (ori_z[..., 1:] + ori_z[..., :-1])
+    with span("edit.coarse"):
+        ori_z = z_val_sample(N, near, far, n_samples, device=ori_o.device)
+        ori_raw = _field_raw(coarse_fn, ori_o, ori_d, ori_z)
+        ori_w = composite(ori_raw, ori_z, ori_d, keep_air=True).weights
+        ori_mid = 0.5 * (ori_z[..., 1:] + ori_z[..., :-1])
 
-    # coarse fields and composites for every target first, so the (1 + n_obj)
-    # det inverse-CDF samplings are one sample_pdf call; the targets share
-    # ori_z (the same det linspace), so ori_mid serves every row
-    tar_raws, tar_rgbs = [], []
-    for tar_o, tar_d in tar_rays:
-        tar_raw = _field_raw(coarse_fn, tar_o, tar_d, ori_z)
-        c = composite(tar_raw, ori_z, tar_d, keep_air=True)
-        tar_raws.append(tar_raw)
-        tar_rgbs.append((c.rgb, c.weights))
+        # coarse fields and composites for every target first, so the (1 + n_obj)
+        # det inverse-CDF samplings are one sample_pdf call; the targets share
+        # ori_z (the same det linspace), so ori_mid serves every row
+        tar_raws, tar_rgbs = [], []
+        for tar_o, tar_d in tar_rays:
+            tar_raw = _field_raw(coarse_fn, tar_o, tar_d, ori_z)
+            c = composite(tar_raw, ori_z, tar_d, keep_air=True)
+            tar_raws.append(tar_raw)
+            tar_rgbs.append((c.rgb, c.weights))
 
-    w_all = torch.cat([ori_w[..., 1:-1]] + [tw[..., 1:-1] for _, tw in tar_rgbs], dim=0)
-    mid_all = ori_mid[:1].expand(w_all.shape[0], ori_mid.shape[1])
-    zs_all = sample_pdf(mid_all, w_all, n_importance, det=True)
-    ori_zs = zs_all[:N]
-    tar_zs_list = [zs_all[(i + 1) * N:(i + 2) * N] for i in range(n_obj)]
+    with span("edit.resample"):
+        w_all = torch.cat([ori_w[..., 1:-1]] + [tw[..., 1:-1] for _, tw in tar_rgbs], dim=0)
+        mid_all = ori_mid[:1].expand(w_all.shape[0], ori_mid.shape[1])
+        zs_all = sample_pdf(mid_all, w_all, n_importance, det=True)
+        ori_zs = zs_all[:N]
+        tar_zs_list = [zs_all[(i + 1) * N:(i + 2) * N] for i in range(n_obj)]
+        ori_union = _sorted_union(ori_z, ori_zs)
+        tar_unions = [_sorted_union(ori_z, tar_zs) for tar_zs in tar_zs_list]
 
     def _accum(o, d, z_full):
         if fine_accum_fn is not None:
             return fine_accum_fn(o, d, z_full)
         return composite(_field_raw(fine_fn, o, d, z_full), z_full, d, keep_air=True).ins
 
-    ori_accum = _accum(ori_o, ori_d, _sorted_union(ori_z, ori_zs))
-    tar_accums = [_accum(tar_o, tar_d, _sorted_union(ori_z, tar_zs))
-                  for (tar_o, tar_d), tar_zs in zip(tar_rays, tar_zs_list)]
+    with span("edit.accum"):
+        ori_accum = _accum(ori_o, ori_d, ori_union)
+        tar_accums = [_accum(tar_o, tar_d, z_full)
+                      for (tar_o, tar_d), z_full in zip(tar_rays, tar_unions)]
     tar_rgb, tar_ins_accum = tar_rgbs[-1][0], tar_accums[-1]
 
-    # pass 1: exchange coarse raws, re-composite, importance-resample
-    ori_raw_x = exchanger(ori_raw, tar_raws, ori_accum, tar_accums, move_labels)
-    w2 = composite(ori_raw_x, ori_z, ori_d, keep_air=True).weights
-    ori_zs2 = sample_pdf(ori_mid, w2[..., 1:-1], n_importance, det=True)
+    # pass 1: exchange coarse raws, re-composite
+    with span("edit.exchange"):
+        ori_raw_x = exchanger(ori_raw, tar_raws, ori_accum, tar_accums, move_labels)
+        w2 = composite(ori_raw_x, ori_z, ori_d, keep_air=True).weights
 
-    # pass 2: fine fields on the z union, exchange again, final composite. As
-    # in the JAX package, every object reuses the one union ori_z2 (the
-    # reference re-sorts it per object from tar_z == ori_z; PARITY.md)
-    ori_z2 = _sorted_union(ori_z, ori_zs2, *tar_zs_list)
-    ori_raw_f = _field_raw(fine_fn, ori_o, ori_d, ori_z2)
-    tar_raws_f = [_field_raw(fine_fn, tar_o, tar_d, ori_z2) for tar_o, tar_d in tar_rays]
-
-    final_raw = exchanger(ori_raw_f, tar_raws_f, ori_accum, tar_accums, move_labels)
-    f = composite(final_raw, ori_z2, ori_d, keep_air=True)
+    # pass 2: importance-resample, fine fields on the z union, exchange again,
+    # final composite. As in the JAX package, every object reuses the one
+    # union ori_z2 (the reference re-sorts it per object from tar_z == ori_z;
+    # PARITY.md)
+    with span("edit.resample"):
+        ori_zs2 = sample_pdf(ori_mid, w2[..., 1:-1], n_importance, det=True)
+        ori_z2 = _sorted_union(ori_z, ori_zs2, *tar_zs_list)
+    with span("edit.fine"):
+        ori_raw_f = _field_raw(fine_fn, ori_o, ori_d, ori_z2)
+        tar_raws_f = [_field_raw(fine_fn, tar_o, tar_d, ori_z2) for tar_o, tar_d in tar_rays]
+    with span("edit.exchange"):
+        final_raw = exchanger(ori_raw_f, tar_raws_f, ori_accum, tar_accums, move_labels)
+    with span("edit.fine"):
+        f = composite(final_raw, ori_z2, ori_d, keep_air=True)
     return f.rgb, f.ins, tar_rgb, tar_ins_accum
 
 

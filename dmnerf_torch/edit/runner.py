@@ -11,7 +11,9 @@
   {i}_ins.png and {i}_ins_pred_mask.png.
 
 Views are launched one ahead: view i+1's edit runs on the device while the
-host copies view i and computes its metrics and pngs. LPIPS
+host copies view i and computes its metrics and pngs. eval_views is
+manipulator_eval's stream of edited views without the metrics and pngs (the
+benchmark drives it); each view is one `edit.view` span. LPIPS
 (eval/lpips.py) runs on the edit's device with --lpips_weights; without
 weights its column and mean are NaN, as in the JAX package.
 
@@ -39,21 +41,45 @@ from dmnerf_torch.eval.metrics import psnr as psnr_fn, ssim as ssim_fn
 from dmnerf_torch.eval.renderer import _copy_to_host, _wait
 from dmnerf_torch.parallel.mesh import is_main
 from dmnerf_torch.utils.png import write_png
+from dmnerf_torch.utils.profiling import span
 from dmnerf_torch.edit.deform import deform_scale
 from dmnerf_torch.utils.viz import render_gt_label2img, render_label2img, to8b
 
 
 def _prefetch_map(dispatch, items, n: int, device):
     """Yield dispatch(i, item)'s outputs cropped to n rows, as numpy, in input
-    order, launching one item ahead of the one being copied to the host."""
+    order, launching one item ahead of the one being copied to the host. Each
+    item's dispatch and the start of its copy are one `edit.view` span
+    (utils/profiling.py)."""
     pending = None
     for i, item in enumerate(items):
-        cur = _copy_to_host(tuple(t[:n] for t in dispatch(i, item)), device)
+        with span("edit.view"):
+            cur = _copy_to_host(tuple(t[:n] for t in dispatch(i, item)), device)
         if pending is not None:
             yield _wait(pending)
         pending = cur
     if pending is not None:
         yield _wait(pending)
+
+
+def eval_views(cfg, params, args, hwk, trans, poses, *, device, mesh=None):
+    """manipulator_eval's edited views: the object args.target_label moved by
+    `trans` (4x4; the target pose of a view is trans @ its pose) in the view
+    from each pose of `poses` (any iterable), through
+    make_pose_image_manipulator (K1 and K5 with args.use_pallas). Yields
+    (rgb [H*W,3], label_full [H*W], label_noair [H*W], conf_noair [H*W]) as
+    numpy per pose, in order, view i+1 launched before view i's copy is
+    waited for. The manipulator is built here, before the first view."""
+    H, W, K = hwk
+    run_pose = make_pose_image_manipulator(
+        cfg, params, args, objs=[{"mode": "rigid"}], move_labels=[int(args.target_label)],
+        H=H, W=W, K=K, device=device, use_pallas=getattr(args, "use_pallas", False),
+        mesh=mesh)
+
+    def _dispatch(_i, ori_pose):
+        return run_pose(ori_pose, (trans @ np.asarray(ori_pose))[None], np.zeros(1))
+
+    return _prefetch_map(_dispatch, poses, H * W, torch.device(device))
 
 
 def resolve_target_channel(cfg, params, args, scene, *, device, n_views=3, targets=None,
@@ -97,21 +123,13 @@ def manipulator_eval(cfg, params, ori_poses, hwk, trans_dicts, save_dir, ins_rgb
                      gt_rgbs=None, gt_labels=None, color_dict=None, *, device, mesh=None):
     """Returns (mean PSNR, mean AP[6]) with ground truth, else None (and None
     on the ranks other than 0)."""
-    H, W, K = hwk
+    H, W, _ = hwk
     trans_dict = trans_dicts["transformations"][0]
     trans = np.array(trans_dict["transformation"], np.float64)
     save_dir = os.path.join(save_dir, trans_dict["mode"])
 
-    run_pose = make_pose_image_manipulator(
-        cfg, params, args, objs=[{"mode": "rigid"}], move_labels=[int(args.target_label)],
-        H=H, W=W, K=K, device=device, use_pallas=getattr(args, "use_pallas", False),
-        mesh=mesh)
-
-    def _dispatch(_i, ori_pose):
-        return run_pose(ori_pose, (trans @ ori_pose)[None], np.zeros(1))
-
     poses_np = np.asarray(ori_poses)
-    stream = _prefetch_map(_dispatch, poses_np, H * W, torch.device(device))
+    stream = eval_views(cfg, params, args, hwk, trans, poses_np, device=device, mesh=mesh)
     if not is_main(mesh):
         for _ in stream:
             pass

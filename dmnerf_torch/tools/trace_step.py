@@ -30,11 +30,12 @@ what `cli.train --profile_steps N` writes into {logdir}/profile (there pass
   `lap.copy_to_host` and `lap.solve` annotations);
 - one row per span, in the order they first open: the program's
   (utils/profiling.py::span: `train.step` and its phases, the LAP's,
-  `render.view`) and torch's own annotations (Adam's `Optimizer.step#...`):
-  calls, host ms/step, self ms/step (the span less its child spans on its
-  thread), the device's idle ms/step inside it, and the blocking CUDA
-  calls/step that start inside it, on any thread (any *Synchronize, and any
-  cudaMemcpy* whose copy runs device to host);
+  `render.view`, `edit.view` and its phases) and torch's own annotations
+  (Adam's `Optimizer.step#...`): calls, host ms/step, self ms/step (the
+  span less its child spans on its thread), the device's idle ms/step
+  inside it, and the blocking CUDA calls/step that start inside it, on any
+  thread (any *Synchronize, and any cudaMemcpy* whose copy runs device to
+  host);
 - the copies and waits by the torch ops and spans around each, outermost
   first (which op, in which phase, made the host wait for the device).
 A trace taken on the card that holds no device events is an error (exit 1).

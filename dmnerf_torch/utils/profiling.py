@@ -19,7 +19,18 @@ benchmark's per-layer metrics:
   schedule);
 - `render.view` (eval/renderer.py::make_image_renderer's render_im_dev):
   one view's rays, chunk launches, label reduction and the start of its copy
-  to the host.
+  to the host;
+- `edit.view` (edit/runner.py::_prefetch_map, under manipulator_eval,
+  eval_views and manipulator_demo): one whole-image edit, its rays and
+  padding, every chunk, the label reductions and the start of its copy; in
+  each chunk (edit/manipulator.py::manipulate_chunk) disjoint children in
+  the order of the chain: `edit.coarse` (the coarse fields and composites),
+  `edit.resample` (the first sample_pdf and the accumulated-label unions),
+  `edit.accum` (the fine accumulated-label passes, K5), `edit.exchange` (the
+  first exchanger and the re-composite), `edit.resample` (the second
+  sample_pdf and the fine union), `edit.fine` (the fine fields),
+  `edit.exchange` (the second exchanger) and `edit.fine` (the final
+  composite).
 """
 
 from __future__ import annotations
