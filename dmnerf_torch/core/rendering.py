@@ -2,7 +2,8 @@
 (port of dmnerf_tpu/core/rendering.py).
 
 - composite == reference render_train: alpha = 1-exp(-relu(sigma)*dist*|d|),
-  the literal exclusive cumprod of (1 - alpha + 1e-10) as transmittance, the
+  the literal exclusive cumprod of (1 - alpha + 1e-10) as transmittance (its
+  backward with no wait for the device: _CumprodNoZeros), the
   instance map composited with detached weights, passed through sigmoid, and
   the last ("air") channel dropped unless keep_air.
 - render_rays == reference dm_nerf: normalise viewdirs, optional stratified
@@ -37,13 +38,31 @@ def sample_dists(z_vals: torch.Tensor, rays_d: torch.Tensor) -> torch.Tensor:
     return dists * torch.linalg.norm(rays_d[..., None, :], dim=-1)
 
 
+class _CumprodNoZeros(torch.autograd.Function):
+    """torch.cumprod along the last axis of an input with no zero. The
+    forward is torch.cumprod; the backward is torch's own for such an input,
+    the reversed cumsum of out * g over x, without torch's test of x for
+    zeros, which copies a flag to the host and waits for the device."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return (out * g).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
 def alpha_weights(sigma: torch.Tensor, dists: torch.Tensor) -> torch.Tensor:
     """Compositing weights [R, S] from density sigma [R, S] and dists [R, S]:
-    alpha times the exclusive cumprod of (1 - alpha + 1e-10)."""
+    alpha times the exclusive cumprod of (1 - alpha + 1e-10). alpha lies in
+    [0, 1], so no factor of the cumprod is 0."""
     alpha = 1.0 - torch.exp(-torch.relu(sigma) * dists)
-    trans = torch.cumprod(
-        torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-10], dim=-1),
-        dim=-1)[..., :-1]
+    trans = _CumprodNoZeros.apply(
+        torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-10], dim=-1))[..., :-1]
     return alpha * trans
 
 

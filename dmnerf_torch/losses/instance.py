@@ -11,7 +11,7 @@ dmnerf_tpu/losses/instance.py; reference networks/evaluator.py:19-74).
   matched (1 - sIoU).
 
 Under a ray mesh (parallel/mesh.py) each rank holds some of the rays. The
-presence of each label (the bincount), and the per-rank partials gt.T @ logp,
+presence of each label (its count), and the per-rank partials gt.T @ logp,
 (1-gt).T @ log1mp, tp = gt.T @ pred, the column sums of pred and gt and the
 column means of pred (weighted by the rank's share of the n_rays rays) are
 summed across ranks (psum) before cost_ce (over the global n_rays), sIoU
@@ -45,7 +45,10 @@ def build_gt_onehot(gt_labels: torch.Tensor, ins_num: int, mesh: Optional[DataMe
     ordered by ascending label id present on any rank, row_valid [K] bool,
     valid_num)."""
     labels = gt_labels.long()
-    presence = psum(torch.bincount(labels, minlength=ins_num)[:ins_num], mesh) > 0
+    # the count of each label by a scatter of ones: torch.bincount reads the
+    # labels' min and max on the host, which waits for the device
+    counts = torch.zeros(ins_num, dtype=torch.long, device=labels.device)
+    presence = psum(counts.index_add_(0, labels, torch.ones_like(labels)), mesh) > 0
     valid_num = presence.sum()
     rank = torch.cumsum(presence.long(), 0) - 1                 # label id -> slot
     gt = F.one_hot(rank[labels], ins_num).float()
@@ -100,7 +103,9 @@ def ins_loss_from_stats(stats, row_valid, valid_num, ins_num: int):
     """The matched losses from (summed) statistics: stats holds one
     (cost_ce, cost_siou, column mean of pred) per field. All assignments come
     from one copy of the [len(stats), K, K] costs to the host and one solver
-    call each there; returns one InsLoss per field."""
+    call each there; returns one InsLoss per field. The copy of the costs is
+    the one wait for the device: on CUDA the assignments go back without
+    one."""
     cost = torch.stack([ce + siou for ce, siou, _ in stats]).detach()
     cost = torch.where(row_valid[None, :, None], cost, 0.0)
     # the spans name the copy (it waits for the queued forward) and the solve
@@ -111,8 +116,12 @@ def ins_loss_from_stats(stats, row_valid, valid_num, ins_num: int):
     nv = int(host[-1])
     costs = host[:-1].reshape(len(stats), ins_num, ins_num)
     with span("lap.solve"):
-        col4rows = np.stack([lap_square(c, nv) for c in costs])
-    col4rows = torch.from_numpy(col4rows).to(cost.device)
+        col4rows = torch.from_numpy(np.stack([lap_square(c, nv) for c in costs]))
+    if cost.device.type == "cuda":
+        # from pinned memory the copy back is queued without a wait (torch's
+        # pinned pool reuses the block only once the copy has run)
+        col4rows = col4rows.pin_memory()
+    col4rows = col4rows.to(cost.device, non_blocking=True)
     return tuple(_matched_loss(ce, siou, col_mean, row_valid, valid_num, ins_num, c4r)
                  for (ce, siou, col_mean), c4r in zip(stats, col4rows))
 

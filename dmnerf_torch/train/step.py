@@ -214,6 +214,12 @@ def make_train_step(args, cfg: FieldConfig, sampler: str = "full", mesh=None):
         with span("train.loss"):
             rgb_loss_c = img2mse(out["rgb_coarse"], target_c, mesh)
             rgb_loss_f = img2mse(out["rgb_fine"], target_c, mesh)
+            # the penalizers need no assignment, so they are queued before
+            # the instance loss waits for the device (its copy to the host)
+            penalties = [ins_penalizer(out[f"raw_{sfx}"], out[f"z_vals_{sfx}"],
+                                       out[f"depth_{sfx}"], rays_d,
+                                       args.tolerance, args.deta_w, mesh)
+                         for sfx in ("coarse", "fine")] if penalize else []
             loss_c, loss_f = ins_criterion_pair(
                 out["ins_coarse"][ins_rows], out["ins_fine"][ins_rows], target_i, ins_num,
                 logits_coarse=out["ins_logits_coarse"][ins_rows],
@@ -221,11 +227,8 @@ def make_train_step(args, cfg: FieldConfig, sampler: str = "full", mesh=None):
             rgb_loss = rgb_loss_f + rgb_loss_c
             ins_loss = loss_f.total + loss_c.total
             total = rgb_loss + ins_loss
-            if penalize:
-                for sfx in ("coarse", "fine"):
-                    total = total + ins_penalizer(out[f"raw_{sfx}"], out[f"z_vals_{sfx}"],
-                                                  out[f"depth_{sfx}"], rays_d,
-                                                  args.tolerance, args.deta_w, mesh)
+            for penalty in penalties:
+                total = total + penalty
             metrics = {"psnr_fine": mse2psnr(rgb_loss_f), "psnr_coarse": mse2psnr(rgb_loss_c),
                        "rgb_loss": rgb_loss, "ins_loss": ins_loss, "total_loss": total}
         return total, metrics

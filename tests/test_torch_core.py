@@ -13,6 +13,7 @@ from dmnerf_tpu.models import fields as jf
 from dmnerf_torch.core import rays as tr, rendering as trend, sampling as ts
 from dmnerf_torch.models import fields as tf
 from dmnerf_torch.models.convert import state_dict_from_jax
+from syncing_forms import cumprod_alpha_weights
 
 SMALL = dict(netdepth=3, netwidth=32, multires=4, multires_views=2, ins_num=4, skip=1)
 
@@ -103,6 +104,57 @@ def test_composite_matches_jax():
             np.testing.assert_allclose(getattr(got, name).numpy(),
                                        np.asarray(getattr(want, name)),
                                        atol=1e-5, rtol=1e-5, err_msg=name)
+
+
+def _transmittance_inputs(case, S, dtype, R=24, seed=5):
+    """(sigma, dists) [R, S]: random densities; with rows of opaque samples
+    (alpha exactly 1); or with rows whose transmittance underflows to 0."""
+    g = torch.Generator().manual_seed(seed)
+    sigma = (torch.randn(R, S, generator=g, dtype=torch.float64) * 3).to(dtype)
+    z = torch.sort(torch.rand(R, S, generator=g, dtype=torch.float64) * 5 + 1, -1)[0].to(dtype)
+    d = torch.randn(R, 3, generator=g, dtype=torch.float64).to(dtype)
+    if case == "opaque":
+        sigma[::3, S // 2] = 1e30
+        sigma[1::3, 0] = 1e30
+    elif case == "underflow":
+        sigma[::2] = 1e30
+    dists = trend.sample_dists(z, d)
+    if case != "random":
+        assert (1.0 - torch.exp(-torch.relu(sigma) * dists) == 1.0).any()
+    return sigma, dists
+
+
+@pytest.mark.parametrize("case", ["random", "opaque", "underflow"])
+@pytest.mark.parametrize("S", [64, 192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_transmittance_equals_torch_cumprod(case, S, dtype):
+    """The cumprod without the zero test (_CumprodNoZeros) gives torch.cumprod's
+    values and gradients bit for bit at the coarse and fine sample counts, on
+    rows with opaque samples and on rows whose transmittance underflows to 0;
+    alpha_weights without grad is unchanged."""
+    sigma, dists = _transmittance_inputs(case, S, dtype)
+    x = torch.cat([torch.ones_like(sigma[..., :1]),
+                   torch.exp(-torch.relu(sigma) * dists) + 1e-10], dim=-1)
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(1), dtype=dtype)
+    xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
+    got, want = trend._CumprodNoZeros.apply(xa), torch.cumprod(xb, dim=-1)
+    assert torch.equal(got, want)
+    (got * g).sum().backward()
+    (want * g).sum().backward()
+    assert torch.equal(xa.grad, xb.grad)
+    if case == "underflow":
+        assert (want[::2, -1] == 0).all()
+
+    gw = g[:, :S]
+    sa, sb = sigma.clone().requires_grad_(), sigma.clone().requires_grad_()
+    wa, wb = trend.alpha_weights(sa, dists), cumprod_alpha_weights(sb, dists)
+    assert torch.equal(wa, wb)
+    (wa * gw).sum().backward()
+    (wb * gw).sum().backward()
+    assert torch.isfinite(sa.grad).all()
+    assert torch.equal(sa.grad, sb.grad)
+    with torch.no_grad():
+        assert torch.equal(trend.alpha_weights(sigma, dists), cumprod_alpha_weights(sigma, dists))
 
 
 def test_render_rays_det_matches_jax():

@@ -8,8 +8,10 @@ mesh path's density query (K1) and vertex labels (K4 + K3), the stress
 scenes' ground truth march
 (data/procedural.py) on the card against the CPU, the JPEG codec
 (native/jpeg.cpp, built by this machine's g++) on its golden fixtures,
-LPIPS (eval/lpips.py) on the card against the CPU, and a train step split
-over two ranks on the one card (gloo) against one rank.
+LPIPS (eval/lpips.py) on the card against the CPU, a train step split
+over two ranks on the one card (gloo) against one rank, and three train
+steps at dmsr_k32's widths that wait for the card only to copy the LAP's
+costs, bit for bit the steps of the formulations that wait more.
 
 Imports no jax, so the machine with the card runs it without the JAX package's
 conftest:  python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -639,3 +641,87 @@ def test_two_gloo_ranks_on_one_card_match_one_rank(tmp_path):
         np.testing.assert_allclose(got[0]["metrics"][k], v, rtol=1e-5, err_msg=k)
     for g, w in zip(got[0]["grads"], want["grads"]):
         assert float((g - w).norm() / w.norm().clamp_min(1e-30)) <= 3e-2
+
+
+@pytest.mark.cuda
+def test_train_step_waits_for_the_card_only_to_copy_the_costs(monkeypatch):
+    """Three train steps at dmsr_k32's widths (two 8x256 fields, PE 10/4,
+    64 + 128 samples, 3072 rays, 32 slots, penalizer, bf16) on K1/K2. Under
+    torch.cuda.set_sync_debug_mode("error") inside every `train.step` span,
+    with only `lap.copy_to_host` exempt, no call synchronizes; and each
+    step's losses, gradients and weights are bit for bit those of the
+    formulations that wait (tests/syncing_forms.py: torch.cumprod's
+    autograd, torch.bincount and the assignments' copy back from pageable
+    memory), which do raise under the same mode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import contextlib
+
+    import syncing_forms
+    from dmnerf_torch.config import default_config
+    from dmnerf_torch.core import rendering
+    from dmnerf_torch.data.synthetic import make_scene
+    from dmnerf_torch.losses import instance
+    from dmnerf_torch.train import step as train_step
+    from dmnerf_torch.train.step import create_train_state, make_train_scan_step, scene_arrays
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    scene = make_scene(H=64, W=64, n_train=3, n_test=1)
+    args = default_config(N_train=3072, N_samples=64, N_importance=128, near=1.0, far=12.0,
+                          penalize=True, tolerance=0.05, deta_w=0.05, netdepth=8,
+                          netwidth=256, multires=10, multires_views=4, skip=4)
+    args.ins_num = 32
+    cfg = FieldConfig.from_args(args)
+    arrs = scene_arrays(scene, "cuda")
+    # 32 slots: labels drawn over all of them, ~31 present in a batch
+    labels = torch.randint(0, 32, arrs.labels.shape, generator=torch.Generator().manual_seed(2))
+    arrs = arrs._replace(labels=labels.cuda())
+
+    def steps():
+        state = create_train_state(0, cfg, device="cuda")
+        scan = make_train_scan_step(args, cfg)
+        out = []
+        for _ in range(3):
+            m = scan(state, arrs, 11, scene.i_train, 1)
+            params = state.opt.param_groups[0]["params"]
+            out.append((m, [p.grad.clone() for p in params], [p.detach().clone() for p in params]))
+        torch.cuda.synchronize()
+        return out
+
+    real = train_step.span
+
+    @contextlib.contextmanager
+    def span(name):
+        """The program's span; synchronizing raises inside every step, and
+        not inside the costs' copy."""
+        modes = {"train.step": ("error", 0), "lap.copy_to_host": (0, "error")}.get(name)
+        with real(name):
+            if modes:
+                torch.cuda.set_sync_debug_mode(modes[0])
+            try:
+                yield
+            finally:
+                if modes:
+                    torch.cuda.set_sync_debug_mode(modes[1])
+
+    with monkeypatch.context() as mp:
+        mp.setattr(train_step, "span", span)
+        mp.setattr(instance, "span", span)
+        got = steps()
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+    with monkeypatch.context() as mp:
+        mp.setattr(rendering, "alpha_weights", syncing_forms.cumprod_alpha_weights)
+        mp.setattr(instance, "build_gt_onehot", syncing_forms.bincount_gt_onehot)
+        mp.setattr(instance, "ins_loss_from_stats", syncing_forms.pageable_ins_loss_from_stats)
+        want = steps()
+        mp.setattr(train_step, "span", span)
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            steps()
+    torch.cuda.set_sync_debug_mode(0)
+
+    for (gm, gg, gp), (wm, wg, wp) in zip(got, want):
+        assert gm.keys() == wm.keys()
+        assert all(torch.equal(gm[k], wm[k]) for k in gm)
+        assert all(torch.equal(a, b) for a, b in zip(gg, wg))
+        assert all(torch.equal(a, b) for a, b in zip(gp, wp))

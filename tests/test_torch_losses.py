@@ -17,6 +17,7 @@ from dmnerf_tpu.losses import photometric as jp
 from dmnerf_torch.losses import emptiness as te
 from dmnerf_torch.losses import instance as ti
 from dmnerf_torch.losses import photometric as tp
+from syncing_forms import bincount_gt_onehot, gt_label_set
 
 TOL = dict(rtol=1e-9, atol=1e-12)
 
@@ -45,6 +46,17 @@ def test_build_gt_onehot(labels):
     np.testing.assert_array_equal(gt.numpy(), np.asarray(wgt))
     np.testing.assert_array_equal(rv.numpy(), np.asarray(wrv))
     assert int(n) == int(wn)
+
+
+@pytest.mark.parametrize("kind", ["all", "gaps", "single", "none"])
+@pytest.mark.parametrize("ins_num", [32, 64])
+def test_build_gt_onehot_equals_the_bincount_form(kind, ins_num):
+    """The presence counted by a scatter of ones gives the bincount form's
+    one-hot, row mask and count."""
+    labels = gt_label_set(kind, ins_num)
+    got, want = ti.build_gt_onehot(labels, ins_num), bincount_gt_onehot(labels, ins_num)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 def _ins_inputs(N=40, K=6, seed=0):

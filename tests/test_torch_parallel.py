@@ -31,6 +31,9 @@ from dmnerf_torch.models.convert import state_dict_from_jax
 from dmnerf_torch.parallel import mesh as pm
 
 import torch_parallel_ranks as ranks
+from syncing_forms import bincount_gt_onehot, gt_label_set
+
+GT_LABEL_SETS = [(kind, n) for n in (32, 64) for kind in ("all", "gaps", "single")]
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 run_ranks, one_process = ranks.run_ranks, ranks.one_process
@@ -50,7 +53,8 @@ def two_ranks(tmp_path_factory):
     args.ins_num = make_scene(H=8, W=8, n_train=1, n_test=1).ins_num
     cfg_j, pj = _jax_fields(args)
     inputs = {"fields": {k: state_dict_from_jax(jax.tree.map(np.asarray, v))
-                         for k, v in pj.items()}}
+                         for k, v in pj.items()},
+              "gt_labels": {key: gt_label_set(*key) for key in GT_LABEL_SETS}}
     got = run_ranks("train_render_edit", 2, tmp_path_factory.mktemp("w2"), inputs)
     return got, one_process("train_render_edit", inputs), (args, cfg_j, pj)
 
@@ -174,6 +178,20 @@ def test_metrics_read_on_every_rank_agree(two_ranks):
     for s0, s1 in zip(got[0]["b_steps"], got[1]["b_steps"]):
         assert all(np.isfinite(v) for v in s0["metrics"].values())
         assert s0["metrics"] == s1["metrics"]
+
+
+@pytest.mark.parametrize("key", GT_LABEL_SETS)
+def test_label_presence_over_two_ranks_equals_the_bincount_form(two_ranks, key):
+    """build_gt_onehot on each rank's half of a label set, the counts summed
+    over the ranks: the one-hot rows, row mask and count of the bincount form
+    on the whole set."""
+    got, _, _ = two_ranks
+    gt, row_valid, valid_num = bincount_gt_onehot(gt_label_set(*key), key[1])
+    half = len(gt) // 2
+    for r, g in enumerate(got):
+        rgt, rvalid, rnum = g["gt_onehot"][key]
+        assert torch.equal(rgt, gt[r * half:(r + 1) * half])
+        assert torch.equal(rvalid, row_valid) and torch.equal(rnum, valid_num)
 
 
 def test_put_and_broadcast_helpers(two_ranks):

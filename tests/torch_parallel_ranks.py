@@ -27,6 +27,7 @@ import torch  # noqa: E402
 
 from dmnerf_torch.config import default_config  # noqa: E402
 from dmnerf_torch.data.synthetic import make_scene, make_scene_crop  # noqa: E402
+from dmnerf_torch.losses.instance import build_gt_onehot  # noqa: E402
 from dmnerf_torch.models.fields import DMNeRFField, FieldConfig  # noqa: E402
 from dmnerf_torch.parallel.mesh import (barrier, broadcast_object, close_mesh,  # noqa: E402
                                         make_mesh, make_mesh_2d, put_replicated, put_sharded)
@@ -120,7 +121,8 @@ def train_render_edit(mesh, inputs):
     an 8x8 view; (b) 3 steps, perturb and penalizer on, from seed 0 on a
     16x16 scene; (d) a render (fused and unfused) and a 2-object edit (rigid
     and deform; whole image and one chunk) with the given fields, and
-    manipulator_eval through the runner."""
+    manipulator_eval through the runner; under a mesh also
+    build_gt_onehot of each rank's rows of each set of inputs["gt_labels"]."""
     from dmnerf_torch.edit.manipulator import make_manipulator, make_pose_image_manipulator
     from dmnerf_torch.eval.renderer import (make_chunk_renderer, make_image_renderer,
                                             render_image)
@@ -176,6 +178,8 @@ def train_render_edit(mesh, inputs):
                                          mesh=mesh)(*rays)
     out["mani_eval"] = _mani_eval(cfg, fields, scene, mesh)
     if mesh is not None:
+        out["gt_onehot"] = {key: build_gt_onehot(labels[mesh.rows(len(labels))], key[1], mesh)
+                            for key, labels in inputs.get("gt_labels", {}).items()}
         out["put_sharded"] = put_sharded(np.arange(12.0).reshape(6, 2), mesh)
         out["put_replicated"] = put_replicated(np.full(3, float(mesh.rank)), mesh)
         out["broadcast_object"] = broadcast_object(f"rank {mesh.rank}", mesh)
