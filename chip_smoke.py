@@ -27,29 +27,14 @@ Phases (each fails the run by raising; nothing is caught):
    flagship pair saved as 000001.tar; test_results.txt must hold finite PSNR
    and both kernels must have launched once per 4096-ray chunk per view. Then
    a 32x32 render through the kernels is held against the plain unfused path.
-5. throughput at bench.py's render workload: 128x128 views, 4 poses x 3,
-   K=32, N_test 4096, through make_image_renderer(...).many; then
-   torch.profiler over 4 more views: device time by kernel and the device's
-   idle share.
 6. K1 (field_forward) and K2 (field_backward) vs their plain versions at the
    flagship field (K=32, bf16) on the train step's shapes, 3072 rays x 64
    (coarse) and x 192 (fine) points: the error of raw per column (and that
    the check rejects raw with the rgb bias off by 10%), relative L2 error of
    every parameter's gradient, K2 bit-identical across two launches, an
    instance-logit loss giving the trunk exactly zero gradient, and the median
-   time of each kernel and its plain version (K1; K2; both); the same checks
-   and times at K=64 on the coarse shape; the rate that torch.matmul reaches
-   at [589,824 x 256] @ [256 x 256] bf16, as a reference for this width (the
-   port never calls it). 6b: K1 timed through builds of field_core.cuh
-   with the weight slab loads, the per-slab barrier, or both taken out, and
-   on a 4 x 4 warp grid; the bf16 K2 (field_bwd_wgmma.cuh at these shapes)
-   split at K2_SPLIT_SHAPES through the K2_SPLIT builds (its weight slab
-   loads, layer barriers, act/dys stores or dW staging taken out), in turns,
-   each with the device time of its tile pass, dW GEMM and reductions (built
-   in parallel since phase 2, with phase 6c's and phase 12's; timing only,
-   wrong by design). 6c:
-   K4 on phase 3's rays through builds at 1, 4 and 8 rays per block beside
-   the real build's choice (2), its weights equal at each (timing only).
+   time of each kernel and its plain version (K1; K2); the same checks and
+   times at K=64 on the coarse shape.
 7. the training slice through its entry point: dmnerf_torch.cli.train on
    boxroom128x8 at flagship width (N_train 3072, 64+128 samples, penalizer,
    bf16) for 30 steps with one in-train eval; every printed loss finite, K1
@@ -58,11 +43,6 @@ Phases (each fails the run by raising; nothing is caught):
    with bit-identical parameters. 7b: the field that phases 12 and 13 mesh,
    cli.train on boxroom128x8 at flagship width for MESH_STEPS steps (2 K1
    and 2 K2 launches each).
-8. training throughput at bench.py's train workload (bench.py:56-82: K=32 on
-   the subdivided boxroom labels, penalizer on; flags and scene through
-   dmnerf_torch.cli.train's loader): ms/step and rays/s over 20
-   steps after warm-up, the split of the step into K1, K2, the LAP's host
-   solve, pack_field and the rest, and torch.profiler over 3 steps.
 9. K5 (render_field_ins) vs its plain version at the flagship field (K=32) on
    phase 3's 4096 rays x 192 samples, the z-union of an accumulated-label
    pass (the det linspace and 128 det sample_pdf samples): per-ray max error
@@ -76,35 +56,22 @@ Phases (each fails the run by raising; nothing is caught):
    and none of K3/K4. Then a 32x32 edit through the kernels is held against
    the plain path (use_pallas False), and the same bars must reject two
    broken edits (the move label off by one; the second exchange skipped).
-11. edit throughput at bench.py's edit workload (bench.py:234-288: K=32, one
-   rigid object, N_test 4096): ms/image over 12 poses at 128x128 and 3 at
-   640x480, one view launched ahead as the runners do; the split of one
-   128x128 view into K1, K5, sample_pdf, the sorts, the exchanger, the
-   composites and the rest (CUDA events); torch.profiler over 2 views; and
-   the chunk over {1024, 2048, 4096, 8192} at 128x128 with its peak device
-   memory.
 12. the f32 builds (precision f32; their products three TF32 passes on the
    tensor cores) at the flagship field, K=32: K4, K3 and K5 on phase 3's
    rays against their plain f32 versions (F32_TOL) with their median times;
    K1/K2 at the train step's coarse and fine shapes, 3072 rays x 64 and x
    192 (589,824 points), against their plain f32 versions (F32_TOL; K2
    bit-identical across launches), the peak device memory of K2's f32
-   build, and their median times at both shapes, each also through the
-   ABLATIONS build with one TF32 pass in place of three (timing only); the
-   f32 train step at bench.py's train workload on the kernels against
-   --pallas_train False, in turns in this process; K3 and K5 f32 at 4096 x
-   192 through the F32_SPLIT builds (one TF32 pass, the weight slab loads,
-   the layer barriers or the composite taken out; timing only) between
-   timings of the real build; one f32 render view and one f32 edit view
-   (bench.py's render workload at 128x128; one rigid object) on the kernels
-   against use_pallas False, in turns, the kernels' view held to the plain
-   one (VIEW_OFF), every f32 composite launch held to its plain version on
-   its inputs (composites_held); then through the entry points, with the
-   same holding: dmnerf_torch.cli.train for
-   3 steps, dmnerf_torch.cli.test --render of its .tar and a
-   manipulator_eval, each launching only f32 builds, as many as the bf16
-   runs launch bf16 ones; and dmnerf_torch.cli.test --mesh of phase 7b's
-   field in f32 at grid 64, launching only the f32 builds of K1, K4 and K3.
+   build, and their median times at both shapes; one f32 render view and
+   one f32 edit view (128x128, one rigid object) on the kernels and on the
+   plain path (use_pallas False), every f32 composite launch held to its
+   plain version on its inputs (composites_held) and the kernels' view held
+   to the plain one (VIEW_OFF); then through the entry points, with the
+   same holding: dmnerf_torch.cli.train for 3 steps, dmnerf_torch.cli.test
+   --render of its .tar and a manipulator_eval, each launching only f32
+   builds, as many as the bf16 runs launch bf16 ones; and
+   dmnerf_torch.cli.test --mesh of phase 7b's field in f32 at grid 64,
+   launching only the f32 builds of K1, K4 and K3.
 13. the mesh slice through its entry point: dmnerf_torch.cli.test --mesh of
    phase 7b's field at the default grid 256, extents 12,12,12 (the verify
    skill's): both PLY files, a non-empty mesh, at least 2 labels,
@@ -113,10 +80,9 @@ Phases (each fails the run by raising; nothing is caught):
    grid, host->device, density and K1's share of it by CUDA events,
    marching cubes native or numpy, cleanup, normals and vertex rays, labels,
    PLY writes), V and F. Then the labels of the first N_test vertex rays
-   against the plain unfused route (98%, phase 4b's bar), a 589,824-point
+   against the plain unfused route (98%, phase 4b's bar) and a 589,824-point
    slice of the grid through K1 against the plain forward (RAW_COL_TOL,
-   RAW_L2_TOL), the grid's sigma and its share above the iso level, and the
-   density query at 2^19, 2^21 and 2^23 points per launch.
+   RAW_L2_TOL).
 14. reference-format scenes: dmnerf_torch.tools.make_stress_scenes writes
    the DM-SR stress scene (640x480, 48 train + 4 test views and 4 edited,
    16 objects) and replica64 (360 frames at 120x160, 64 objects) on the
@@ -179,9 +145,10 @@ Phases (each fails the run by raising; nothing is caught):
    on its trace, which must hold device events and exactly 2 launches of
    K1 and of K2 per traced step; (d) `python -m
    dmnerf_torch.tools.trace_step` capturing bench.py's train workload
-   (CAPTURE_STEPS steps): device time by category, the top kernels, the device's busy
-   share and the host's time in launches, copies and waits, torch ops and
-   Python, with the LAP's spans.
+   (trace_step.bench_workload, CAPTURE_STEPS steps): device time by
+   category, the top kernels, the device's busy share and the host's time
+   in launches, copies and waits, torch ops and Python, with the LAP's
+   spans.
 17. the ray mesh (dmnerf_torch/parallel/mesh.py): (a) `python -m
    torch.distributed.run --nproc_per_node 1` of cli.train (phase 7's 30
    flagship steps with an in-train eval at 15) and of cli.test --render,
@@ -191,18 +158,20 @@ Phases (each fails the run by raising; nothing is caught):
    process bit for bit, and the launches equal. (b) two ranks of this file
    (`--rank mesh`) on cuda:0, their collectives over gloo, while this process
    runs the same work alone (mesh_work): RANK_STEPS steps of bench.py's
-   train workload (3072 rays, 64+128, K=32, penalizer and perturb on), then
-   a 128x128 render and a 1-object edit of a fresh pair; the first step's
+   train workload (trace_step.bench_workload: 3072 rays, 64+128, K=32,
+   penalizer and perturb on), then a 128x128 render and a 1-object edit of
+   a fresh pair; the first step's
    raws equal to one rank's rows bit for bit, its gradients within GRAD_TOL
    relative L2 per parameter, the ranks' parameters, gradients and metrics
    bit-identical, the render bit for bit and the edit within phase 10b's
    bars; exact launches per rank (2 K1 and 2 K2 per step, 4 K4 and 4 K3 per
    render, 16 K1 and 8 K5 per edit), and the phase's seconds.
 18. the 2-D (data, model) mesh (parallel/mesh.py::make_mesh_2d,
-   parallel/model_parallel.py): bench.py's train workload is made once here
-   and handed to the ranks; (a) `torch.distributed.run --nproc_per_node 1`
-   of this file (`--rank grid1`) at make_mesh_2d(1, 1) over NCCL: one bf16
-   step on each pallas_train path, gradients, parameters and metrics equal
+   parallel/model_parallel.py): bench.py's train workload
+   (trace_step.bench_workload) is made once here and handed to the ranks;
+   (a) `torch.distributed.run --nproc_per_node 1` of this file (`--rank
+   grid1`) at make_mesh_2d(1, 1) over NCCL: one bf16 step on each
+   pallas_train path, gradients, parameters and metrics equal
    to the same step in this process bit for bit; (b) four ranks of this
    file (`--rank grid4`) under torchrun on cuda:0, their collectives over
    gloo, run dmnerf_torch.graft_entry.dryrun_multichip(4) on a (2, 2) mesh
@@ -214,12 +183,16 @@ Phases (each fails the run by raising; nothing is caught):
    each rank's parameter and Adam bytes (the split leaves at 1/2, the heads
    whole), exact launches per rank; and graft_entry.entry() in this process
    (the flagship forward of 1024 rays on K1). Prints the phase's seconds.
-Phases 3, 6, 9 and 12 also print each kernel's bound (the larger of its
+Phases 3, 3b, 6, 9 and 12 also print each kernel's bound (the larger of its
 operations over the peak of its type and its bytes over the memory rate:
 bf16 tensor cores; for the f32 builds three TF32 passes at the TF32 rate,
-with the fp32 CUDA-core bound beside it), its TFLOP/s and its share of the
-bound. `python3 chip_smoke.py --ab DIR ...` times this tree's kernels
-against another tree's sources in one process instead (ab_main).
+with the fp32 CUDA-core bound beside it; the operations as
+benchmark/counts.py counts them), its TFLOP/s and its share of the bound.
+There is no phase 5, 6b, 6c, 8 or 11: the benchmark (benchmark/run.py)
+times the render view, the train step and the edit view at published
+shapes, and the kernels are timed here alone. `python3 chip_smoke.py --ab
+DIR ...` times this tree's kernels against another tree's sources in one
+process instead (ab_main).
 The line before the last is a JSON object with one entry per kernel and
 build (its K=64 reading under "k64", its phase-14 and phase-15 errors per
 config under "stress_max_abs_err"; launches summed over the main paths,
@@ -240,6 +213,8 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+
+from benchmark import counts
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SRC = "dmnerf_torch/kernels/csrc/render_field.cu"
@@ -363,21 +338,18 @@ def composites_held(worst):
 # Published dense peaks of an H100 SXM at 700 W (NVIDIA's data sheet): the
 # least time a kernel could take is the larger of its operations over the
 # rate of their type and its bytes (each input read once, each output
-# written once) over the memory rate. bf16 builds: the bf16 tensor-core
-# rate. f32 builds: fp32-accurate products on this card are three TF32
-# passes on the tensor cores (3 x operations at the TF32 rate), a tighter
-# bound than the fp32 CUDA-core rate, which is printed beside it.
-PEAK_BF16_FLOPS = 989e12
+# written once) over the memory rate (counts.PEAK_BYTES). bf16 builds: the
+# bf16 tensor-core rate (counts.PEAK_BF16_FLOPS). f32 builds: fp32-accurate
+# products on this card are three TF32 passes on the tensor cores (3 x
+# operations at the TF32 rate), a tighter bound than the fp32 CUDA-core
+# rate, which is printed beside it.
 PEAK_TF32_FLOPS = 495e12
 PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
 # steps of phase 7b's training: enough for boxroom128x8's walls and boxes to
 # reach the mesh's iso level 0.45, sigma > -ln(0.55) * 128 / 11 = 6.96 at
 # N_importance 128 and near/far 1/12. On an NVIDIA H100 (700 W) the 400-step
 # field gave 1,819,582 faces at 256^3 (sigma up to ~10).
 MESH_STEPS = 400
-# phase 12: timed steps of each turn of the f32 train step
-STEP_RUNS = 10
 # the render kernels' f32 launch counts, in a run that launches only bf16 ones
 F32_NONE = {"render_field_sigma_f32": 0, "render_field_all_f32": 0, "render_field_ins_f32": 0}
 
@@ -401,37 +373,27 @@ def check(name, out, got, want, sigma_last):
     return held
 
 
-def field_macs(cfg, part, need_x=False, need_d=False):
-    """Multiply-adds per point of the unpadded field layers that a kernel
-    computes: "sigma" (K4: trunk + density), "ins" (K5: trunk, density and the
-    instance branch), "all" (K1, K3: the whole field) or "backward" (K2: the
-    forward without its output layer, the activation gradients, the
-    encoding cotangents when asked, and one product per weight for dW)."""
-    D, W, HW, X, V = cfg.netdepth, cfg.netwidth, cfg.netwidth // 2, cfg.pos_ch, cfg.view_ch
-    K1 = cfg.ins_num + 1
-    trunk = X * W + (D - 1) * W * W + (X * W if cfg.skip + 1 < D else 0)
-    ins = W * W + W * HW + HW * K1
-    rgb = W * W + (W + V) * HW + HW * 3
-    if part == "sigma":
-        return trunk + W
+def field_macs(cfg, part):
+    """Multiply-adds per point of the work a kernel does, as the benchmark
+    counts it (benchmark/counts.py) for a FieldConfig: "sigma" (K4: trunk
+    and density), "ins" (K5: those and the instance branch, as
+    k5_roofline.edit counts it), "all" (K1, K3: the whole field) or
+    "backward" (K2: the activation gradients and one product per weight for
+    dW, not the forward that K2 recomputes)."""
+    c = vars(cfg)
     if part == "ins":
-        return trunk + W + ins
-    total = trunk + W + ins + rgb
-    if part == "all":
-        return total
-    fwd = total - (HW * K1 + HW * 3 + W)                   # no output layer
-    dx = (HW * K1 + HW * 3) + W * HW + W * HW + W + W * W + (D - 1) * W * W
-    dx += (X * W * (2 if cfg.skip + 1 < D else 1) if need_x else 0) + (V * HW if need_d else 0)
-    return fwd + dx + total
+        d = counts.field_dims(c)
+        return counts.trunk_macs(c) + d["W"] * d["W"] + d["W"] * d["HW"] + d["HW"] * d["K1"]
+    return {"sigma": counts.trunk_macs, "all": counts.forward_macs,
+            "backward": counts.backward_macs}[part](c)
 
 
-def roofline(entry, macs, nbytes, peak=PEAK_BF16_FLOPS):
-    """Adds the bound (ms, and whether operations or bytes set it; operations
-    at the rate peak), the achieved TFLOP/s and the library yardstick (none)
-    to a kernels entry."""
-    t_ops, t_bytes = 2.0 * macs / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-    entry.update(bound_ms=max(t_ops, t_bytes),
-                 bound_by="operations" if t_ops >= t_bytes else "bytes",
+def roofline(entry, macs, nbytes):
+    """Adds the bound (ms, and whether operations or bytes set it;
+    counts.least_time_s), the achieved TFLOP/s and the library yardstick
+    (none) to a kernels entry."""
+    secs, by = counts.least_time_s(2.0 * macs, nbytes)
+    entry.update(bound_ms=secs * 1e3, bound_by=by,
                  tflops=2.0 * macs / (entry["ms"] * 1e-3) / 1e12, library_ms=None)
     print(f"{entry['name']}: bound {entry['bound_ms']:.3f} ms ({entry['bound_by']}; "
           f"{2.0 * macs / 1e12:.4f} TFLOP, {nbytes / 1e6:.1f} MB), {entry['tflops']:.1f} "
@@ -446,7 +408,7 @@ def roofline_f32(entry, macs, nbytes):
     CUDA-core bound of the FFMA design (ffma_bound_ms) stands beside it, so
     that a share above 100% of it reads as the tensor cores' work."""
     flop = 2.0 * macs
-    t_ops, t_bytes = 3 * flop / PEAK_TF32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_ops, t_bytes = 3 * flop / PEAK_TF32_FLOPS * 1e3, nbytes / counts.PEAK_BYTES * 1e3
     t_ffma = max(flop / PEAK_FP32_FLOPS * 1e3, t_bytes)
     entry.update(bound_ms=max(t_ops, t_bytes),
                  bound_by="operations" if t_ops >= t_bytes else "bytes",
@@ -534,257 +496,7 @@ def wide_render_kernels(dev, card, ro, rd, vd, z):
     return out
 
 
-# Timing-only builds, each the real sources with one patch: {name: (the
-# library, [alternative, ...])}, an alternative a list of (file, old, new)
-# patches; the first alternative whose old texts are all in the sources
-# applies. The K1/K2 core with one part taken out (their outputs are wrong by
-# design and are not checked), and with the 4 x 4 warp grid in place of 2 x 8:
-# where the kernels' time goes, and what the grid gives.
-_SLAB_LOADS = ("field_core.cuh",
-               "            if (!s.trans) {            // rows r0+k0 .. +ks, every column",
-               "            if (t > STAGES) {} else if (!s.trans) {            // rows r0+k0 .. +ks, every column")
-_SLAB_BARRIER = ("field_core.cuh", "        cp_async_wait<STAGES - 2>();\n        __syncthreads();",
-                 "        cp_async_wait<STAGES - 2>();")
-_ONE_PASS = ("field_core.cuh", "    mma1688(t, al, bh);\n    mma1688(t, ah, bl);\n", "")
-# The f32 builds' products in one TF32 pass (hi_a hi_b) in place of three:
-# whether the tensor pipe or the operand loads and splits bound them.
-F32_ONE_PASS = "f32: one TF32 pass"
-ABLATIONS = {
-    F32_ONE_PASS: ("field", [[_ONE_PASS]]),
-    "weight slab loads out": ("field", [[_SLAB_LOADS]]),
-    "per-slab barrier out": ("field", [[_SLAB_BARRIER]]),
-    "loads and barrier out": ("field", [[_SLAB_LOADS, _SLAB_BARRIER]]),
-    "4 x 4 warp grid": ("field", [[("field_core.cuh", "constexpr int WM = 2, WN = 8;",
-                                    "constexpr int WM = 4, WN = 4;")]]),
-}
-# K4 at a fixed count of rays per block in place of group_rays' choice (2 at
-# S = 64): the sweep behind that rule (its weights must equal the real build's)
-K4_SWEEP = [f"K4 with G={g} rays per block" for g in (1, 4, 8)]
-for _G, _name in zip((1, 4, 8), K4_SWEEP):
-    ABLATIONS[_name] = ("render_field", [[(
-        "render_field.cu", "const int G = group_rays(",
-        f"const int G = HEADS == H_SIGMA ? {_G} : group_rays(")]])
-# Where the f32 composites' time goes (K3 and K5 f32 at 4096 x 192; timing
-# only, the outputs are wrong by design): render_field.cu built with one part
-# taken out. The first alternative is the f32 composite of these sources
-# (composite_f32.cuh: a producer warp, an mbarrier ring, wgmma; "barriers
-# out" takes out the named barriers between layers: its slab waits cannot
-# go, since a bulk copy may not be expected on a stage before the last one
-# landed), the second the design before it (composite_kernel<float> on
-# field_core.cuh's mma.sync ring; "barriers out" takes out the per-slab
-# block barrier), so that `--ab` splits an older tree's build too.
-_F32C = "composite_f32.cuh"
-F32_SPLIT = {
-    "f32 split: one TF32 pass": [
-        [(_F32C, "            wgmma_n<NT>(p, al, bh, 0);\n            wgmma_n<NT>(p, ah, bl, 1);\n"
-                 "            wgmma_n<NT>(p, ah, bh, 1);",
-          "            wgmma_n<NT>(p, ah, bh, 0);")],
-        [_ONE_PASS]],
-    "f32 split: weight slab loads out": [
-        [(_F32C, "                mbar_expect_tx(full, bytes);\n                bulk_copy(",
-          "                mbar_arrive(full);\n                if (false) bulk_copy(")],
-        [_SLAB_LOADS]],
-    "f32 split: barriers out": [
-        [(_F32C, 'asm volatile("bar.sync 1, %0;\\n" ::"n"(CONSUMERS) : "memory");',
-          'asm volatile("" ::: "memory");')],
-        [_SLAB_BARRIER]],
-    "f32 split: composite out": [
-        [(_F32C, "        if (HEADS == H_SIGMA) for_pairs(sig, 8, 8, put);\n"
-                 "        else for_pairs(acc, m.CP, m.CP, put);",
-          "        if (keep_alive(acc, R) || keep_alive(sig, R)) for_pairs(acc, m.CP, m.CP, put);"),
-         (_F32C, "        if (tid < nv)\n            alpha[tid]",
-          "        if (false)\n            alpha[tid]"),
-         (_F32C, "        if (mine && i0 < i1) {", "        if (false) {"),
-         (_F32C, "template <Heads HEADS>\n__global__",
-          "template <int M>\n__device__ bool keep_alive(float (&a)[M], int R) {\n"
-          "    float s = 0.0f;\n#pragma unroll\n    for (int i = 0; i < M; ++i) s += a[i];\n"
-          "    return __float_as_int(s) == -R;\n}\n\ntemplate <Heads HEADS>\n__global__")],
-        [("render_field.cu",
-          "        __syncthreads();                 // every warp has read ins_h in H\n"
-          "        core::for_pairs(",
-          "        __syncthreads();                 // every warp has read ins_h in H\n"
-          "        if (keep_alive(acc_out, R)) core::for_pairs("),
-         ("render_field.cu", "        if (tid < nv)\n            alpha[tid]",
-          "        if (false)\n            alpha[tid]"),
-         ("render_field.cu", "        if (mine && i0 < i1) {", "        if (false) {"),
-         ("render_field.cu", "template <class T, Heads HEADS>\n__global__",
-          "template <int M, int N>\n__device__ bool keep_alive(float (&a)[M][N][4], int R) {\n"
-          "    float s = 0.0f;\n#pragma unroll\n    for (int i = 0; i < M; ++i)\n#pragma unroll\n"
-          "        for (int j = 0; j < N; ++j)\n"
-          "            s += a[i][j][0] + a[i][j][1] + a[i][j][2] + a[i][j][3];\n"
-          "    return __float_as_int(s) == -R;\n}\n\n"
-          "template <class T, Heads HEADS>\n__global__")]],
-}
-ABLATIONS.update({name: ("render_field", alts) for name, alts in F32_SPLIT.items()})
-# Where the bf16 K2's time goes (K2_SPLIT_SHAPES; timing only, the outputs
-# are wrong by design): field.cu built with one part taken out. The first
-# alternative is K2 on field_bwd_wgmma.cuh (the weight slabs' TMA loads, the
-# warpgroups' layer barriers, the act/dys TMA stores, or the dW GEMM's TMA
-# staging of act and dys after its first ring; a slab wait cannot go, since a
-# copy may not be expected on a stage before the last one landed), the second
-# the mma.sync K2 of field_core.cuh (its slab loads after the first ring, its
-# block barrier per slab, its row stores, its dW staging after the first
-# stages), so that k2_split_main splits an older tree's build too.
-_K2W = "field_bwd_wgmma.cuh"
-K2_SPLIT = {
-    "K2 split: weight slab loads out": [
-        [(_K2W, "                mbar_expect_tx(full, bytes);\n            }\n            __syncwarp();\n"
-                "            copy_slab(",
-          "                mbar_arrive(full);\n            }\n            __syncwarp();\n"
-          "            if (false) copy_slab(")],
-        [_SLAB_LOADS]],
-    "K2 split: barriers out": [
-        [(_K2W, 'asm volatile("bar.sync %0, 128;\\n" ::"r"(1 + (int)threadIdx.x / 128) : "memory");',
-          'asm volatile("" ::: "memory");')],
-        [_SLAB_BARRIER]],
-    "K2 split: row stores out": [
-        [(_K2W, "    if (threadIdx.x % 128 == 0) {\n        for (int b = 0; b < ncols / 64; ++b)",
-          "    if (false) {\n        for (int b = 0; b < ncols / 64; ++b)")],
-        [("field_core.cuh", "    if (threadIdx.x < TM<T>) {\n        asm volatile(\"cp.async.bulk.global",
-          "    if (false) {\n        asm volatile(\"cp.async.bulk.global")]],
-    "K2 split: dW staging out": [
-        [(_K2W, "                    mbar_expect_tx(full, (2 + nb) * GBOX);\n                }\n"
-                "                __syncwarp();\n                copy_stage(",
-          "                    if (s >= GSTAGES) mbar_arrive(full);\n"
-          "                    else mbar_expect_tx(full, (2 + nb) * GBOX);\n                }\n"
-          "                __syncwarp();\n                if (s < GSTAGES) copy_stage(")],
-        [("field.cu", "    auto load = [&](int s, int step) {\n",
-          "    auto load = [&](int s, int step) {\n        if (step >= DW_STAGES) return;\n")]],
-}
-ABLATIONS.update({name: ("field", alts) for name, alts in K2_SPLIT.items()})
-# the shapes of the split: the fine pass of the train step (3072 x 192, K=32)
-# and the coarse one at K=64 (3072 x 64)
-K2_SPLIT_SHAPES = {"P=589824": (32, 2, 192), "K=64 P=196608": (64, 64, 64)}
 CHILDREN = []                           # the processes this script starts
-
-
-def patched_build(name, src, out, lib, alternatives):
-    """Copy the csrc directory src to out, apply the first of alternatives
-    whose old texts are all found there, and start nvcc on out/<lib>.cu:
-    (library path, process)."""
-    import shutil
-    from dmnerf_torch.kernels import build
-    shutil.rmtree(out, ignore_errors=True)
-    shutil.copytree(src, out)
-    texts = {}
-    for patches in alternatives:
-        texts = {f: open(os.path.join(out, f)).read() for f, _, _ in patches
-                 if os.path.exists(os.path.join(out, f))}
-        if all(f in texts and old in texts[f] for f, old, _ in patches):
-            for f, old, new in patches:
-                texts[f] = texts[f].replace(old, new)
-            break
-    else:
-        raise AssertionError(f"ablation {name!r}: no alternative's texts are all in {src}")
-    for f, text in texts.items():
-        open(os.path.join(out, f), "w").write(text)
-    so = os.path.join(out, f"lib{lib}.so")
-    proc = subprocess.Popen(
-        [build._nvcc(), *build.NVCC_FLAGS, "-o", so, os.path.join(out, f"{lib}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    CHILDREN.append(proc)
-    return so, proc
-
-
-def start_ablation_builds(names=None, src=None, root=None):
-    """One nvcc per ABLATIONS entry (of those in names, if given) on the
-    sources in src (this tree's csrc by default), started now (they build
-    while the real kernels are checked): {name: (library name, library path,
-    process)}."""
-    import shutil
-    from dmnerf_torch.kernels import build
-    root = root or os.path.join(REPO, "build", "ablation")
-    shutil.rmtree(root, ignore_errors=True)
-    out = {}
-    for i, (name, (lib, alternatives)) in enumerate(ABLATIONS.items()):
-        if names is None or name in names:
-            out[name] = (lib, *patched_build(name, src or build.CSRC, os.path.join(root, str(i)),
-                                             lib, alternatives))
-    return out
-
-
-def ablation_libs(builds, lib, names=None):
-    """{name: the bound library} of the ABLATIONS builds of library lib (of
-    those in names, if given), waiting for each build."""
-    from dmnerf_torch.kernels import build
-    entries, error = {"field": (build.FIELD_ENTRIES, "field_error_string"),
-                      "render_field": (build.RENDER_FIELD_ENTRIES,
-                                       "render_field_error_string")}[lib]
-    out = {}
-    for name, (which, so, proc) in builds.items():
-        if which != lib or (names is not None and name not in names):
-            continue
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise AssertionError(f"ablation build {name!r} failed:\n{log}")
-        out[name] = build.bind(so, entries, error)
-    return out
-
-
-def f32_split(libs, card, label="this tree", legacy=False):
-    """K3 and K5 f32 at 4096 rays x 192 (the flagship field, K=32) through
-    each render_field library of libs ({name: library}, "real build" first),
-    in turns: each in order, then in reverse (the better of each pair), CUDA
-    event medians of 5. Timing only: the split builds' outputs are wrong by
-    design. legacy: the libraries read the layout before composite_f32.cuh
-    (for_layout). Returns {name: {"K3": ms, "K5": ms}}."""
-    from dmnerf_torch.kernels import build
-    from dmnerf_torch.kernels import render_field as krf
-    from dmnerf_torch.models.fields import FieldConfig, init_field_params
-
-    cfg = FieldConfig(**FLAGSHIP, ins_num=32, compute_dtype=torch.float32)
-    pk = for_layout(krf.pack_field(init_field_params(torch.Generator().manual_seed(15), cfg,
-                                                     device="cuda")), legacy)
-    g = torch.Generator().manual_seed(15)
-    rd = torch.nn.functional.normalize(torch.randn(4096, 3, generator=g), dim=-1).cuda()
-    z = (torch.sort(torch.rand(4096, 192, generator=g), -1)[0] * 11 + 1).cuda()
-    pts = (torch.randn(4096, 1, 3, generator=g).cuda() * 0.3 + rd[:, None] * z[..., None])
-    vd = rd[:, None].contiguous()
-    fns = {"K3": lambda: krf.render_field_all(pk, pts, vd, z, rd),
-           "K5": lambda: krf.render_field_ins(pk, pts, z, rd)}
-    real, times = build.load_render_field, {}
-    try:
-        with torch.no_grad():
-            for name in [*libs, *reversed(libs)]:
-                build.load_render_field = lambda lib=libs[name]: lib
-                for k, fn in fns.items():
-                    ms = cuda_ms(fn, 5, 1)
-                    times.setdefault(name, {})[k] = min(ms, times.get(name, {}).get(k, ms))
-                    print(f"  f32 split of {label}, {name}, {k}: {ms:.3f} ms", flush=True)
-    finally:
-        build.load_render_field = real
-    base = times[next(iter(libs))]
-    for name, t in times.items():
-        print(f"  f32 split of {label}, {name}: K3 {t['K3']:.3f} ms ({t['K3'] / base['K3']:.3f}x), "
-              f"K5 {t['K5']:.3f} ms ({t['K5'] / base['K5']:.3f}x) (4096 x 192; {card})")
-    return times
-
-
-def k4_rays_sweep(builds, packed, pts, z, rd, want, card):
-    """Phase 6c: K4 on phase 3's coarse rays at group_rays' choice (the real
-    build) and through the ABLATIONS builds at a fixed count of rays per
-    block, in turns real, each, each reversed, real (the better of each
-    pair); the weights must equal the real build's bit for bit."""
-    from dmnerf_torch.kernels import build
-    from dmnerf_torch.kernels import render_field as krf
-
-    phase("6c K4 by rays per block (timing only)")
-    libs = {"real build (group_rays)": build.load_render_field(),
-            **ablation_libs(builds, "render_field", K4_SWEEP)}
-    real, times = build.load_render_field, {}
-    try:
-        with torch.no_grad():
-            for name in [*libs, *reversed(libs)]:
-                build.load_render_field = lambda lib=libs[name]: lib
-                if not torch.equal(krf.render_field_sigma(packed, pts, z, rd), want):
-                    raise AssertionError(f"K4 through {name!r} differs from the real build")
-                ms = cuda_ms(lambda: krf.render_field_sigma(packed, pts, z, rd))
-                times[name] = min(ms, times.get(name, ms))
-    finally:
-        build.load_render_field = real
-    R, S = z.shape
-    for name, ms in times.items():
-        print(f"  render_field_sigma, {name}: {ms:.3f} ms (R={R}, S={S}; weights equal; {card})")
 
 
 def phase(name):
@@ -854,7 +566,6 @@ def main():
     print(f"build wall time {time.perf_counter() - t0:.1f} s (one nvcc per source, in parallel)")
     build.load_render_field()
     build.load_field()
-    ablation_builds = start_ablation_builds()
 
     phase("3 kernels vs plain versions (flagship 8x256, K=32, bf16, 4096 rays)")
     cfg = FieldConfig(**FLAGSHIP, ins_num=32)
@@ -968,36 +679,17 @@ def main():
             and agree >= 0.98):
         raise AssertionError("fused kernel render disagrees with the plain path")
 
-    phase("5 throughput: 128x128 views, 4 poses x 3, K=32, N_test 4096, bf16")
-    bench = SimpleNamespace(N_test=4096, N_samples=64, N_importance=128, near=1.0,
-                            far=12.0)
-    K = np.array([[0.7 * 128, 0, 64], [0, -0.7 * 128, 64], [0, 0, -1.0]], np.float32)
-    poses = np.concatenate([look_at_poses(4)] * 3)
-    params = {"coarse": coarse, "fine": fine}
-    render = make_image_renderer(cfg, bench, 128, 128, device=dev, use_pallas=True)
-    render(params, K, poses[0])                      # warm-up
-    t0 = time.perf_counter()
-    n = sum(1 for _ in render.many(params, K, poses))
-    secs = time.perf_counter() - t0
-    print(f"render: {n * 128 * 128 / secs:.1f} rays/s, {secs / n * 1e3:.2f} ms/view "
-          f"({n} views; {card})")
-    profile_device(lambda: sum(1 for _ in render.many(params, K, poses[:4])), 4, "view", card)
-
-    kernels += field_kernels_vs_plain(dev, card, ablation_builds)
-    k4_rays_sweep(ablation_builds, pc, pts_c, z_c, rd, w_k, card)
+    kernels += field_kernels_vs_plain(dev, card)
     train_launches = train_slice(dev)
     for k in kernels:
         if k["name"] in train_launches:
             k["launches"] = train_launches[k["name"]]
     with tempfile.TemporaryDirectory() as mesh_tmp:
         mesh_cfg = mesh_field(dev, mesh_tmp)
-        train_throughput(dev, card)
-
         kernels.append(ins_kernel_vs_plain(fine, pf, pts_f, vd, z_f, rd, card))
         kernels[-1]["k64"] = k64["render_field_ins"]
         kernels[-1]["launches"] = edit_slice(dev)["render_field_ins"]
-        edit_throughput(dev, card, cfg, {"coarse": coarse, "fine": fine})
-        kernels += f32_builds(dev, card, ro, rd, vd, z_c, z_f, mesh_cfg, ablation_builds)
+        kernels += f32_builds(dev, card, ro, rd, vd, z_c, z_f, mesh_cfg)
         mesh_launches = mesh_slice(dev, card, mesh_cfg)
     with tempfile.TemporaryDirectory() as scenes_tmp:
         scene_launches, scene_errs, scene_secs = reference_scenes(card, scenes_tmp)
@@ -1126,10 +818,9 @@ def check_field_kernels(case, label, probe=True):
     return err.max().item(), abs_err
 
 
-def field_kernels_vs_plain(dev, card, ablation_builds):
+def field_kernels_vs_plain(dev, card):
     """Phase 6: K1 and K2 vs their plain versions at the train step's shapes
-    (K=32) and on the coarse shape at K=64; then the timing-only builds of
-    ABLATIONS beside the real kernels."""
+    (K=32) and on the coarse shape at K=64, each timed alone."""
     from dmnerf_torch.kernels import field as kf
 
     phase("6 K1/K2 vs plain versions (flagship 8x256, K=32, bf16, 3072 rays x 64 / x 192; "
@@ -1141,8 +832,6 @@ def field_kernels_vs_plain(dev, card, ablation_builds):
     (wide,) = field_cases(dev, 64, 64, 3072, (64,))
     wide_err = check_field_kernels(wide, "K=64 P=196608")
     field, packed, pts, vd, pf, dirs, ppd, g = case
-    cfg = field.cfg
-
 
     def fwd_k():
         with torch.no_grad():
@@ -1151,14 +840,6 @@ def field_kernels_vs_plain(dev, card, ablation_builds):
     def fwd_p():
         with torch.no_grad():
             kf.field_forward_ref(field, pts, vd)
-
-    def fb_k():
-        fwd_k()
-        kf.field_backward(packed, pf, dirs, ppd, g)
-
-    def fb_p():
-        fwd_p()
-        kf.field_backward_ref(packed, pf, dirs, ppd, g)
 
     def bwd_k():
         kf.field_backward(packed, pf, dirs, ppd, g)
@@ -1174,24 +855,9 @@ def field_kernels_vs_plain(dev, card, ablation_builds):
 
     ms1, plain1 = pair(fwd_k, fwd_p)
     ms2, plain2 = pair(bwd_k, bwd_p, reps=5)
-    ms12, plain12 = pair(fb_k, fb_p, reps=5)
     print(f"K1 field_forward: kernel {ms1:.3f} ms, plain {plain1:.3f} ms (P=589824; {card})")
     print(f"K2 field_backward (its forward recompute and dW pass included): kernel "
           f"{ms2:.3f} ms, plain {plain2:.3f} ms (P=589824; {card})")
-    print(f"K1+K2 forward+backward: kernels {ms12:.3f} ms, plain {plain12:.3f} ms "
-          f"(P=589824; {card})")
-
-    # what a plain bf16 matmul at this width reaches on the card: a reference
-    # for the field kernels' rate (the port never calls it)
-    x = torch.randn(pf.shape[0], cfg.netwidth, device=dev, dtype=torch.bfloat16)
-    wm = torch.randn(cfg.netwidth, cfg.netwidth, device=dev, dtype=torch.bfloat16)
-    mm_ms = cuda_ms(lambda: torch.matmul(x, wm))
-    print(f"torch.matmul [{x.shape[0]} x {cfg.netwidth}] @ [{cfg.netwidth} x {cfg.netwidth}] "
-          f"bf16: {mm_ms:.3f} ms, {2 * x.shape[0] * cfg.netwidth ** 2 / mm_ms / 1e9:.1f} "
-          f"TFLOP/s (median of 10; {card})")
-
-    ablation_times(ablation_builds, fwd_k, bwd_k, card)
-
     k1 = roofline({"name": "field_forward", "route": "cuda", "source": FIELD_SRC,
                    "replaces": K1_REPLACES, "launches": 0, "max_abs_err": worst_raw,
                    "ms": ms1, "plain_ms": plain1}, *field_work(case, "forward"))
@@ -1227,116 +893,6 @@ def field_work(case, part):
                 P * 12 + dirs.shape[0] * 12 + w_bytes + P * C * 4)
     return (field_macs(field.cfg, "backward") * P,
             P * 12 + dirs.shape[0] * 12 + P * C * 4 + w_bytes + 2 * w_bytes)
-
-
-def ablation_times(builds, fwd_k, bwd_k, card):
-    """Phase 6b: K1 and K2 at P=589,824 through each ABLATIONS build of
-    field.cu but K2_SPLIT's, between two timings of the real build, in one
-    stretch of the run; then the bf16 K2 split (k2_split) through
-    K2_SPLIT's."""
-    from dmnerf_torch.kernels import build
-
-    phase("6b where K1/K2's time goes: the core with a part taken out, or on a 4 x 4 warp "
-          "grid (timing only)")
-    real = build.load_field
-    rows = [("real kernels", cuda_ms(fwd_k), cuda_ms(bwd_k, 5))]
-    try:
-        for name, lib in ablation_libs(builds, "field", [n for n in ABLATIONS if n != F32_ONE_PASS
-                                                         and n not in K2_SPLIT]).items():
-            build.load_field = lambda lib=lib: lib
-            rows.append((name, cuda_ms(fwd_k), cuda_ms(bwd_k, 5)))
-    finally:
-        build.load_field = real
-    rows.append(("real kernels, again", cuda_ms(fwd_k), cuda_ms(bwd_k, 5)))
-    for name, ms1, ms2 in rows:
-        print(f"  {name}: K1 {ms1:.3f} ms, K2 {ms2:.3f} ms (P=589824; {card})")
-    k2_split({"real build": real(), **ablation_libs(builds, "field", list(K2_SPLIT))}, card)
-
-
-def k2_parts(fn, reps=3):
-    """Device ms per call of fn() in K2's kernels (torch.profiler, over the
-    calls the profile kept): {"tile pass", "dW GEMM", "reductions"}."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    parts = {"tile pass": 0.0, "dW GEMM": 0.0, "reductions": 0.0}
-    calls = 0              # the launches the profile kept (a call has one tile pass)
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        for mark, part in (("field_bwd_tile_kernel", "tile pass"), ("dw_partial_kernel", "dW GEMM"),
-                           ("reduce_splits_kernel", "reductions")):
-            if mark in e.key:
-                parts[part] += us / 1e3
-                calls += e.count if part == "tile pass" else 0
-    return {k: v / max(calls, 1) for k, v in parts.items()}
-
-
-def k2_split(libs, card, label="this tree"):
-    """The bf16 K2 at K2_SPLIT_SHAPES (the flagship field) through each field
-    library of libs ({name: library}, the real build first), in turns: each
-    in order, then in reverse (the better of each pair): the CUDA-event
-    median of 5 calls, and the device time of its tile pass, dW GEMM and
-    reductions (torch.profiler). Timing only: the split builds' outputs are
-    wrong by design. Returns {name: {shape: (ms, parts)}}."""
-    from dmnerf_torch.kernels import build
-    from dmnerf_torch.kernels import field as kf
-
-    cases = {}
-    for shape, (ins_num, seed, S) in K2_SPLIT_SHAPES.items():
-        *_, case = field_cases(torch.device("cuda"), ins_num, seed, 3072, sorted({64, S}))
-        cases[shape] = case
-    real, times = build.load_field, {}
-    try:
-        for name in [*libs, *reversed(libs)]:
-            build.load_field = lambda lib=libs[name]: lib
-            for shape, (field, packed, pts, vd, pf, dirs, ppd, g) in cases.items():
-                fn = lambda: kf.field_backward(packed, pf, dirs, ppd, g)
-                ms, parts = cuda_ms(fn, 5, 1), k2_parts(fn)
-                old = times.setdefault(name, {}).get(shape)
-                if old is None or ms < old[0]:
-                    times[name][shape] = (ms, parts)
-    finally:
-        build.load_field = real
-    for shape in cases:
-        base = times[next(iter(libs))][shape][0]
-        for name, t in times.items():
-            ms, parts = t[shape]
-            print(f"  K2 split of {label}, {name}, {shape}: {ms:.3f} ms ({ms / base:.3f}x); "
-                  + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()) + f" ms ({card})")
-    return times
-
-
-def k2_split_main(dirs=()):
-    """`python3 -c "import chip_smoke as cs; cs.k2_split_main()"`: the split
-    of this tree's bf16 K2 (K2_SPLIT), then of each directory of dirs (another
-    tree's dmnerf_torch/kernels/csrc), each beside its real build."""
-    from dmnerf_torch.kernels import build
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
-    print(card, flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    trees = {"this tree": None, **{d: d for d in dirs}}
-    builds = {}
-    for i, (label, src) in enumerate(trees.items()):
-        root = os.path.join(REPO, "build", "k2_split", str(i))
-        builds[label] = start_ablation_builds(list(K2_SPLIT), src, root)
-        if src is not None:
-            builds[label]["real build"] = ("field", *patched_build(
-                "real build", src, os.path.join(root, "real"), "field", [[]]))
-    build.build_all(["field"])
-    for label, b in builds.items():
-        libs = ablation_libs(b, "field")
-        real = libs.pop("real build", None) or build.load_field()
-        k2_split({"real build": real, **libs}, card, label)
 
 
 def train_cfg(tmp, name, n_iters, extra=(), precision="bf16"):
@@ -1399,135 +955,6 @@ def train_slice(dev):
         if not same:
             raise AssertionError("train: two runs from one seed differ")
     return launches
-
-
-def bench_train_workload(precision="bf16"):
-    """bench.py's train workload (bench.py:56-82): (args, scene, cfg) of
-    train_cfg's flags (perturb 1 and lrate_decay 500 are the defaults) and
-    scene through the train CLI's loader, with K=32 on the subdivided labels.
-    bench.py's 128x128 scene is these 8 views, of which it trains on the
-    first 4."""
-    from dmnerf_torch.cli import train as cli_train
-    from dmnerf_torch.models.fields import FieldConfig
-
-    ins_num = 32
-    with tempfile.TemporaryDirectory() as tmp:
-        args, scene, _ = cli_train.load(["--config", train_cfg(tmp, "bench", 1,
-                                                               precision=precision),
-                                         "--device", "cuda"])
-    per = ins_num // 4                        # bench.py:76-81: labels subdivided
-    yy, xx = np.meshgrid(np.arange(scene.H), np.arange(scene.W), indexing="ij")
-    sub = ((yy * (per // 4)) // scene.H) * 4 + (xx * 4) // scene.W
-    scene.gt_labels = (scene.gt_labels * per + sub[None]).astype(scene.gt_labels.dtype)
-    args.ins_num = ins_num
-    return args, scene, FieldConfig.from_args(args)
-
-
-def train_throughput(dev, card):
-    """Phase 8: bench.py's train workload through the port's train step."""
-    from dmnerf_torch.kernels import field as kf
-    from dmnerf_torch.ops import lap
-    from dmnerf_torch.train.step import create_train_state, make_train_scan_step, scene_arrays
-
-    phase("8 train throughput: bench.py's workload (3072 rays, 64+128, 8x256 x2, K=32, "
-          "penalizer, bf16)")
-    args, scene, cfg = bench_train_workload()
-    state = create_train_state(0, cfg, args.lrate, args.lrate_decay, device=dev)
-    step = make_train_scan_step(args, cfg)
-    arrs = scene_arrays(scene, dev)
-    i_train = np.arange(4)
-    m = step(state, arrs, 1, i_train, 3)                      # warm-up
-    torch.cuda.synchronize()
-    n = 20
-    t0 = time.perf_counter()
-    m = step(state, arrs, 1, i_train, n)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) / n * 1e3
-    if not all(np.isfinite(float(v)) for v in m.values()):
-        raise AssertionError(f"train throughput: non-finite metrics {m}")
-    print(f"train: {ms:.2f} ms/step, {args.N_train / ms * 1e3:.1f} rays/s over {n} steps "
-          f"(ins_loss {float(m['ins_loss']):.4f}; {card})")
-
-    # the split: CUDA events around each wrapper, the LAP's host solve on the
-    # host clock, over n more steps
-    events = {"K1 field_forward": [], "K2 field_backward": [], "pack_field": []}
-    originals = {}
-
-    def timed(name, attr):
-        fn = originals.setdefault(attr, getattr(kf, attr))
-
-        def wrapper(*a, **k):
-            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            e0.record()
-            out = fn(*a, **k)
-            e1.record()
-            events[name].append((e0, e1))
-            return out
-        setattr(kf, attr, wrapper)
-
-    timed("K1 field_forward", "field_forward")
-    timed("K2 field_backward", "field_backward")
-    timed("pack_field", "pack_field")
-    solve, host_s = lap.linear_sum_assignment, [0.0]
-
-    def timed_solve(*a, **k):
-        t = time.perf_counter()
-        out = solve(*a, **k)
-        host_s[0] += time.perf_counter() - t
-        return out
-    lap.linear_sum_assignment = timed_solve
-    try:
-        t0 = time.perf_counter()
-        step(state, arrs, 1, i_train, n)
-        torch.cuda.synchronize()
-        ms_split = (time.perf_counter() - t0) / n * 1e3
-    finally:
-        for attr, fn in originals.items():
-            setattr(kf, attr, fn)
-        lap.linear_sum_assignment = solve
-    split = {k: sum(a.elapsed_time(b) for a, b in v) / n for k, v in events.items()}
-    split["LAP host solve"] = host_s[0] / n * 1e3
-    split["rest"] = ms_split - sum(split.values())
-    print(f"step split over {n} steps ({ms_split:.2f} ms/step with the events on; {card}):")
-    for k, v in split.items():
-        print(f"  {k}: {v:.3f} ms/step ({100 * v / ms_split:.1f}%)")
-    profile_device(lambda: step(state, arrs, 1, i_train, 3), 3, "step", card)
-
-
-def profile_device(fn, n, unit, card):
-    """Device time by kernel over fn(), which runs n units (steps, views),
-    under torch.profiler, and the device's busy share of the wall time. A
-    measurement only: a profiler that sees no device time prints "not
-    measured" and the run goes on."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        # device kernels only: a CPU op also carries the device time of the
-        # kernels it launched, which would count them twice
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
-            continue
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
-            rows.append((dev_us / 1e3 / n, e.count // n, e.key))
-    if not rows:
-        print("profiler: no device time recorded; kernel split and idle share not measured")
-        return
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
-    print(f"profiler, {n} {unit}s ({wall_ms / n:.2f} ms/{unit} wall under the profiler; "
-          f"{card}): device busy {busy:.2f} ms/{unit}, idle share "
-          f"{100 * (1 - busy * n / wall_ms):.1f}%")
-    for ms, count, key in rows[:16]:
-        print(f"  {ms:8.3f} ms/{unit}  x{count:<4d} {key[:90]}")
 
 
 def ins_kernel_vs_plain(fine, packed, pts, vd, z, rd, card):
@@ -1594,57 +1021,13 @@ def held_f32(name, got, want, sigma_last=None, quiet=False):
     return worst
 
 
-def f32_train_step(dev, card):
-    """Phase 12: bench.py's train workload in f32 through the port's train
-    step on K1/K2's f32 builds (pallas_train, the default) against the same
-    step on the plain f32 path (--pallas_train False), in turns plain,
-    kernels, kernels, plain in this process (the host side moves between
-    calls); each turn 2 steps of warm-up, then STEP_RUNS timed."""
-    import copy
-    from dmnerf_torch.kernels import field as kf
-    from dmnerf_torch.train.step import create_train_state, make_train_scan_step, scene_arrays
-
-    args, scene, cfg = bench_train_workload("f32")
-    arrs, i_train = scene_arrays(scene, dev), np.arange(4)
-    state = create_train_state(0, cfg, args.lrate, args.lrate_decay, device=dev)
-    steps = {}
-    for kernels in (True, False):
-        a = copy.copy(args)
-        a.pallas_train = kernels
-        steps[kernels] = make_train_scan_step(a, cfg)
-    times = {True: [], False: []}
-    for kernels in (False, True, True, False):
-        steps[kernels](state, arrs, 1, i_train, 2)
-        torch.cuda.synchronize()
-        kf.reset_launches()
-        t0 = time.perf_counter()
-        m = steps[kernels](state, arrs, 1, i_train, STEP_RUNS)
-        torch.cuda.synchronize()
-        times[kernels].append((time.perf_counter() - t0) / STEP_RUNS * 1e3)
-        want = 2 * STEP_RUNS if kernels else 0
-        if (kf.LAUNCHES["field_forward_f32"], kf.LAUNCHES["field_backward_f32"]) != (want, want):
-            raise AssertionError(f"f32 train step: launches {kf.LAUNCHES}, expected {want} of "
-                                 "each f32 build")
-        if not all(np.isfinite(float(v)) for v in m.values()):
-            raise AssertionError(f"f32 train step: non-finite metrics {m}")
-    ms, plain = min(times[True]), min(times[False])
-    print(f"f32 train step (bench.py's workload, 3072 rays, 64+128, K=32): kernels "
-          f"{' / '.join(f'{t:.2f}' for t in times[True])} ms/step, plain (--pallas_train False) "
-          f"{' / '.join(f'{t:.2f}' for t in times[False])} ms/step; kernels/plain "
-          f"{ms / plain:.3f} ({STEP_RUNS} steps a turn; {card})")
-    return {"ms": ms, "plain_ms": plain}
-
-
 def f32_views(dev, card):
-    """Phase 12: one f32 render view (bench.py's render workload: 128x128,
-    N_test 4096, 64+128 samples, the flagship pair at K=32) and one f32 edit
-    view (one rigid object moved, the same field and rays) on the kernels
-    and on the plain path (use_pallas False), in turns plain, kernels,
-    kernels, plain after a warm-up of each (host clock, each view ending in
-    a sync). In the warm-up every f32 composite launch is held to its plain
+    """Phase 12: one f32 render view (128x128, N_test 4096, 64+128 samples,
+    the flagship pair at K=32) and one f32 edit view (one rigid object
+    moved, the same field and rays), each on the kernels and on the plain
+    path (use_pallas False). Every f32 composite launch is held to its plain
     version on its inputs (composites_held); the kernels' view is held to
-    the plain one at VIEW_OFF's bars. Returns {"render": {...}, "edit":
-    {...}} with ms, plain_ms."""
+    the plain one at VIEW_OFF's bars."""
     from dmnerf_torch.edit import manipulator
     from dmnerf_torch.eval.renderer import make_image_renderer
     from dmnerf_torch.models.fields import FieldConfig, init_field_params
@@ -1668,18 +1051,10 @@ def f32_views(dev, card):
             use_pallas=kernels)
         fns["render", kernels] = lambda r=render: as_numpy(r(params, K, pose.astype(np.float32)))
         fns["edit", kernels] = lambda e=edit: as_numpy(e(pose, moved, np.zeros(1)))
-    out = {}
     with torch.no_grad():
         for what in ("render", "edit"):
-            with composites_held({}) as worst:                           # warm-up
+            with composites_held({}) as worst:
                 views = {kernels: fns[what, kernels]() for kernels in (True, False)}
-            times = {True: [], False: []}
-            for kernels in (False, True, True, False):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fns[what, kernels]()
-                torch.cuda.synchronize()
-                times[kernels].append((time.perf_counter() - t0) * 1e3)
             # render: rgb, label, conf, depth; edit: rgb, label, ..., conf
             k_out, p_out = views[True], views[False]
             rgb_err = np.abs(k_out[0] - p_out[0]).reshape(128 * 128, -1).max(1)
@@ -1688,39 +1063,32 @@ def f32_views(dev, card):
                 off |= np.abs(k_out[3] - p_out[3]).reshape(-1) > F32_TOL * max(
                     1.0, float(np.abs(p_out[3]).max()))
             relabelled = int((k_out[1].reshape(-1) != p_out[1].reshape(-1)).sum())
-            ms, plain = min(times[True]), min(times[False])
-            print(f"f32 {what} view, 128x128 (bench.py's workload"
-                  f"{', 1 rigid object' if what == 'edit' else ''}): kernels "
-                  f"{' / '.join(f'{t:.2f}' for t in times[True])} ms, plain (use_pallas False) "
-                  f"{' / '.join(f'{t:.2f}' for t in times[False])} ms; kernels/plain "
-                  f"{ms / plain:.3f}; every f32 composite launch within F32_TOL of its plain "
-                  f"version ({', '.join(f'{k} {v:.2e}' for k, v in worst.items())} of scale); "
+            print(f"f32 {what} view, 128x128{' (1 rigid object)' if what == 'edit' else ''}, "
+                  f"kernels against the plain path (use_pallas False): every f32 composite "
+                  f"launch within F32_TOL of its plain version ({', '.join(f'{k} {v:.2e}' for k, v in worst.items())} of scale); "
                   f"the views: rgb max |diff| {float(rgb_err.max()):.3e}, median "
                   f"{float(np.median(rgb_err)):.3e}, {int(off.sum())} pixels off F32_TOL, "
                   f"{relabelled} relabelled ({card})")
             if (max(int(off.sum()), relabelled) > VIEW_OFF * rgb_err.size
                     or float(np.median(rgb_err)) > F32_TOL / 10):
                 raise AssertionError(f"f32 {what} view: the kernels disagree with the plain path")
-            out[what] = {"ms": ms, "plain_ms": plain}
-    return out
 
 
-def f32_builds(dev, card, ro, rd, vd, z_c, z_f, mesh_cfg, ablation_builds):
+def f32_builds(dev, card, ro, rd, vd, z_c, z_f, mesh_cfg):
     """Phase 12: the f32 builds of K1-K5 against their plain f32 versions,
-    K1/K2 also through the one-TF32-pass build of ABLATIONS (timing only),
-    the f32 train step against its plain path, then the train, render, edit
-    and mesh paths in f32 through their entry points (the mesh of phase 7b's
-    field, mesh_cfg). Returns the kernels-line entries of the f32 builds."""
+    an f32 render and edit view against the plain path, then the train,
+    render, edit and mesh paths in f32 through their entry points (the mesh
+    of phase 7b's field, mesh_cfg). Returns the kernels-line entries of the
+    f32 builds."""
     from dmnerf_torch.cli import test as cli_test
     from dmnerf_torch.cli import train as cli_train
     from dmnerf_torch.edit import runner
-    from dmnerf_torch.kernels import build
     from dmnerf_torch.kernels import field as kf
     from dmnerf_torch.kernels import render_field as krf
     from dmnerf_torch.models.fields import FieldConfig, init_field_params
 
     phase("12 the f32 builds vs their plain f32 versions (flagship 8x256, K=32, 4096 rays; "
-          "3072 rays x 64 / x 192; one TF32 pass; the f32 train step), then cli.train, "
+          "3072 rays x 64 / x 192; a render and an edit view), then cli.train, "
           "cli.test --render, an edit and cli.test --mesh in f32")
     cfg = FieldConfig(**FLAGSHIP, ins_num=32, compute_dtype=torch.float32)
     gen = torch.Generator().manual_seed(12)
@@ -1797,18 +1165,14 @@ def f32_builds(dev, card, ro, rd, vd, z_c, z_f, mesh_cfg, ablation_builds):
         return e_raw, e_grad
 
     # the train step's coarse (3072 x 64) and fine (3072 x 192) shapes, each
-    # held and timed (the entry: the coarse one, the fine under "fine"), then
-    # K1 and K2 through the one-pass build between two timings of the real
-    # one
+    # held and timed (the entry: the coarse one, the fine under "fine")
     cases = list(field_cases(dev, 32, 2, 3072, (64, 192), torch.float32))
     errs = [check_k1_k2(c) for c in cases]
     e_raw, e_grad = (max(e[i] for e in errs) for i in range(2))
-    one_pass = ablation_libs(ablation_builds, "field", [F32_ONE_PASS])[F32_ONE_PASS]
     k1, k2 = ({"name": "field_forward_f32", "source": FIELD_SRC, "replaces": K1_REPLACES,
                "max_abs_err": e_raw},
               {"name": "field_backward_f32", "source": FIELD_SRC, "replaces": K2_REPLACES,
                "max_abs_err": e_grad})
-    real = build.load_field
     for case in cases:
         field, packed, pts, cvd, pts_flat, dirs, ppd, g = case
         P = pts_flat.shape[0]
@@ -1820,28 +1184,11 @@ def f32_builds(dev, card, ro, rd, vd, z_c, z_f, mesh_cfg, ablation_builds):
             with torch.no_grad():
                 got = timed(entry if case is cases[0] else {"name": f"{entry['name']} P={P}"},
                             k_fn, p_fn, field_work(case, part))
-                t = [cuda_ms(k_fn, 3, 1)]
-                try:
-                    build.load_field = lambda: one_pass
-                    t += [cuda_ms(k_fn, 3, 1), cuda_ms(k_fn, 3, 1)]
-                finally:
-                    build.load_field = real
-                t.append(cuda_ms(k_fn, 3, 1))
-            got["one_pass_ms"] = min(t[1:3])
-            print(f"{got['name']}: one TF32 pass {got['one_pass_ms']:.3f} ms against three "
-                  f"{min(t[0], t[3]):.3f} ms (timing only; {card})")
             if case is not cases[0]:
                 entry["fine"] = got
     entries += [k1, k2]
     del cases
-    entries[-1]["train_step"] = f32_train_step(dev, card)
-    # where K3 and K5 f32's time goes (the F32_SPLIT builds), then a render
-    # and an edit view on the kernels against the plain path
-    f32_split({"real build": build.load_render_field(),
-               **ablation_libs(ablation_builds, "render_field", list(F32_SPLIT))}, card)
-    views = f32_views(dev, card)
-    for entry in entries[:3]:
-        entry["view"] = views
+    f32_views(dev, card)
 
     def counted(what, fn, want):
         """fn() with its f32 composite launches held to their plain versions
@@ -2061,98 +1408,6 @@ def edit_vs_plain(dev, cfg, params):
         raise AssertionError(f"the edit bars judge wrongly: {wrong}")
 
 
-def edit_throughput(dev, card, cfg, params):
-    """Phase 11: bench.py's edit workload through the pose image manipulator,
-    pipelined one view ahead as the runners are."""
-    from dmnerf_torch.edit import manipulator, runner
-    from dmnerf_torch.kernels import field as kf
-    from dmnerf_torch.kernels import render_field as krf
-
-    phase("11 edit throughput: bench.py's edit workload (1 rigid object, 8x256 x2, K=32, "
-          "64+128 samples, bf16)")
-    bench = SimpleNamespace(N_test=4096, N_samples=64, N_importance=128, near=1.0, far=12.0)
-    K128 = np.array([[0.7 * 128, 0, 64], [0, -0.7 * 128, 64], [0, 0, -1.0]], np.float32)
-    # bench.py:282-283: the reference's 640x480, intrinsics of their own
-    K640 = np.array([[640.0, 0, 320.0], [0, 640.0, 240.0], [0, 0, 1.0]], np.float32)
-    poses = np.concatenate([look_at_poses(4)] * 3).astype(np.float64)
-    trans = translation(0.3)
-
-    def make(args, H, W, K):
-        run = manipulator.make_pose_image_manipulator(
-            cfg, params, args, [{"mode": "rigid"}], [1], H, W, K, device=dev, use_pallas=True)
-        return lambda _i, pose: run(pose, (trans @ pose)[None], np.zeros(1))
-
-    def per_image(args, H, W, K, views):
-        dispatch = make(args, H, W, K)
-        for _ in runner._prefetch_map(dispatch, views[:1], H * W, dev):   # warm-up
-            pass
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        n = sum(1 for _ in runner._prefetch_map(dispatch, views, H * W, dev))
-        return (time.perf_counter() - t0) / n * 1e3, torch.cuda.max_memory_allocated() / 2**30
-
-    ms128, gib128 = per_image(bench, 128, 128, K128, poses)
-    print(f"edit 128x128: {ms128:.2f} ms/image over {len(poses)} poses, N_test 4096 "
-          f"(peak {gib128:.2f} GiB; {card})")
-    ms640, gib640 = per_image(bench, 480, 640, K640, poses[:3])
-    print(f"edit 640x480: {ms640:.2f} ms/image over 3 poses, N_test 4096 "
-          f"(peak {gib640:.2f} GiB; {card})")
-
-    # the split of one 128x128 view: CUDA events around each part
-    events = {k: [] for k in ("K1 field_forward", "K5 render_field_ins", "sample_pdf",
-                              "sorts (z unions)", "exchanger", "composite")}
-    targets = {"K1 field_forward": (kf, "field_forward"),
-               "K5 render_field_ins": (krf, "render_field_ins"),
-               "sample_pdf": (manipulator, "sample_pdf"),
-               "sorts (z unions)": (manipulator, "_sorted_union"),
-               "exchanger": (manipulator, "exchanger"),
-               "composite": (manipulator, "composite")}
-    originals = {name: getattr(mod, attr) for name, (mod, attr) in targets.items()}
-
-    def timed(name, fn):
-        def wrapper(*a, **k):
-            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            e0.record()
-            out = fn(*a, **k)
-            e1.record()
-            events[name].append((e0, e1))
-            return out
-        return wrapper
-
-    dispatch = make(bench, 128, 128, K128)
-    dispatch(0, poses[0])
-    torch.cuda.synchronize()
-    for name, (mod, attr) in targets.items():
-        setattr(mod, attr, timed(name, originals[name]))
-    try:
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        dispatch(0, poses[1])
-        b.record()
-        b.synchronize()
-    finally:
-        for name, (mod, attr) in targets.items():
-            setattr(mod, attr, originals[name])
-    total = a.elapsed_time(b)
-    split = {k: sum(e0.elapsed_time(e1) for e0, e1 in v) for k, v in events.items()}
-    split["rest (rays, points, sigmoid, argmax, gaps)"] = total - sum(split.values())
-    print(f"split of one 128x128 view ({total:.2f} ms between the first and the last event; "
-          f"{card}):")
-    for k, v in split.items():
-        print(f"  {k}: {v:.3f} ms ({100 * v / total:.1f}%), {len(events.get(k, []))} calls")
-
-    def two_views():
-        for _ in runner._prefetch_map(dispatch, poses[:2], 128 * 128, dev):
-            pass
-    profile_device(two_views, 2, "view", card)
-
-    print("chunk sweep, 128x128, 4 poses each:")
-    for chunk in (1024, 2048, 4096, 8192):
-        ms, gib = per_image(SimpleNamespace(**{**vars(bench), "N_test": chunk}), 128, 128, K128,
-                            poses[:4])
-        print(f"  N_test {chunk}: {ms:.2f} ms/image, peak device memory {gib:.2f} GiB ({card})")
-
-
 def mesh_field(dev, tmp):
     """Phase 7b: the field that phases 12 and 13 mesh, trained through
     dmnerf_torch.cli.train. Returns its config file."""
@@ -2181,8 +1436,8 @@ def mesh_field(dev, tmp):
 def mesh_slice(dev, card, path):
     """Phase 13: dmnerf_torch.cli.test --mesh of phase 7b's field at grid
     256, with the seconds of each stage; then its labels against the plain
-    route, a slice of its grid through K1 against the plain forward, and the
-    density batch sweep. Returns the launch counts of the CLI run."""
+    route and a slice of its grid through K1 against the plain forward.
+    Returns the launch counts of the CLI run."""
     from dmnerf_torch import native
     from dmnerf_torch.cli import test as cli_test
     from dmnerf_torch.kernels import field as kf
@@ -2311,31 +1566,6 @@ def mesh_slice(dev, card, path):
           f"{RAW_L2_TOL:.0e}); sigma max {float(raw_p[:, 3].max()):.2f}")
     if col > RAW_COL_TOL or l2 > RAW_L2_TOL or not bool(torch.isfinite(raw_k).all()):
         raise AssertionError("K1 on the density grid disagrees with its plain version")
-    del raw_k, raw_p, pts, vd
-
-    # the density query by points per launch, in turns 19 21 23 23 21 19
-    sweep = {}
-    for b in (19, 21, 23, 23, 21, 19):
-        query = extract.make_density_fn(cfg, 1 << b, device=dev, use_pallas=True)
-        k1_events.clear()
-        extract.field_forward = k1
-        try:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            sigma = query(fine, q)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-        finally:
-            extract.field_forward = originals["field_forward"]
-        ms = sum(a.elapsed_time(b2) for a, b2 in k1_events)
-        best = sweep.get(b, (secs, ms))
-        sweep[b] = (min(secs, best[0]), min(ms, best[1]))
-    occ = 1.0 - np.exp(-np.maximum(sigma, 0.0) * 11.0 / 128)      # far - near over N_importance
-    print(f"the grid's sigma: max {sigma.max():.2f}, 99th percentile {np.quantile(sigma, 0.99):.2f}; "
-          f"{(occ > 0.45).mean():.4f} of the points above the iso level 0.45")
-    for b, (secs, ms) in sorted(sweep.items()):
-        print(f"density query at 2^{b} points per launch ({-(-256 ** 3 // (1 << b))} launches): "
-              f"{secs:.3f} s, K1 {ms:.3f} ms by CUDA events (the better of two; {card})")
     return launches
 
 
@@ -3076,9 +2306,10 @@ def mesh_work(mesh, dev):
 
     from dmnerf_torch.edit.manipulator import make_pose_image_manipulator
     from dmnerf_torch.eval.renderer import make_image_renderer
+    from dmnerf_torch.tools.trace_step import bench_workload
     from dmnerf_torch.train import step as step_mod
 
-    args, scene, cfg = bench_train_workload()
+    args, scene, cfg = bench_workload()
     state = step_mod.create_train_state(0, cfg, args.lrate, args.lrate_decay, device=dev)
     fresh = copy.deepcopy(state.params)
     scan = step_mod.make_train_scan_step(args, cfg, mesh=mesh)
@@ -3414,6 +2645,7 @@ def model_mesh(dev, card):
     checks follow. Returns the launches of the sharded runs, summed over the
     ranks."""
     from dmnerf_torch.graft_entry import entry
+    from dmnerf_torch.tools.trace_step import bench_workload
 
     phase("18 the 2-D (data, model) mesh: (a) make_mesh_2d(1, 1) over NCCL under torchrun, "
           "one bf16 step of bench.py's train workload on each pallas_train path, against this "
@@ -3434,7 +2666,7 @@ def model_mesh(dev, card):
         # ~15 GB a rank at full batch)
         grid4 = start("4", "grid4")
         t0 = time.perf_counter()
-        args, scene, cfg = bench_train_workload()
+        args, scene, cfg = bench_workload()
         torch.save((args, scene), os.path.join(tmp, "bench.tmp"))
         os.replace(os.path.join(tmp, "bench.tmp"), os.path.join(tmp, "bench.pt"))
         ref = grid_step(None, dev, (args, scene, cfg))
@@ -3527,8 +2759,9 @@ def ab_main(dirs):
     other (CUDA events, median of 10; 5 for K2). The bf16 outputs must equal
     this tree's bit for bit; the f32 ones are printed with their largest
     difference, then each f32 build's accuracy (f32_accuracy, and K3/K5's
-    f32_composite_accuracy), then the f32 split (F32_SPLIT) of this tree
-    and of the first DIR. All libraries build at once. AB_ONLY=prefix[,...]
+    f32_composite_accuracy). A DIR needs the f32 composites' layout of
+    composite_f32.cuh (pack_field's slabs). All libraries build at once.
+    AB_ONLY=prefix[,...]
     in the environment times only the kernels whose "{build} {kernel}"
     label starts with one of them (e.g. "f32 K3,f32 K5")."""
     from dmnerf_torch.kernels import build
@@ -3544,10 +2777,6 @@ def ab_main(dirs):
     print(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     procs = []
-    # the f32 split (F32_SPLIT) of this tree and of the first other one
-    splits = {t: start_ablation_builds(list(F32_SPLIT), None if t == "this" else t,
-                                       os.path.join(REPO, "build", "ab_split", str(i)))
-              for i, t in enumerate(["this", *dirs[:1]])}
     for i, d in enumerate(dirs):
         out = os.path.join(REPO, "build", "ab", str(i))
         os.makedirs(out, exist_ok=True)
@@ -3576,8 +2805,6 @@ def ab_main(dirs):
     print(f"built {len(procs) + 2} libraries in {time.perf_counter() - t0:.1f} s")
     real = build.load_field, build.load_render_field
 
-    legacy = {t: legacy_layout(t) for t in ["this", *dirs]}
-
     def run(which, fn, reps):
         build.load_field, build.load_render_field = (lambda: libs[which][0]), (lambda: libs[which][1])
         try:
@@ -3602,12 +2829,9 @@ def ab_main(dirs):
             fns[f"K1 3072x{S}"] = (10, lambda w, fp=fp, fvd=fvd: kf.field_forward(pk, fp, fvd))
             fns[f"K2 3072x{S}"] = (5, lambda w, pf=pf, d=dirs_, p=ppd, gk=gk: tuple(
                 kf.field_backward(pk, pf, d, p, gk)[:2]))
-        fns["K4 4096x64"] = (10, lambda w: krf.render_field_sigma(
-            for_layout(pk, legacy[w]), pc, zc, rd))
-        fns["K3 4096x192"] = (10, lambda w: krf.render_field_all(
-            for_layout(pk, legacy[w]), pts, vd, z, rd))
-        fns["K5 4096x192"] = (10, lambda w: krf.render_field_ins(
-            for_layout(pk, legacy[w]), pts, z, rd))
+        fns["K4 4096x64"] = (10, lambda w: krf.render_field_sigma(pk, pc, zc, rd))
+        fns["K3 4096x192"] = (10, lambda w: krf.render_field_all(pk, pts, vd, z, rd))
+        fns["K5 4096x192"] = (10, lambda w: krf.render_field_ins(pk, pts, z, rd))
         only = tuple(os.environ.get("AB_ONLY", "").split(","))
         with torch.no_grad():
             for name, (reps, fn) in fns.items():
@@ -3624,27 +2848,8 @@ def ab_main(dirs):
                         raise AssertionError(f"bf16 {name}: this tree's output differs from {d}'s")
     for case in cases:
         f32_accuracy(case, {w: libs[w][0] for w in ["this", *dirs]}, card)
-    f32_composite_accuracy({w: libs[w][1] for w in ["this", *dirs]}, card, legacy)
-    read_rates(card)
-    for t, builds in splits.items():
-        f32_split({"real build": libs[t][1], **ablation_libs(builds, "render_field")}, card, t,
-                  legacy[t])
+    f32_composite_accuracy({w: libs[w][1] for w in ["this", *dirs]}, card)
     return 0
-
-
-def legacy_layout(csrc):
-    """Whether the f32 composites of the csrc directory ("this": this tree's)
-    read the K1/K2 layout (w, meta), as they did before composite_f32.cuh,
-    in place of pack_field's slabs."""
-    from dmnerf_torch.kernels import build
-    return not os.path.exists(os.path.join(build.CSRC if csrc == "this" else csrc,
-                                           "composite_f32.cuh"))
-
-
-def for_layout(packed, legacy):
-    """packed as the f32 composites of a tree read it: legacy (see
-    legacy_layout) hands them w and meta in place of the slabs."""
-    return packed._replace(slabs=packed.w, slab_meta=packed.meta) if legacy else packed
 
 
 # f32_accuracy: a ReLU input within this of zero may take the other side of
@@ -3695,28 +2900,11 @@ def f32_accuracy(case, libs, card):
         build.load_field = real
 
 
-def read_rates(card):
-    """The rate at which one torch.sum reads 256 rows that are all the same
-    5.59 MB of fp32 (the f32 composites' hi and lo weights, resident in
-    L2), beside one read of 1,024 MB from device memory: GB/s over
-    CUDA-event medians of 20."""
-    x = torch.ones(1398016, device="cuda")
-    for name, fn, nbytes in (("5.59 MB x 256 (L2)", lambda: x.expand(256, -1).sum(1),
-                              256 * x.numel() * 4),
-                             ("1,024 MB (device memory)", lambda: y.sum(), 1024e6)):
-        y = torch.ones(256 * 10 ** 6, device="cuda") if "device" in name else None
-        ms = cuda_ms(fn, 20, 5)
-        print(f"read rate of torch.sum over {name}: {nbytes / ms / 1e6:.1f} GB/s "
-              f"({ms:.3f} ms; {card})")
-        del y
-
-
-def f32_composite_accuracy(libs, card, legacy=None):
+def f32_composite_accuracy(libs, card):
     """For each render_field library of libs ({name: library}): K3 and K5
-    f32 at f32_split's 4096 x 192 against an f64 run of their plain versions
-    (rms of the error over rms of the f64 output, per output), beside the
-    plain f32 path's. legacy: {name: whether the library reads the layout
-    before composite_f32.cuh} (for_layout)."""
+    f32 at 4096 x 192 (the flagship field, K=32) against an f64 run of their
+    plain versions (rms of the error over rms of the f64 output, per
+    output), beside the plain f32 path's."""
     from dmnerf_torch.kernels import build
     from dmnerf_torch.kernels import render_field as krf
     from dmnerf_torch.models.fields import FieldConfig, init_field_params
@@ -3743,9 +2931,8 @@ def f32_composite_accuracy(libs, card, legacy=None):
         try:
             for name, lib in libs.items():
                 build.load_render_field = lambda lib=lib: lib
-                p = for_layout(pk, (legacy or {}).get(name, False))
-                rows[name] = rms((*krf.render_field_all(p, pts, vd, z, rd),
-                                  krf.render_field_ins(p, pts, z, rd)))
+                rows[name] = rms((*krf.render_field_all(pk, pts, vd, z, rd),
+                                  krf.render_field_ins(pk, pts, z, rd)))
         finally:
             build.load_render_field = real
     for name, errs in rows.items():
@@ -3757,18 +2944,10 @@ def f32_composite_accuracy(libs, card, legacy=None):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
         sys.exit(rank_main(sys.argv[2:]))
-    if sys.argv[1:2] == ["--ab"]:
-        try:
-            sys.exit(ab_main(sys.argv[2:]))
-        finally:
-            for child in CHILDREN:
-                if child.poll() is None:
-                    child.kill()
-                    child.wait()
     try:
-        sys.exit(main())
+        sys.exit(ab_main(sys.argv[2:]) if sys.argv[1:2] == ["--ab"] else main())
     finally:
-        for child in CHILDREN:          # the ablation builds of a run that failed early
+        for child in CHILDREN:          # the nvcc builds or ranks of a run that failed
             if child.poll() is None:
                 child.kill()
                 child.wait()

@@ -57,7 +57,7 @@
 //   ring, 4 stages x 32 x 256 bf16                         65,536 (1024-aligned)
 //   mbarriers                                                  64
 // The stages are chosen per launch: as many as fit, at most MAXSTAGES. The
-// split of this design's time is K2_SPLIT in chip_smoke.py (PERF.md section 6).
+// split of this design's time is recorded in PERF.md section 6.
 
 #pragma once
 

@@ -34,10 +34,11 @@
 //   tile w / WM: fp32 accumulators in registers, each thread the values at
 //   the positions of an m16n8 fragment. With WM x WN = 2 x 8 a bf16 warp
 //   holds 64 rows, so each B fragment feeds 4 products and each A fragment
-//   up to 4 (chip_smoke.py phase 6b times a 4 x 4 grid, 2 products per
-//   fragment, beside it). Epilogues (bias, ReLU, bf16 rounding, ReLU mask
-//   bits) run on those registers. Sixteen warps, four per scheduler, hide
-//   the latency of the ldmatrix -> mma chains and of the per-slab barrier.
+//   up to 4 (a 4 x 4 grid, 2 products per fragment, ran K1 slower: PERF.md
+//   section 6 records the readings). Epilogues (bias, ReLU, bf16 rounding,
+//   ReLU mask bits) run on those registers. Sixteen warps, four per
+//   scheduler, hide the latency of the ldmatrix -> mma chains and of the
+//   per-slab barrier.
 // - Activations live in shared memory, rows padded by 16 bytes so that the 8
 //   row addresses of one ldmatrix fall in distinct 16-byte bank groups. In
 //   the float build ldmatrix moves 32-bit words: lane l receives the word at

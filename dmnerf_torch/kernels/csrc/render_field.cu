@@ -29,7 +29,7 @@
 //   per (ray, output channel): 2 at S = 192 or 64 (no padding). For K4 at
 //   S = 64, 4 and 8 rays per block (2 and 4 tiles, the ring across them)
 //   gain nothing over 2, and 1 (half a tile) takes about 1.8 times as long
-//   (chip_smoke.py phase 6c; the readings are in PERF.md section 6).
+//   (the readings are in PERF.md section 6).
 // - After a tile's output layer its fp32 raw [128, CP] (bias added, the same
 //   sums as K1's raw; K4: the first 8 columns, the density in column 3) is
 //   staged in shared memory over H and Bf, which the tile no longer needs,

@@ -341,23 +341,18 @@ def report(path: str, steps: int, top: int) -> int:
     return 0
 
 
-def capture(out_dir: str, steps: int, device: str, precision: str = "bf16") -> None:
-    """bench.py's train workload at `precision` (bf16 or f32): one dispatch
-    of `steps` steps outside the trace, then one traced dispatch into
-    out_dir."""
+def bench_workload(precision: str = "bf16"):
+    """bench.py's train workload at `precision` (bf16 or f32): (args, scene,
+    cfg) of 3072 rays, 64+128 samples, two 8x256 fields at PE 10/4, the
+    penalizer and perturb on, the kernels K1/K2 (pallas_train), and K=32 on
+    the boxroom scene's labels subdivided 8 ways, 4 train views at 128x128.
+    The scene is host arrays (train/step.py::scene_arrays moves them)."""
     import numpy as np
-    import torch
 
     from dmnerf_torch.config import default_config
     from dmnerf_torch.data.synthetic import make_scene
-    from dmnerf_torch.kernels import field as kf
     from dmnerf_torch.models.fields import FieldConfig
-    from dmnerf_torch.train.step import create_train_state, make_train_scan_step, scene_arrays
-    from dmnerf_torch.utils.profiling import trace
 
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
     args = default_config(
         N_train=3072, N_samples=64, N_importance=128, near=1.0, far=12.0, perturb=1.0,
         penalize=True, tolerance=0.05, deta_w=0.05, lrate=5e-4, lrate_decay=500,
@@ -367,7 +362,23 @@ def capture(out_dir: str, steps: int, device: str, precision: str = "bf16") -> N
     yy, xx = np.meshgrid(np.arange(scene.H), np.arange(scene.W), indexing="ij")
     sub = ((yy * 2) // scene.H) * 4 + ((xx * 4) // scene.W)     # 8 labels per object
     scene.gt_labels = (scene.gt_labels * 8 + sub[None]).astype(scene.gt_labels.dtype)
-    cfg = FieldConfig.from_args(args)
+    return args, scene, FieldConfig.from_args(args)
+
+
+def capture(out_dir: str, steps: int, device: str, precision: str = "bf16") -> None:
+    """bench_workload at `precision`: one dispatch of `steps` steps outside
+    the trace, then one traced dispatch into out_dir."""
+    import numpy as np
+    import torch
+
+    from dmnerf_torch.kernels import field as kf
+    from dmnerf_torch.train.step import create_train_state, make_train_scan_step, scene_arrays
+    from dmnerf_torch.utils.profiling import trace
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    args, scene, cfg = bench_workload(precision)
     state = create_train_state(0, cfg, args.lrate, args.lrate_decay, device=dev)
     step = make_train_scan_step(args, cfg)
     arrs = scene_arrays(scene, dev)

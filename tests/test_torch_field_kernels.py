@@ -283,37 +283,33 @@ def _chip_smoke():
     return mod
 
 
-@pytest.mark.parametrize("part", ["sigma", "ins", "all"])
+@pytest.mark.parametrize("part", ["sigma", "ins", "all", "backward"])
 @pytest.mark.parametrize("over", [{}, dict(netdepth=8, netwidth=256, multires=10,
                                            multires_views=4, ins_num=32, skip=4)])
 def test_chip_smoke_counts_the_field_layers(part, over):
     """chip_smoke.py's bounds count one multiply-add per weight of the layers
     a kernel runs, per point: every Linear for the whole field, the trunk and
-    density for K4, and those and the instance branch for K5."""
+    density for K4, and those and the instance branch for K5. K2's backward
+    is dW, one product per weight, and dX: the heads back to their hidden
+    layers, the hidden layers back to their trunk columns (not the view
+    encoding), the density head and the rgb feature layer back to the trunk
+    (the instance branch reads it detached), and the trunk's layers after the
+    first back to their trunk columns (the points need no gradient)."""
     field = tf.DMNeRFField(tf.FieldConfig(**{**CFG, **over}))
-    heads = {"sigma": ("mlps.", "density_linear."),
-             "ins": ("mlps.", "density_linear.", "ins_"),
-             "all": ("",)}[part]
-    want = sum(p.numel() for n, p in field.named_parameters()
-               if n.endswith("weight") and n.startswith(heads))
+    weights = {n[:-len(".weight")]: p for n, p in field.named_parameters()
+               if n.endswith("weight")}
+    if part == "backward":
+        W = field.cfg.netwidth
+        dx = (sum(weights[n].numel() for n in ("rgb_linear", "ins_linear",
+                                                "ins_feature_linears.0", "density_linear",
+                                                "rgb_feature_linear"))
+              + weights["rgb_feature_linears.0"].shape[0] * W
+              + sum(w.shape[0] * W for n, w in weights.items()
+                    if n.startswith("mlps.") and n != "mlps.0"))
+        want = dx + sum(w.numel() for w in weights.values())
+    else:
+        heads = {"sigma": ("mlps.", "density_linear"),
+                 "ins": ("mlps.", "density_linear", "ins_"),
+                 "all": ("",)}[part]
+        want = sum(w.numel() for n, w in weights.items() if n.startswith(heads))
     assert _chip_smoke().field_macs(field.cfg, part) == want
-
-
-@pytest.mark.parametrize("name", ["K2 split: weight slab loads out", "K2 split: barriers out",
-                                  "K2 split: row stores out", "K2 split: dW staging out"])
-def test_k2_split_builds_patch_text_in_the_sources(name):
-    """chip_smoke.py's K2_SPLIT entries (ABLATIONS of field.cu): the first
-    alternative patches field_bwd_wgmma.cuh's K2, the second field_core.cuh's
-    and field.cu's mma.sync K2; every old text is in these sources once, and
-    the patch changes it."""
-    import os
-    from dmnerf_torch.kernels.build import CSRC
-    cs = _chip_smoke()
-    lib, alternatives = cs.ABLATIONS[name]
-    assert lib == "field" and len(alternatives) == 2 and name in cs.K2_SPLIT
-    assert all(f == "field_bwd_wgmma.cuh" for f, _, _ in alternatives[0])
-    for patches in alternatives:
-        for f, old, new in patches:
-            text = open(os.path.join(CSRC, f)).read()
-            assert text.count(old) == 1 and old != new
-    assert set(cs.K2_SPLIT_SHAPES) == {"P=589824", "K=64 P=196608"}

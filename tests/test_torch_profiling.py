@@ -394,3 +394,25 @@ def test_k2_kernels_count_as_field_backward_in_the_benchmark(name):
     spec.loader.exec_module(mod)
     assert mod.PATTERN.search(name)
     assert trace_summary.categorize(name) == trace_step.categorize(name) == "field_backward"
+
+
+@pytest.mark.parametrize("precision", ["bf16", "f32"])
+def test_bench_workload_is_bench_pys_train_workload(precision):
+    """trace_step.bench_workload, the train workload that trace_step's
+    capture and chip_smoke.py's rank phases run: 3072 rays, 64+128 samples,
+    two 8x256 fields at PE 10/4 on the kernels, the penalizer and perturb
+    on, the field's compute dtype from the precision, 4 train views at
+    128x128, and K=32: the boxroom labels subdivided 8 ways, every value in
+    some view."""
+    import torch
+
+    args, scene, cfg = trace_step.bench_workload(precision)
+    assert (args.N_train, args.N_samples, args.N_importance) == (3072, 64, 128)
+    assert (args.netdepth, args.netwidth, args.multires, args.multires_views) == (8, 256, 10, 4)
+    assert args.penalize and args.perturb > 0 and args.pallas_train
+    assert (args.tolerance, args.deta_w, args.lrate, args.lrate_decay) == (0.05, 0.05, 5e-4, 500)
+    assert (cfg.netdepth, cfg.netwidth, cfg.ins_num) == (8, 256, 32)
+    assert cfg.compute_dtype == {"bf16": torch.bfloat16, "f32": torch.float32}[precision]
+    assert list(scene.i_train) == [0, 1, 2, 3] and (scene.H, scene.W) == (128, 128)
+    assert scene.images.shape[1:3] == (128, 128)
+    assert np.array_equal(np.unique(scene.gt_labels), np.arange(32))
